@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
+
+Drives ``kubeadmiral_tpu_torch`` on the card:
+
+1. prints the card's name and power limit;
+2. builds the phase-1 CUDA kernel (csrc/phase1.cu) with nvcc for sm_90a;
+3. builds the config 3 (10k x 500) and config 5 (100k x 5k) worlds;
+4. holds the kernel against its plain torch twin on the same CUDA
+   tensors (tolerance 0: integer math, bit-identical) on a c5 chunk
+   (4096 x 5120, R=3), a c3 chunk (4096 x 512, R=2) and an odd-B case
+   with padded columns and webhook planes, times kernel vs plain with
+   CUDA events (median after warm-up), and works out the kernel's bound
+   from what these inputs need (bytes, and int32-pipe instructions with
+   the 64-bit divisions counted from the built kernel's SASS);
+5. runs one cold ``SchedulerEngine().schedule(units, clusters)`` tick per
+   config on the card, requires the phase-1 launch count to equal the
+   chunk count, and holds the placements against the port's CPU engine
+   (every row at c3; the first rows at c5 — rows are independent);
+6. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
+   the last line.
+
+Any failed check exits nonzero without the final line.  Without CUDA it
+exits 2 before doing anything.  Usage: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# The data sheet's 67 TFLOP/s fp32 counts 128 lanes x 2 (an FMA) per SM
+# clock; compute capability 9.0 issues 64 int32 instructions per SM clock,
+# a quarter of that.  Phase 1 is integer work, so this is its peak.
+INT32_OPS_PER_S = 67e12 / 4
+C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
+
+# Phase-1 work besides the 64-bit divisions, in int32-pipe instructions
+# (a 64-bit add, compare or shift counts 2, a 64-bit multiply 3 — an
+# IMAD.WIDE.U32 and two IMADs — as they compile for sm_90a):
+CELL_OPS = 10           # every cell: webhook/valid tests, feasibility, the two
+                        # extra reason bits, four stores
+FILTER_OPS = 2          # each enabled filter on each cell: test and OR
+FIT_OPS = 5             # each resource on each cell of a row that requests:
+                        # 64-bit add, 64-bit compare, AND
+NORM_OPS = 6            # taint/affinity on a feasible cell: masked max, x100,
+                        # reverse, zero-max select, 64-bit add to the total
+BALANCED_OPS = 50       # guards, two range shifts, four shifts, three
+                        # multiplies, |difference|, x100, add
+RESOURCE_OPS = 4        # used + request for cpu and mem (any resource plugin)
+RATIO_OPS = 20          # least/most: two guards and two x100 per resource,
+                        # the floor average, add
+WEBHOOK_OPS = 2         # webhook score added on a feasible cell
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def chunk_device_inputs(engine, units, clusters):
+    """The first chunk's device inputs (CompactInputs, or TickInputs on
+    the dense fallback), exactly as engine.schedule builds them."""
+    from kubeadmiral_tpu_torch.scheduler.featurize import _build_cluster_view
+
+    view = _build_cluster_view(clusters, units)
+    c_bucket, eff, ladder = engine._tick_geometry(len(view.clusters))
+    vocab = engine._vocab_for(view)
+    chunk = units[:eff]
+    inputs, fmt = engine._featurize_full(chunk, clusters, view, vocab)
+    b_pad = engine._bucket_rows(len(chunk), ladder, eff, len(units) > eff)
+    padded = engine._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
+    dev = engine._device_inputs(
+        padded, fmt, vocab, c_bucket, engine._cluster_planes_device(view, c_bucket)
+    )
+    return dev, fmt
+
+
+def chunk_tick_inputs(engine, units, clusters):
+    """The first chunk's expanded device TickInputs."""
+    from kubeadmiral_tpu_torch.ops.pipeline import expand_compact
+
+    dev, fmt = chunk_device_inputs(engine, units, clusters)
+    return expand_compact(dev) if fmt == "compact" else dev
+
+
+def profile_chunk(label: str, engine, units, clusters, top: int = 12) -> None:
+    """Device time of one chunk's expand + schedule_tick by kernel
+    (torch.profiler), against the window's wall time (idle share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeadmiral_tpu_torch.ops.pipeline import expand_compact, schedule_tick
+
+    dev, fmt = chunk_device_inputs(engine, units, clusters)
+    run = lambda: schedule_tick(expand_compact(dev) if fmt == "compact" else dev)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Device-side events only (the kernels and copies themselves; the
+    # host ops that launched them would count the same time again).
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in events)
+    log(
+        f"profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
+        f"idle share {1 - busy / wall_us:.3f}"
+    )
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def timed_ms(fn, runs: int = 7) -> float:
+    """Median device time of fn() in ms (CUDA events), after a warm-up,
+    with L2 flushed before every run."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def div64_instructions(lib_path) -> dict:
+    """Instructions of one 64-bit division in the built kernel, from its
+    SASS: each floor division checks whether both operands fit in 32
+    bits and takes a short 32-bit path if so, else calls the 64-bit
+    routine.  The least over the division sites of each path."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True
+    ).stdout
+    code = [
+        (int(a, 16), t.strip())
+        for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)
+    ]
+    index = {a: i for i, (a, _) in enumerate(code)}
+    target = lambda t: index[int(t.split()[-1], 16)]  # noqa: E731
+    calls = [i for i, (_, t) in enumerate(code) if t.startswith("CALL.REL.NOINC ")]
+    routines = {target(code[i][1]) for i in calls}
+    if len(routines) != 1:
+        raise AssertionError(f"expected one 64-bit division routine, found {len(routines)}")
+    start = routines.pop()
+    routine = next(k for k in range(start, len(code)) if code[k][1].startswith("RET")) - start + 1
+    fast, slow = [], []
+    for i in calls:
+        # The branch to the 32-bit path just before the call, and the
+        # branch just after it to where both paths meet.
+        j = max(k for k in range(i) if re.fullmatch(r"@!?P\d BRA 0x[0-9a-f]+", code[k][1]))
+        k = next(k for k in range(i, len(code)) if re.fullmatch(r"BRA 0x[0-9a-f]+", code[k][1]))
+        fast.append(target(code[k][1]) - target(code[j][1]))
+        slow.append(k - j + routine)
+    return {"sites": len(calls), "fast": min(fast), "slow": min(slow)}
+
+
+def phase1_work(inp, feasible) -> dict:
+    """What phase 1 must do on these inputs, given the feasibility it
+    computes: which cells each filter and score plugin touches, and how
+    many 64-bit divisions take the 32-bit path (both operands in
+    [0, 2^32)) or the full one, exactly as the kernel divides."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops import scores as S
+
+    fe, se = inp.filter_enabled, inp.score_enabled
+    c = feasible.shape[1]
+    counts = {"fast": 0, "slow": 0}
+
+    def divisions(keep, num, den):
+        den = den.clamp(min=1)
+        fast = int((keep & (num >= 0) & (num < 2**32) & (den < 2**32)).sum())
+        counts["fast"] += fast
+        counts["slow"] += int(keep.sum()) - fast
+
+    scored = {p: feasible & se[:, p, None] for p in range(S.NUM_SCORE_PLUGINS)}
+    for p, plane in ((S.S_TAINT, inp.taint_counts), (S.S_AFFINITY, inp.affinity_scores)):
+        row_max = torch.where(scored[p], plane, 0).amax(1, keepdim=True)
+        num = (plane * 100).to(torch.int64)  # the plane's int32 product, as the kernel
+        divisions(scored[p] & (row_max != 0), num, row_max.to(torch.int64).expand_as(num))
+    alloc_cpu, alloc_mem, req_cpu, req_mem = S._requested_totals(inp.request, inp.alloc, inp.used)
+    keep = (
+        scored[S.S_BALANCED] & (alloc_cpu != 0) & (alloc_mem != 0)
+        & (req_cpu < alloc_cpu) & (req_mem < alloc_mem)
+    )
+    s_cpu, s_mem = S._balanced_range_shift(alloc_cpu), S._balanced_range_shift(alloc_mem)
+    ac, rc = alloc_cpu >> s_cpu, req_cpu >> s_cpu
+    am, rm = alloc_mem >> s_mem, req_mem >> s_mem
+    total = (ac * am).clamp(min=1)
+    divisions(keep, 100 * (total - (rc * am - rm * ac).abs()), total)
+    for p, least in ((S.S_LEAST, True), (S.S_MOST, False)):
+        for req, alloc in ((req_cpu, alloc_cpu), (req_mem, alloc_mem)):
+            keep = scored[p] & (alloc != 0) & (req <= alloc)
+            divisions(keep, (alloc - req if least else req) * 100, alloc)
+
+    resource = scored[S.S_BALANCED] | scored[S.S_LEAST] | scored[S.S_MOST]
+    return {
+        "cells": feasible.numel(),
+        "feasible": int(feasible.sum()),
+        "filter_cells": [int(fe[:, f].sum()) * c for f in range(fe.shape[1])],
+        "fit_cells": int((fe[:, 2] & (inp.request > 0).any(1)).sum()) * c,
+        "placement_cells": int((fe[:, 3] & inp.placement_has).sum()) * c,
+        "scored": {p: int(m.sum()) for p, m in scored.items()},
+        "resource_cells": int(resource.sum()),
+        "div_fast": counts["fast"],
+        "div_slow": counts["slow"],
+    }
+
+
+def phase1_bound(inp, feasible, div: dict) -> dict:
+    """Least time for phase 1 on these inputs: the bytes the function
+    needs (each plane read once, and only where a row's enabled filters
+    and plugins read it; each output written once) over the HBM rate,
+    and its int32-pipe instructions over the int32 peak."""
+    from kubeadmiral_tpu_torch.ops import scores as S
+
+    w = phase1_work(inp, feasible)
+    b, c = feasible.shape
+    r = inp.request.shape[1]
+    score_bytes = inp.taint_counts.element_size()
+    scored = w["scored"]
+    api, taint, fit, _, selector = w["filter_cells"]
+    # alloc/used: every resource where a row's fit filter runs, else cpu
+    # and mem where a resource plugin scores.
+    cluster_r = r if w["fit_cells"] else (2 if w["resource_cells"] else 0)
+    nbytes = (
+        b * (5 + 5 + 1 + 8 * r)                  # flags, placement_has, request
+        + api + selector + w["placement_cells"]  # api_ok, selector_ok, placement_ok
+        + 2 * taint                              # current_mask, then one taint plane
+        + b * c + c                              # webhook_ok, cluster_valid
+        + 2 * 8 * c * cluster_r                  # alloc, used
+        + score_bytes * (w["feasible"] + scored[S.S_TAINT] + scored[S.S_AFFINITY])
+        + (1 + 4 + 8) * b * c                    # feasible, reasons, totals
+    )
+    ops = (
+        CELL_OPS * w["cells"]
+        + FILTER_OPS * sum(w["filter_cells"])
+        + FIT_OPS * r * w["fit_cells"]
+        + NORM_OPS * (scored[S.S_TAINT] + scored[S.S_AFFINITY])
+        + BALANCED_OPS * scored[S.S_BALANCED]
+        + RESOURCE_OPS * w["resource_cells"]
+        + RATIO_OPS * (scored[S.S_LEAST] + scored[S.S_MOST])
+        + WEBHOOK_OPS * w["feasible"]
+        + div["fast"] * w["div_fast"]
+        + div["slow"] * w["div_slow"]
+    )
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {
+        "bytes": int(nbytes),
+        "ops": int(ops),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "derivation": (
+            f"max({nbytes} B / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.6f} ms, "
+            f"{ops} int32 instructions / {INT32_OPS_PER_S:.4g} /s = {ops_ms:.6f} ms)"
+        ),
+        "work": {k: v for k, v in w.items() if k != "scored"}
+        | {"scored": [scored[p] for p in range(S.NUM_SCORE_PLUGINS)]},
+    }
+
+
+def check_phase1(label: str, inp, div: dict = None) -> dict:
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
+
+    got = phase1(inp)
+    want = phase1_plain(inp)
+    torch.cuda.synchronize()
+    err = 0
+    for name, g, w in zip(("feasible", "reasons", "totals"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+    b, c = inp.api_ok.shape
+    row = {"case": label, "shape": [b, c, int(inp.request.shape[1])], "max_abs_err": err}
+    if err != 0:
+        raise AssertionError(f"{label}: kernel differs from phase1_plain (max abs err {err})")
+    if div is not None:
+        row["ms"] = timed_ms(lambda: phase1(inp))
+        row["plain_ms"] = timed_ms(lambda: phase1_plain(inp), runs=3)
+        row.update(phase1_bound(inp, want[0], div))
+    log(f"phase1 {label}: {json.dumps(row)}")
+    return row
+
+
+def run_tick(label: str, engine, units, clusters):
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1
+
+    phase1.launches = 0
+    t0 = time.perf_counter()
+    results = engine.schedule(units, clusters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = phase1.launches
+    stages = {k: round(v, 3) for k, v in engine.timings.items()}
+    log(
+        f"tick {label}: {len(units)} objects x {len(clusters)} clusters in "
+        f"{wall * 1e3:.1f} ms ({len(units) / wall:.0f} objects/s), phase1 "
+        f"launches {launches}, stage seconds {stages}"
+    )
+    return results, launches, wall
+
+
+def assert_results_equal(label: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results vs {len(want)}")
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a.clusters != b.clusters]
+    if bad:
+        i = bad[0]
+        raise AssertionError(
+            f"{label}: {len(bad)} rows differ; row {i}: {dict(got[i].clusters)} "
+            f"vs {dict(want[i].clusters)}"
+        )
+    placed = sum(1 for r in got if r.clusters)
+    log(f"check {label}: {len(got)} rows equal ({placed} placed)")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from kubeadmiral_tpu_torch.convert import to_device
+    from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.problems import random_tick_inputs
+    from kubeadmiral_tpu_torch.testing.worlds import SHAPES, build_world
+
+    t_all = time.perf_counter()
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    phase1_mod._library()
+    log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, {phase1_mod.SOURCE.name})")
+    div = div64_instructions(phase1_mod.build())
+    log(f"phase1 64-bit division (SASS instructions): {json.dumps(div)}")
+
+    t0 = time.perf_counter()
+    worlds = {cfg: build_world(*SHAPES[cfg], config=cfg, seed=0) for cfg in ("3", "5")}
+    log(f"phase worlds: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    gpu = SchedulerEngine()
+    rows = {}
+    for cfg in ("5", "3"):
+        units, clusters, _ = worlds[cfg]
+        inp = chunk_tick_inputs(gpu, units, clusters)
+        rows[cfg] = check_phase1(f"c{cfg}-chunk", inp, div)
+        del inp
+    odd = random_tick_inputs(333, 200, r=4, webhook=True, invalid=7, scale=True, seed=7)
+    check_phase1("odd-B-webhook-padded", to_device(odd, "cuda"))
+    torch.cuda.empty_cache()
+    log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    for cfg in ("5", "3"):
+        profile_chunk(f"c{cfg}-chunk", gpu, *worlds[cfg][:2])
+    torch.cuda.empty_cache()
+    log(f"phase profile: {time.perf_counter() - t0:.2f} s")
+
+    launches = {}
+    for cfg in ("3", "5"):
+        t0 = time.perf_counter()
+        units, clusters, _ = worlds[cfg]
+        n_chunks = math.ceil(len(units) / gpu._tick_geometry(len(clusters))[1])
+        got, launches[cfg], wall = run_tick(f"c{cfg}", gpu, units, clusters)
+        rows[cfg]["tick_ms"] = wall * 1e3
+        rows[cfg]["objects_per_s"] = len(units) / wall
+        if launches[cfg] != n_chunks:
+            raise AssertionError(
+                f"c{cfg}: phase1 launched {launches[cfg]} times for {n_chunks} chunks"
+            )
+        check = units if cfg == "3" else units[:C5_CHECK_ROWS]
+        t1 = time.perf_counter()
+        want = SchedulerEngine(device="cpu").schedule(check, clusters)
+        log(f"cpu engine c{cfg}: {len(check)} rows in {time.perf_counter() - t1:.2f} s")
+        assert_results_equal(f"c{cfg} gpu vs cpu", got[: len(check)], want)
+        del got, want
+        torch.cuda.empty_cache()
+        log(f"phase e2e-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
+    c5, c3 = rows["5"], rows["3"]
+    kernels = {
+        "kernels": [
+            {
+                "name": "phase1",
+                "route": "cuda",
+                "source": "kubeadmiral_tpu_torch/csrc/phase1.cu",
+                "replaces": "kubeadmiral_tpu/ops/pallas_slab.py:64",
+                "match": True,
+                "launches": launches["5"],
+                "launches_c3": launches["3"],
+                "max_abs_err": max(c5["max_abs_err"], c3["max_abs_err"]),
+                "ms": c5["ms"],
+                "plain_ms": c5["plain_ms"],
+                "bound_ms": c5["bound_ms"],
+                "bound_by": c5["bound_by"],
+                "library_ms": None,
+                "shape": c5["shape"],
+                "ms_c3": c3["ms"],
+                "plain_ms_c3": c3["plain_ms"],
+                "bound_ms_c3": c3["bound_ms"],
+                "shape_c3": c3["shape"],
+                "tick_ms_c3": c3["tick_ms"],
+                "tick_ms_c5": c5["tick_ms"],
+                "card": card,
+            }
+        ]
+    }
+    log(f"phase total: {time.perf_counter() - t_all:.2f} s")
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Seeded benchmark worlds for the BASELINE configurations.
+
+A copy of ``bench.py``'s ``build_world`` for configs 3 and 5
+(BASELINE.md), parametrised instead of read from the environment:
+
+  3  10k mixed Deployment/StatefulSet x 500 clusters — taint/affinity
+     masks, static+dynamic weights, capacity feedback.
+  5  100k x 5k — multi-resource (cpu/mem/gpu) bin-pack scoring
+     (MostAllocated replaces the default spreading scores); every tenth
+     object is a follower (placement = union of its leaders', applied
+     after the tick by the control plane, not by the engine).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from kubeadmiral_tpu_torch.models.types import (
+    AutoMigrationSpec,
+    ClusterAffinity,
+    ClusterState,
+    CLUSTER_RESOURCES_MOST,
+    MODE_DIVIDE,
+    PreferredSchedulingTerm,
+    SelectorRequirement,
+    SelectorTerm,
+    SchedulingUnit,
+    Taint,
+    TAINT_TOLERATION,
+    Toleration,
+    parse_resources,
+)
+
+SHAPES = {"3": (10_000, 500), "5": (100_000, 5_000)}
+
+
+def build_world(n_objects: int, n_clusters: int, config: str = "3", seed: int = 0):
+    """(units, clusters, followers) for ``config`` "3" or "5" at the
+    given scale, every draw from ``numpy.random.default_rng(seed)``."""
+    if config not in SHAPES:
+        raise ValueError(f"config must be one of {sorted(SHAPES)}, got {config!r}")
+    rng = np.random.default_rng(seed)
+    gvks = ("apps/v1/Deployment", "apps/v1/StatefulSet")
+    regions = ("us", "eu", "ap")
+    gpu = config == "5"
+    clusters = []
+    for j in range(n_clusters):
+        cpu = int(rng.integers(32, 512))
+        mem_gi = int(rng.integers(128, 2048))
+        free_frac = float(rng.uniform(0.1, 0.9))
+        alloc = {"cpu": str(cpu), "memory": f"{mem_gi}Gi"}
+        avail = {
+            "cpu": f"{int(cpu * free_frac * 1000)}m",
+            "memory": f"{int(mem_gi * free_frac)}Gi",
+        }
+        if gpu and j % 3 == 0:
+            n_gpu = int(rng.integers(4, 64))
+            alloc["nvidia.com/gpu"] = str(n_gpu)
+            avail["nvidia.com/gpu"] = str(int(n_gpu * free_frac))
+        clusters.append(
+            ClusterState(
+                name=f"member-{j:05d}",
+                labels={
+                    "region": regions[j % 3],
+                    "zone": f"z{j % 17}",
+                    "tier": str(j % 4),
+                },
+                taints=(Taint("dedicated", "batch", "NoSchedule"),)
+                if j % 11 == 0
+                else (),
+                allocatable=parse_resources(alloc),
+                available=parse_resources(avail),
+                api_resources=frozenset(gvks),
+            )
+        )
+    names = [c.name for c in clusters]
+
+    affinities = [None] + [
+        ClusterAffinity(
+            required=(
+                SelectorTerm(
+                    match_expressions=(
+                        SelectorRequirement("region", "In", (regions[k],)),
+                    )
+                ),
+            ),
+            preferred=(
+                PreferredSchedulingTerm(
+                    weight=30,
+                    preference=SelectorTerm(
+                        match_expressions=(
+                            SelectorRequirement("tier", "In", ("0", "1")),
+                        )
+                    ),
+                ),
+            ),
+        )
+        for k in range(3)
+    ] + [None]
+
+    binpack_scores = (TAINT_TOLERATION, CLUSTER_RESOURCES_MOST)
+
+    units = []
+    followers = []
+    for i in range(n_objects):
+        if config == "5" and i % 10 == 9:
+            followers.append(i)  # placement = union of leaders, post-tick
+        divide = i % 4 != 0
+        request = {
+            "cpu": f"{int(rng.integers(0, 8)) * 250}m",
+            "memory": f"{int(rng.integers(0, 16)) * 256}Mi",
+        }
+        if gpu and i % 3 == 0:
+            request["nvidia.com/gpu"] = str(int(rng.integers(1, 4)))
+        units.append(
+            SchedulingUnit(
+                gvk=gvks[i % 2],
+                namespace=f"ns-{i % 97}",
+                name=f"workload-{i:06d}",
+                scheduling_mode=MODE_DIVIDE if divide else "Duplicate",
+                desired_replicas=int(rng.integers(1, 100)) if divide else None,
+                resource_request=parse_resources(request),
+                current_clusters={},
+                tolerations=(Toleration(key="dedicated", operator="Exists"),)
+                if i % 3 == 0
+                else (),
+                affinity=affinities[i % len(affinities)],
+                max_clusters=int(rng.integers(1, 20)) if i % 5 == 0 else None,
+                avoid_disruption=bool(i % 2),
+                enabled_scores=binpack_scores if config == "5" else None,
+                auto_migration=AutoMigrationSpec(
+                    estimated_capacity={
+                        names[int(rng.integers(0, n_clusters))]: int(
+                            rng.integers(0, 50)
+                        )
+                    }
+                )
+                if i % 7 == 0
+                else None,
+            )
+        )
+    return units, clusters, followers

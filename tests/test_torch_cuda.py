@@ -1,0 +1,87 @@
+"""The port on the card: the phase-1 CUDA kernel against its plain twin,
+the whole dense tick on CUDA against the CPU, and the engine on CUDA
+against the CPU engine — tolerance 0 (integer math).
+
+Every test here needs a CUDA card and skips without one.  The file
+imports neither JAX nor the JAX package, so it also runs on a machine
+without them (the repo's conftest imports JAX; skip it there):
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from kubeadmiral_tpu_torch.convert import to_device, to_numpy
+from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
+from kubeadmiral_tpu_torch.ops.pipeline import schedule_tick
+from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
+from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+from kubeadmiral_tpu_torch.testing.problems import random_tick_inputs
+from kubeadmiral_tpu_torch.testing.worlds import build_world
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+CASES = [
+    # b, c, webhook, invalid columns, byte-scale resources
+    (16, 24, False, 0, False),
+    (32, 12, True, 3, False),
+    (13, 40, False, 0, False),   # odd B
+    (8, 200, True, 7, False),
+    (21, 64, True, 5, False),
+    (24, 33, False, 2, True),    # byte-scale resources (range shift)
+    (3, 1300, True, 11, False),  # C past one block's threads many times
+]
+
+
+@pytest.mark.parametrize("b,c,webhook,invalid,scale", CASES)
+def test_kernel_matches_plain(cuda, b, c, webhook, invalid, scale):
+    inp = to_device(random_tick_inputs(b, c, 4, webhook, invalid, scale), cuda)
+    launches = phase1.launches
+    got = phase1(inp)
+    want = phase1_plain(inp)
+    torch.cuda.synchronize()
+    assert phase1.launches == launches + 1
+    for name, g, w in zip(("feasible", "reasons", "totals"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_kernel_refuses_int64_score_planes(cuda):
+    inp = to_device(random_tick_inputs(8, 16), cuda)
+    wide = inp._replace(taint_counts=inp.taint_counts.to(torch.int64))
+    with pytest.raises(ValueError, match="taint_counts"):
+        phase1(wide)
+
+
+@pytest.mark.parametrize("b,c,webhook,invalid,scale", CASES)
+def test_schedule_tick_on_card_matches_cpu(cuda, b, c, webhook, invalid, scale):
+    host = random_tick_inputs(b, c, 4, webhook, invalid, scale, seed=1)
+    got = to_numpy(schedule_tick(to_device(host, cuda)))
+    want = to_numpy(schedule_tick(to_device(host, "cpu")))
+    for name in want._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_engine_on_card_matches_cpu(cuda, config, monkeypatch):
+    units, clusters, _ = build_world(700, 600, config, seed=3)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    engine = SchedulerEngine()
+    launches = phase1.launches
+    got = engine.schedule(units, clusters)
+    chunks = math.ceil(len(units) / engine._tick_geometry(len(clusters))[1])
+    assert chunks > 1 and phase1.launches - launches == chunks
+    want = SchedulerEngine(device="cpu").schedule(units, clusters)
+    assert [r.clusters for r in got] == [r.clusters for r in want]
