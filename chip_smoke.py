@@ -13,11 +13,28 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    CUDA events (median after warm-up), and works out the kernel's bound
    from what these inputs need (bytes, and int32-pipe instructions with
    the 64-bit divisions counted from the built kernel's SASS);
-5. runs one cold ``SchedulerEngine().schedule(units, clusters)`` tick per
-   config on the card, requires the phase-1 launch count to equal the
-   chunk count, and holds the placements against the port's CPU engine
-   (every row at c3; the first rows at c5 — rows are independent);
-6. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
+5. holds the GPU narrow tick (the kernel as its phase 1) against the CPU
+   narrow tick, bit for bit on every output plane, the cert plane and
+   the packed wire: the whole c3 chunk and the first 512 rows of the c5
+   chunk (rows are independent);
+6. profiles one chunk of the engine's path (expand, narrow tick, pack)
+   per config with torch.profiler;
+7. runs one cold ``SchedulerEngine().schedule(units, clusters)`` tick per
+   config on the card at full size — the narrow solve with its dense
+   fallback and the packed wire — requires the phase-1 launch count to
+   equal chunks + fallback dispatches, prints the stage timings,
+   narrow_stats, overflow rows and fetch bytes against the dense planes'
+   6 B per cell, and holds the placements against the port's CPU engine
+   (every row at c3; the first rows at c5);
+8. runs the dense tick through the engine (NARROW_M patched to the
+   cluster bucket) at a cut depth — c3 whole, the first 20k c5 objects —
+   requires one launch per chunk and placements equal to the narrow
+   path's; then the first chunk of each world with NARROW_M = 8 (M = 32),
+   where rows fail the certificate: requires a fallback dispatch (two
+   launches) and placements equal to the narrow path's; at c3 a second
+   dense and a second narrow tick follow, so the two paths run in turns
+   (narrow, dense, dense, narrow) with equal placements;
+9. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Any failed check exits nonzero without the final line.  Without CUDA it
@@ -42,6 +59,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # a quarter of that.  Phase 1 is integer work, so this is its peak.
 INT32_OPS_PER_S = 67e12 / 4
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
+C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
+C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
+FALLBACK_OBJECTS = 4096    # depth of the forced-fallback run (one chunk)
+FALLBACK_NARROW_M = 8      # M = 32 over maxClusters <= 19: many rows fail the cert
 
 # Phase-1 work besides the 64-bit divisions, in int32-pipe instructions
 # (a 64-bit add, compare or shift counts 2, a 64-bit multiply 3 — an
@@ -75,7 +96,8 @@ def card_line() -> str:
 
 def chunk_device_inputs(engine, units, clusters):
     """The first chunk's device inputs (CompactInputs, or TickInputs on
-    the dense fallback), exactly as engine.schedule builds them."""
+    the dense fallback), exactly as engine.schedule builds them, with the
+    chunk's candidate width M (None: dense tick) and wire width K."""
     from kubeadmiral_tpu_torch.scheduler.featurize import _build_cluster_view
 
     view = _build_cluster_view(clusters, units)
@@ -88,28 +110,81 @@ def chunk_device_inputs(engine, units, clusters):
     dev = engine._device_inputs(
         padded, fmt, vocab, c_bucket, engine._cluster_planes_device(view, c_bucket)
     )
-    return dev, fmt
+    return dev, fmt, engine._narrow_m(inputs, c_bucket), engine._pack_k(inputs, c_bucket)
 
 
 def chunk_tick_inputs(engine, units, clusters):
-    """The first chunk's expanded device TickInputs."""
+    """The first chunk's expanded device TickInputs, M and K."""
     from kubeadmiral_tpu_torch.ops.pipeline import expand_compact
 
-    dev, fmt = chunk_device_inputs(engine, units, clusters)
-    return expand_compact(dev) if fmt == "compact" else dev
+    dev, fmt, m, k = chunk_device_inputs(engine, units, clusters)
+    return (expand_compact(dev) if fmt == "compact" else dev), m, k
 
 
-def profile_chunk(label: str, engine, units, clusters, top: int = 12) -> None:
-    """Device time of one chunk's expand + schedule_tick by kernel
+def chunk_path(inp, m, k):
+    """The engine's device work for one chunk of expanded inputs: the
+    narrow tick (or the dense one when M is None) and the packed wire."""
+    from kubeadmiral_tpu_torch.ops.pipeline import (
+        pack_wire,
+        schedule_tick,
+        schedule_tick_narrow,
+    )
+
+    if m is None:
+        out, cert = schedule_tick(inp), None
+    else:
+        out, cert = schedule_tick_narrow(inp, m)
+    wire = pack_wire(out.selected, out.replicas, out.counted, out.scores, out.reasons, k)
+    return out, cert, wire
+
+
+def check_narrow(label: str, inp, m, k, rows: int) -> dict:
+    """Hold the GPU narrow tick (kernel phase 1) against the CPU narrow
+    tick (plain phase 1) on the chunk's first ``rows`` rows: every output
+    plane, the cert plane and the packed wire, bit for bit."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.pipeline import TickInputs
+
+    if m is None:
+        raise AssertionError(f"{label}: the engine does not narrow this chunk")
+    out, cert, wire = chunk_path(inp, m, k)
+    torch.cuda.synchronize()
+    cluster_only = ("alloc", "used", "cpu_alloc", "cpu_avail", "cluster_valid")
+    cpu_in = TickInputs(
+        **{
+            name: (x if name in cluster_only else x[:rows]).cpu()
+            for name, x in inp._asdict().items()
+        }
+    )
+    t0 = time.perf_counter()
+    want_out, want_cert, want_wire = chunk_path(cpu_in, m, k)
+    cpu_s = time.perf_counter() - t0
+    pairs = [(f, getattr(out, f)[:rows], getattr(want_out, f)) for f in out._fields]
+    pairs += [("cert", cert[:rows], want_cert), ("wire", wire[:rows], want_wire)]
+    for name, g, w in pairs:
+        g = g.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: GPU narrow tick differs from the CPU one in {name}")
+    row = {
+        "case": label, "rows": rows, "m": m, "k": k,
+        "certified": int(want_cert.sum()), "planes_equal": len(pairs), "cpu_s": cpu_s,
+    }
+    log(f"narrow {label}: {json.dumps(row)}")
+    return row
+
+
+def profile_chunk(label: str, engine, units, clusters, top: int = 14) -> None:
+    """Device time of one chunk's expand + narrow tick + pack by kernel
     (torch.profiler), against the window's wall time (idle share)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kubeadmiral_tpu_torch.ops.pipeline import expand_compact, schedule_tick
+    from kubeadmiral_tpu_torch.ops.pipeline import expand_compact
 
-    dev, fmt = chunk_device_inputs(engine, units, clusters)
-    run = lambda: schedule_tick(expand_compact(dev) if fmt == "compact" else dev)  # noqa: E731
+    dev, fmt, m, k = chunk_device_inputs(engine, units, clusters)
+    run = lambda: chunk_path(expand_compact(dev) if fmt == "compact" else dev, m, k)  # noqa: E731
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -126,8 +201,8 @@ def profile_chunk(label: str, engine, units, clusters, top: int = 12) -> None:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in events)
     log(
-        f"profile {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
-        f"idle share {1 - busy / wall_us:.3f}"
+        f"profile {label} (m={m}, k={k}): wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}"
     )
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -316,24 +391,110 @@ def check_phase1(label: str, inp, div: dict = None) -> dict:
     return row
 
 
-def run_tick(label: str, engine, units, clusters):
+def run_tick(label: str, engine, units, clusters) -> dict:
+    """One cold engine tick on the card.  Counts the phase-1 launches and
+    the engine's narrow and dense tick dispatches, and requires launches
+    = chunks + fallback dispatches."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
+    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 
-    phase1.launches = 0
-    t0 = time.perf_counter()
-    results = engine.schedule(units, clusters)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = phase1.launches
-    stages = {k: round(v, 3) for k, v in engine.timings.items()}
-    log(
-        f"tick {label}: {len(units)} objects x {len(clusters)} clusters in "
-        f"{wall * 1e3:.1f} ms ({len(units) / wall:.0f} objects/s), phase1 "
-        f"launches {launches}, stage seconds {stages}"
-    )
-    return results, launches, wall
+    c_bucket, eff, _ = engine._tick_geometry(len(clusters))
+    chunks = math.ceil(len(units) / eff)
+    calls = {"narrow": 0, "dense": 0}
+    real = {"narrow": engine_mod.schedule_tick_narrow, "dense": engine_mod.schedule_tick}
+
+    def counted(kind):
+        def fn(*args, **kwargs):
+            calls[kind] += 1
+            return real[kind](*args, **kwargs)
+        return fn
+
+    stats0 = dict(engine.narrow_stats)
+    over0, bytes0 = engine.overflow_rows_total, engine.fetch_bytes_total
+    engine_mod.schedule_tick_narrow = counted("narrow")
+    engine_mod.schedule_tick = counted("dense")
+    try:
+        phase1.launches = 0
+        t0 = time.perf_counter()
+        results = engine.schedule(units, clusters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = phase1.launches
+    finally:
+        engine_mod.schedule_tick_narrow = real["narrow"]
+        engine_mod.schedule_tick = real["dense"]
+    if calls["narrow"] not in (0, chunks):
+        raise AssertionError(f"{label}: {calls['narrow']} narrow ticks for {chunks} chunks")
+    # Every chunk runs one tick, narrow or dense; further dense ticks are
+    # the narrow chunks' certificate fallbacks.
+    fallback = calls["dense"] - (chunks - calls["narrow"])
+    if launches != chunks + fallback:
+        raise AssertionError(
+            f"{label}: phase1 launched {launches} times for {chunks} chunks + "
+            f"{fallback} fallback dispatches"
+        )
+    fetch_bytes = engine.fetch_bytes_total - bytes0
+    dense_bytes = 6 * len(units) * c_bucket
+    tick = {
+        "objects": len(units),
+        "clusters": len(clusters),
+        "c_bucket": c_bucket,
+        "tick_ms": wall * 1e3,
+        "objects_per_s": len(units) / wall,
+        "chunks": chunks,
+        "narrow_m": engine.narrow_last_m if calls["narrow"] else None,
+        "fallback_dispatches": fallback,
+        "phase1_launches": launches,
+        "narrow_stats": {k: v - stats0[k] for k, v in engine.narrow_stats.items()},
+        "overflow_rows": engine.overflow_rows_total - over0,
+        "fetch_bytes": fetch_bytes,
+        "dense_plane_bytes": dense_bytes,
+        "fetch_vs_dense": fetch_bytes / dense_bytes,
+        "stage_s": dict(engine.timings),
+    }
+    log(f"tick {label}: {json.dumps(tick)}")
+    return {"results": results, **tick}
+
+
+def run_with_narrow_m(label: str, engine, units, clusters, narrow_m: int) -> dict:
+    """run_tick with the engine's NARROW_M constant patched for the call."""
+    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
+
+    saved = engine_mod.NARROW_M
+    engine_mod.NARROW_M = narrow_m
+    try:
+        return run_tick(
+            f"{label} (NARROW_M={narrow_m}, {len(units)} objects)", engine, units, clusters
+        )
+    finally:
+        engine_mod.NARROW_M = saved
+
+
+def turns_c3(engine, units, clusters, got, narrow: dict, dense: dict) -> dict:
+    """Narrow against dense at C = 512 in turns: narrow, dense (the
+    ticks already run), then dense, narrow again, each held against the
+    first narrow run's placements.  Host stages swing with order and
+    between calls, so one pair of ticks decides nothing.  Logs and
+    returns each arm's tick_ms, device + fetch ms and decode ms."""
+    dense2 = run_with_narrow_m("c3 dense, turn 2", engine, units, clusters, narrow["c_bucket"])
+    narrow2 = run_tick("c3 narrow, turn 2", engine, units, clusters)
+    if dense2["narrow_m"] is not None or narrow2["narrow_m"] is None:
+        raise AssertionError("c3 turns: an arm took the other path")
+    for label, tick in (("dense, turn 2", dense2), ("narrow, turn 2", narrow2)):
+        assert_results_equal(f"c3 {label} vs narrow", tick.pop("results"), got)
+    arms = {}
+    for arm, runs in (("narrow", (narrow, narrow2)), ("dense", (dense, dense2))):
+        arms[arm] = {
+            "tick_ms": [r["tick_ms"] for r in runs],
+            "device_fetch_ms": [
+                (r["stage_s"]["device"] + r["stage_s"]["fetch"]) * 1e3 for r in runs
+            ],
+            "decode_ms": [r["stage_s"]["decode"] * 1e3 for r in runs],
+        }
+    log(f"turns c3 narrow vs dense (narrow, dense, dense, narrow): {json.dumps(arms)}")
+    return arms
 
 
 def assert_results_equal(label: str, got, want) -> None:
@@ -358,6 +519,7 @@ def main() -> int:
         return 2
     from kubeadmiral_tpu_torch.convert import to_device
     from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.problems import random_tick_inputs
     from kubeadmiral_tpu_torch.testing.worlds import SHAPES, build_world
@@ -382,7 +544,7 @@ def main() -> int:
     rows = {}
     for cfg in ("5", "3"):
         units, clusters, _ = worlds[cfg]
-        inp = chunk_tick_inputs(gpu, units, clusters)
+        inp, _, _ = chunk_tick_inputs(gpu, units, clusters)
         rows[cfg] = check_phase1(f"c{cfg}-chunk", inp, div)
         del inp
     odd = random_tick_inputs(333, 200, r=4, webhook=True, invalid=7, scale=True, seed=7)
@@ -391,31 +553,62 @@ def main() -> int:
     log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    for cfg, rows_checked in (("3", None), ("5", C5_NARROW_ROWS)):
+        units, clusters, _ = worlds[cfg]
+        inp, m, k = chunk_tick_inputs(gpu, units, clusters)
+        check_narrow(f"c{cfg}-chunk", inp, m, k, rows_checked or inp.total.shape[0])
+        del inp
+    torch.cuda.empty_cache()
+    log(f"phase narrow gpu-vs-cpu: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     for cfg in ("5", "3"):
         profile_chunk(f"c{cfg}-chunk", gpu, *worlds[cfg][:2])
     torch.cuda.empty_cache()
     log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
-    launches = {}
+    ticks, dense_ticks, fallback_ticks = {}, {}, {}
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
-        n_chunks = math.ceil(len(units) / gpu._tick_geometry(len(clusters))[1])
-        got, launches[cfg], wall = run_tick(f"c{cfg}", gpu, units, clusters)
-        rows[cfg]["tick_ms"] = wall * 1e3
-        rows[cfg]["objects_per_s"] = len(units) / wall
-        if launches[cfg] != n_chunks:
-            raise AssertionError(
-                f"c{cfg}: phase1 launched {launches[cfg]} times for {n_chunks} chunks"
-            )
+        tick = run_tick(f"c{cfg} narrow", gpu, units, clusters)
+        if tick["narrow_m"] is None:
+            raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
+        got = tick.pop("results")
+        ticks[cfg] = tick
         check = units if cfg == "3" else units[:C5_CHECK_ROWS]
         t1 = time.perf_counter()
         want = SchedulerEngine(device="cpu").schedule(check, clusters)
         log(f"cpu engine c{cfg}: {len(check)} rows in {time.perf_counter() - t1:.2f} s")
         assert_results_equal(f"c{cfg} gpu vs cpu", got[: len(check)], want)
-        del got, want
+        del want
         torch.cuda.empty_cache()
         log(f"phase e2e-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
+        # The dense tick through the engine: M patched to the cluster
+        # bucket.  Cut depth at c5 (first C5_DENSE_OBJECTS objects).
+        t0 = time.perf_counter()
+        depth = len(units) if cfg == "3" else C5_DENSE_OBJECTS
+        dense = run_with_narrow_m(f"c{cfg} dense", gpu, units[:depth], clusters, tick["c_bucket"])
+        if dense["narrow_m"] is not None or dense["fallback_dispatches"] != 0:
+            raise AssertionError(f"c{cfg}: NARROW_M at the bucket did not take the dense path")
+        assert_results_equal(f"c{cfg} dense vs narrow", dense.pop("results"), got[:depth])
+        dense_ticks[cfg] = dense
+
+        # A narrower M on the first chunk: rows fail the certificate and
+        # the dense re-solve runs on the card.
+        fb = run_with_narrow_m(
+            f"c{cfg} fallback", gpu, units[:FALLBACK_OBJECTS], clusters, FALLBACK_NARROW_M
+        )
+        if fb["fallback_dispatches"] == 0 or fb["narrow_stats"]["fallback"] == 0:
+            raise AssertionError(f"c{cfg}: the forced-fallback run re-solved no row")
+        assert_results_equal(f"c{cfg} fallback vs narrow", fb.pop("results"), got[:FALLBACK_OBJECTS])
+        fallback_ticks[cfg] = fb
+        if cfg == "3":
+            turns_c3(gpu, units, clusters, got, tick, dense)
+        del got
+        torch.cuda.empty_cache()
+        log(f"phase e2e-c{cfg}-dense-and-fallback: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
     kernels = {
@@ -426,8 +619,12 @@ def main() -> int:
                 "source": "kubeadmiral_tpu_torch/csrc/phase1.cu",
                 "replaces": "kubeadmiral_tpu/ops/pallas_slab.py:64",
                 "match": True,
-                "launches": launches["5"],
-                "launches_c3": launches["3"],
+                "launches": ticks["5"]["phase1_launches"],
+                "launches_c3": ticks["3"]["phase1_launches"],
+                "launches_dense_c5": dense_ticks["5"]["phase1_launches"],
+                "launches_dense_c3": dense_ticks["3"]["phase1_launches"],
+                "launches_fallback_c5": fallback_ticks["5"]["phase1_launches"],
+                "launches_fallback_c3": fallback_ticks["3"]["phase1_launches"],
                 "max_abs_err": max(c5["max_abs_err"], c3["max_abs_err"]),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -439,8 +636,8 @@ def main() -> int:
                 "plain_ms_c3": c3["plain_ms"],
                 "bound_ms_c3": c3["bound_ms"],
                 "shape_c3": c3["shape"],
-                "tick_ms_c3": c3["tick_ms"],
-                "tick_ms_c5": c5["tick_ms"],
+                "tick_ms_c3": ticks["3"]["tick_ms"],
+                "tick_ms_c5": ticks["5"]["tick_ms"],
                 "card": card,
             }
         ]

@@ -1,6 +1,6 @@
-"""The dense scheduling tick in torch.
+"""The scheduling tick in torch: dense, narrow, and the packed wire.
 
-Torch counterpart of the dense part of ``kubeadmiral_tpu/ops/pipeline.py``:
+Torch counterpart of ``kubeadmiral_tpu/ops/pipeline.py`` (cold paths):
 the stages of the reference's generic scheduler (reference:
 pkg/controllers/scheduler/core/generic_scheduler.go:92-150) over a whole
 batch at once —
@@ -12,7 +12,11 @@ batch at once —
 with the sticky-cluster short-circuit, Duplicate vs Divide mode and
 static vs dynamic RSP weights folded in as masks.  ``expand_compact``
 turns the featurizer's compact form into the dense planes on the
-device.  Plane dtypes follow the JAX package one for one.
+device.  ``schedule_tick`` runs select and planner over the whole
+cluster axis; ``schedule_tick_narrow`` runs them over M candidate
+columns per row with a per-row exactness certificate; ``pack_wire``
+compacts the output planes into K slots per row for the device->host
+copy.  Plane dtypes follow the JAX package one for one.
 """
 
 from __future__ import annotations
@@ -23,8 +27,14 @@ import numpy as np
 import torch
 
 from kubeadmiral_tpu_torch.ops import reasons as RSN
-from kubeadmiral_tpu_torch.ops.phase1 import phase1
-from kubeadmiral_tpu_torch.ops.planner import INT32_INF, PlannerInputs, plan_batch
+from kubeadmiral_tpu_torch.ops.phase1 import phase1 as _phase1
+from kubeadmiral_tpu_torch.ops.planner import (
+    INT32_INF,
+    PlannerInputs,
+    plan_batch,
+    plan_batch_narrow,
+    processing_key,
+)
 from kubeadmiral_tpu_torch.ops.select import select_topk
 from kubeadmiral_tpu_torch.ops.weights import dynamic_weights
 
@@ -210,7 +220,7 @@ def schedule_tick(inp: TickInputs) -> TickOutputs:
     """One dense tick over a batch: phase 1 (the CUDA kernel on the
     card), top-K select, dynamic weights, the replica planner and the
     finalize tail."""
-    feasible, reasons, totals = phase1(inp)
+    feasible, reasons, totals = _phase1(inp)
 
     # --- Select ---
     selected = select_topk(totals, feasible, inp.max_clusters)
@@ -297,4 +307,296 @@ def _finalize(
         feasible=feasible.to(torch.int8),
         scores=totals.to(i32),
         reasons=reasons.to(i32),
+    )
+
+
+# -- narrow solve ---------------------------------------------------------
+# At wide cluster axes the tick's cost is its sorts: select's full-width
+# rank and the planner's per-row processing-order sorts.  The narrow
+# solve keeps phase 1 dense and ranks/bin-packs over M candidate columns
+# per row.  Exactness is enforced per row by a certificate; the engine
+# re-solves uncertified rows through the dense tick, so placements are
+# bit-identical by construction:
+#
+# * rows whose top-K cut cannot engage (maxClusters unlimited, >= the
+#   feasible count, or negative) select the feasible mask, no sort;
+# * rows with an engaged cut select over the top-M columns by select's
+#   own (-total, index) order, packed into one collision-free key and
+#   single-key sorted; the certificate compares the worst selected key
+#   with the best feasible non-candidate;
+# * the planner narrows to the top-M members in its own processing order
+#   (``_plan_topm``; ops/planner.py ``plan_batch_narrow``), and columns
+#   with planner structure left outside the slots fail the certificate.
+
+_CERT_INF = 1 << 62
+_I32_MAX = 2**31 - 1
+
+
+def _cbits(c: int) -> int:
+    return max(1, (c - 1).bit_length())
+
+
+def _select_comp(totals, feasible, c, iota, i32_keys):
+    """The select stage's collision-free composite key ((-total, index)
+    ascending) for the candidate sort and its certificate.  Returns
+    (comp, key_ok bool[B], cert_inf).  With ``i32_keys`` and a cluster
+    axis that leaves >= 12 value bits the key is int32 (half the bytes
+    through the sort); rows whose feasible totals leave the narrowed
+    range get ``key_ok`` False and fail the certificate."""
+    if i32_keys:
+        cbits = _cbits(c)
+        if cbits <= 18:
+            lim = 1 << (30 - cbits)
+            inrange = (totals < lim) & (totals > -lim)
+            key_ok = ~(feasible & ~inrange).any(dim=-1)
+            key1 = torch.where(
+                feasible & inrange, -totals.to(torch.int32), lim
+            )
+            # key1 * 2**cbits lies in (-2**30, 2**30]: exact in int32,
+            # with the low cbits bits free for the index.
+            comp = (key1 * (1 << cbits)) | iota.to(torch.int32)
+            return comp, key_ok, _I32_MAX
+    key1 = torch.where(feasible, -totals.to(torch.int32), _I32_MAX)
+    comp = key1.to(torch.int64) * c + iota
+    return comp, torch.ones_like(feasible[:, 0]), _CERT_INF
+
+
+def _decode_comp(sorted_comp, c, i32_keys):
+    """Low-bits decode of a sorted composite back to column indices
+    (int64, floor-mod for the negative int64 keys)."""
+    if i32_keys and _cbits(c) <= 18:
+        return (sorted_comp & ((1 << _cbits(c)) - 1)).to(torch.int64)
+    return sorted_comp.to(torch.int64) % c
+
+
+def _scatter_mask(shape, cols, values, device):
+    return torch.zeros(shape, dtype=torch.bool, device=device).scatter_(
+        1, cols, values
+    )
+
+
+def _plan_topm(inp: TickInputs, selected, weights, m: int):
+    """The planner over the top-M member slots in ITS OWN processing
+    order.  Returns (divide_replicas i64[B, C], cert bool[B]); cert holds
+    iff ``plan_batch_narrow``'s phantom-tail certificate held and no
+    selected column with planner structure was left outside the slots."""
+    b, c = selected.shape
+    m = min(m, c)
+    device = selected.device
+    iota = torch.arange(c, dtype=torch.int64, device=device).expand(b, c)
+    special = (
+        (inp.min_replicas > 0)
+        | (inp.max_replicas != _INF)
+        | (inp.scale_max != _INF)
+        | (inp.capacity != _INF)
+        | inp.current_mask
+    )
+    # Candidate PRIORITY boosts structured columns into the slots; the
+    # CERTIFICATE compares the true processing order (no special bit).
+    comp_prio = processing_key(weights, inp.tiebreak, special)
+    comp_true = processing_key(weights, inp.tiebreak, torch.zeros_like(special))
+    # One descending single-key sort of (priority | inverted index).
+    # comp_prio fits 53 bits, so the index costs a `shift`-bit drop of
+    # the priority when 53 + cbits > 63 (1 bit at C = 2048, 3 at 5120):
+    # the certificate compares TRUE keys, so a mis-pick from the dropped
+    # bits falls back to dense.  Selected columns rank above every
+    # unselected one; spare slots take the lowest-index unselected
+    # columns (masked off by member_p).  Bit for bit as the JAX package,
+    # including the wrap of the one key that can reach 2**63.
+    cbits = _cbits(c)
+    shift = max(0, 53 + cbits - 63)
+    low = (1 << cbits) - 1
+    inv_iota = low - iota
+    key_p = torch.where(
+        selected, (((comp_prio >> shift) + 1) << cbits) | inv_iota, inv_iota
+    )
+    sorted_p = -torch.sort(-key_p, dim=-1).values[:, :m]
+    cand_p = torch.sort(low - (sorted_p & low), dim=-1).values
+
+    def take_p(plane):
+        return plane.gather(1, cand_p)
+
+    cand_p_mask = _scatter_mask((b, c), cand_p, True, device)
+    outside = selected & ~cand_p_mask
+    tail_w = torch.where(outside, torch.clamp(weights, min=0), 0).sum(
+        dim=-1, dtype=torch.int32
+    )
+    best_tail = torch.where(outside, comp_true, -1).amax(dim=-1)
+    spec_out = (outside & special).any(dim=-1)
+
+    member_p = take_p(selected)
+    plan_out, pcert = plan_batch_narrow(
+        PlannerInputs(
+            weight=take_p(weights),
+            min_replicas=torch.where(member_p, take_p(inp.min_replicas), 0),
+            max_replicas=take_p(inp.max_replicas),
+            scale_max=take_p(inp.scale_max),
+            capacity=take_p(inp.capacity),
+            tiebreak=take_p(inp.tiebreak),
+            member=member_p,
+            total=inp.total,
+            current=take_p(_current_plane(inp)),
+            avoid_disruption=inp.avoid_disruption,
+            keep_unschedulable=inp.keep_unschedulable,
+        ),
+        tail_w,
+        best_tail,
+        take_p(comp_true),
+    )
+    divide_n = (plan_out.plan + plan_out.overflow).to(torch.int64)
+    divide_replicas = torch.zeros((b, c), dtype=torch.int64, device=device)
+    divide_replicas.scatter_(1, cand_p, divide_n)
+    return divide_replicas, pcert & ~spec_out
+
+
+def _narrow_solve(inp: TickInputs, feasible, reasons, totals, m: int, i32_keys: bool):
+    """Select + planner over M candidate columns, given the phase-1
+    triple.  Returns (outputs, cert i8[B])."""
+    b, c = feasible.shape
+    m = min(m, c)
+    device = feasible.device
+    iota = torch.arange(c, dtype=torch.int64, device=device).expand(b, c)
+
+    # --- select resolution ------------------------------------------------
+    nfeas = feasible.sum(dim=-1, dtype=torch.int32)
+    k_eff = torch.where(
+        inp.max_clusters < 0, 0, torch.clamp(inp.max_clusters, max=c)
+    )
+    # The cut cannot engage: selection is the feasible set, no sort.
+    kinf = k_eff >= nfeas
+
+    comp_sel, key_ok, cert_inf = _select_comp(totals, feasible, c, iota, i32_keys)
+    cand_s = _decode_comp(torch.sort(comp_sel, dim=-1).values[:, :m], c, i32_keys)
+    # Ascending: the narrow slot order keeps the dense index order.
+    cand_s = torch.sort(cand_s, dim=-1).values
+    fea_s = feasible.gather(1, cand_s)
+    sel_n = select_topk(totals.gather(1, cand_s), fea_s, inp.max_clusters)
+    sel_scatter = _scatter_mask((b, c), cand_s, sel_n, device)
+    selected = torch.where(kinf[:, None], feasible, sel_scatter)
+
+    # Select certificate: every feasible non-candidate ranks strictly
+    # after every selected column, and the narrow cut had enough feasible
+    # candidates to fill k (or saw every feasible column).
+    cand_mask = _scatter_mask((b, c), cand_s, True, device)
+    out_feas = feasible & ~cand_mask
+    best_out = torch.where(out_feas, comp_sel, cert_inf).amin(dim=-1)
+    worst_sel = torch.where(
+        sel_n, comp_sel.gather(1, cand_s), -cert_inf
+    ).amax(dim=-1)
+    nf_cand = fea_s.sum(dim=-1, dtype=torch.int32)
+    cert_sel = kinf | (
+        key_ok
+        & ((nf_cand >= k_eff) | (nfeas == nf_cand))
+        & (best_out > worst_sel)
+    )
+
+    # --- planner candidates: top-M members in processing order ------------
+    weights = _planner_weights(inp, selected)
+    divide_replicas, plan_cert = _plan_topm(inp, selected, weights, m)
+
+    # Sticky rows certify under the same conditions: their reasons keep
+    # the would-be pipeline's zero-replica bits.
+    cert = cert_sel & (~inp.mode_divide | plan_cert)
+    out = _finalize(inp, feasible, reasons, totals, selected, divide_replicas)
+    return out, cert.to(torch.int8)
+
+
+def schedule_tick_narrow(inp: TickInputs, m: int, i32_keys: bool = True):
+    """The narrow tick; returns (outputs, cert i8[B]).
+
+    ``m`` is the candidate width.  ``cert[b] == 1`` guarantees row b's
+    outputs are bit-identical to ``schedule_tick``; rows with 0 must be
+    re-solved dense.  ``i32_keys`` demotes the select composite key to
+    int32 where the range allows (cert-guarded per row).  Phase 1 is
+    ``ops.phase1.phase1``: the CUDA kernel on CUDA tensors."""
+    feasible, reasons, totals = _phase1(inp)
+    return _narrow_solve(inp, feasible, reasons, totals, m, i32_keys)
+
+
+# -- packed placement wire ------------------------------------------------
+# Each object lands on at most maxClusters clusters, yet the dense planes
+# ship B x C cells.  The packed wire compacts every row into K slots on
+# the device, so the copy scales as B x K; a row selecting more than K
+# clusters raises its overflow flag (nsel > K) and the engine re-fetches
+# it separately.
+
+PACK_FILL = -1  # idx value of unused packed slots
+
+
+class PackedRows(NamedTuple):
+    """The packed placement layout: one row per object, K slots."""
+
+    idx: torch.Tensor   # i32[N,K] selected cluster indices; PACK_FILL pads
+    rep: torch.Tensor   # i32[N,K] replicas of that cluster (NIL in Duplicate mode)
+    cnt: torch.Tensor   # i32[N,K] 1 when the placement carries a replica count
+    sco: torch.Tensor   # i32[N,K] post-normalize score total of that cluster
+    nsel: torch.Tensor  # i32[N]   true selected count; nsel > K flags overflow
+    nfeas: torch.Tensor # i32[N]   valid clusters with no filter-stage reason
+    rsum: torch.Tensor  # i32[N,NUM_REASON_BITS] clusters rejected per reason
+    #                     bit (ops.reasons.REASON_BITS order), valid slots only
+
+
+def pack_rows(selected, replicas, counted, scores, reasons, k: int) -> PackedRows:
+    """Top-k-compact [N, C] output planes into the packed layout.  Slot
+    order is (score desc, cluster index asc) over the selected clusters —
+    select's own ranking — from one sort of the collision-free int64
+    composite ``key1 * C + iota``, decoded by floor-mod."""
+    n, c = selected.shape
+    k = min(k, c)
+    selb = selected != 0
+    iota = torch.arange(c, dtype=torch.int64, device=selected.device).expand(n, c)
+    key1 = torch.where(selb, -scores.to(torch.int32), _I32_MAX)
+    comp = key1.to(torch.int64) * c + iota
+    order = (torch.sort(comp, dim=-1).values % c)[:, :k]
+    valid = selb.gather(1, order)
+    gidx = torch.where(valid, order, 0)
+
+    def take(plane):
+        return torch.where(valid, plane.to(torch.int32).gather(1, gidx), 0)
+
+    rsn = reasons.to(torch.int32)
+    valid_slot = (rsn & RSN.REASON_CLUSTER_INVALID) == 0
+    rsum = torch.stack(
+        [(((rsn & bit) != 0) & valid_slot).sum(dim=-1) for bit in RSN.REASON_BITS],
+        dim=-1,
+    ).to(torch.int32)
+    nfeas = (((rsn & RSN.FILTER_REASON_MASK) == 0) & valid_slot).sum(dim=-1)
+    return PackedRows(
+        idx=torch.where(valid, order, PACK_FILL).to(torch.int32),
+        rep=take(replicas),
+        cnt=take(counted),
+        sco=take(scores),
+        nsel=selb.sum(dim=-1, dtype=torch.int32),
+        nfeas=nfeas.to(torch.int32),
+        rsum=rsum,
+    )
+
+
+def wire_width(k: int) -> int:
+    """Column count of a packed wire row: 4 K-wide planes + nsel + nfeas
+    + the reason-summary counts."""
+    return 4 * k + 2 + RSN.NUM_REASON_BITS
+
+
+def pack_wire(selected, replicas, counted, scores, reasons, k: int) -> torch.Tensor:
+    """The packed layout as ONE i32[N, wire_width(k)] tensor: a single
+    device->host copy per fetch."""
+    p = pack_rows(selected, replicas, counted, scores, reasons, k)
+    return torch.cat(
+        [p.idx, p.rep, p.cnt, p.sco, p.nsel[:, None], p.nfeas[:, None], p.rsum],
+        dim=-1,
+    )
+
+
+def unpack_wire(arr, k: int) -> PackedRows:
+    """Host-side inverse of pack_wire (numpy views, no copies)."""
+    arr = np.asarray(arr)
+    return PackedRows(
+        idx=arr[:, :k],
+        rep=arr[:, k : 2 * k],
+        cnt=arr[:, 2 * k : 3 * k],
+        sco=arr[:, 3 * k : 4 * k],
+        nsel=arr[:, 4 * k],
+        nfeas=arr[:, 4 * k + 1],
+        rsum=arr[:, 4 * k + 2 : 4 * k + 2 + RSN.NUM_REASON_BITS],
     )

@@ -75,11 +75,22 @@ def _processing_order(weight_key, tiebreak):
 
 
 def _distribute(
-    weight, min_replicas, max_replicas, capacity, tiebreak, member, total, keep
+    weight, min_replicas, max_replicas, capacity, tiebreak, member, total, keep,
+    tail_weight=None,
 ):
     """getDesiredPlan (planner.go:211-304) for every row.  ``total`` and
     ``keep`` are [B, 1].  Returns (plan, overflow, unplaced remainder
-    [B, 1]) in the caller's cluster order."""
+    [B, 1]) in the caller's cluster order.
+
+    ``tail_weight`` ([B, 1]) serves the narrow planner
+    (``plan_batch_narrow``): the cluster axis then holds only the top-M
+    member slots, and ``tail_weight`` is the summed clamped weight of the
+    members left out of them, added to every round's ``weight_sum`` so
+    the ceil quotas match the full-width run while the tail itself
+    receives nothing.  The result then also carries the final active set
+    (cluster order) and the per-row ``spilled`` flag: some round's
+    remainder survived past the slots, which the full-width cascade
+    would have handed to the tail."""
     # Processing order: members first, weight desc, tiebreak asc, index
     # asc.  Non-positive weight = no share; the sort runs on the
     # clamped weight.
@@ -104,10 +115,15 @@ def _distribute(
     # --- weighted rounds until every row reaches its fixed point ---
     active = mem
     moved = torch.ones_like(remaining, dtype=torch.bool)
+    spilled = torch.zeros_like(remaining, dtype=torch.bool)
     go = moved & (remaining > 0)
     while bool(go.any()):
         w_active = torch.where(active, w, 0)
         weight_sum = w_active.sum(dim=-1, keepdim=True, dtype=w_active.dtype)
+        if tail_weight is not None:
+            # Phantom tail: out-of-slot members keep weighing in the
+            # quota denominator every round (int32, wrapping).
+            weight_sum = weight_sum + tail_weight
         d = remaining  # round-start snapshot
         safe_sum = torch.clamp(weight_sum, min=1)
         quota = torch.div(d * w_active + safe_sum - 1, safe_sum, rounding_mode="floor")
@@ -134,6 +150,7 @@ def _distribute(
         active = torch.where(go, active & ~full, active)
         remaining = torch.where(go, new_remaining, remaining)
         moved = torch.where(go, new_moved, moved)
+        spilled = torch.where(go, spilled | (new_remaining > 0), spilled)
         go = moved & (remaining > 0)
 
     # Without keep_unschedulable, overflow is trimmed to what could not
@@ -145,26 +162,25 @@ def _distribute(
     # Back to the caller's cluster order.
     inv_plan = torch.empty_like(plan).scatter_(1, perm, plan)
     inv_overflow = torch.empty_like(overflow).scatter_(1, perm, overflow)
+    if tail_weight is not None:
+        inv_active = torch.empty_like(active).scatter_(1, perm, active)
+        return inv_plan, inv_overflow, remaining, inv_active, spilled[:, 0]
     return inv_plan, inv_overflow, remaining
 
 
-def _plan_rows(inp: PlannerInputs) -> PlannerOutputs:
-    """The full planner for every row (``_plan_one`` batched)."""
+def _keep(inp: PlannerInputs):
+    """A reschedule would keep bouncing capacity-overflowed replicas if
+    they were dropped while disruption is allowed (planner.go:108-118)."""
+    return (inp.keep_unschedulable | ~inp.avoid_disruption)[:, None]
+
+
+def _steady_plan(inp: PlannerInputs, desired):
+    """The avoid-disruption branch: move only the delta from the current
+    replicas (scale up by shortfall, scale down by excess); rows without
+    avoid-disruption take ``desired`` as is."""
     zeros = torch.zeros_like(inp.weight)
     no_cap = torch.full_like(inp.weight, _INF)
-    total = inp.total[:, None]
-    no_keep = torch.zeros_like(total, dtype=torch.bool)
-
-    # A reschedule would keep bouncing capacity-overflowed replicas if
-    # they were dropped while disruption is allowed (planner.go:108-118).
-    keep = (inp.keep_unschedulable | ~inp.avoid_disruption)[:, None]
-
-    desired, overflow, _ = _distribute(
-        inp.weight, inp.min_replicas, inp.max_replicas, inp.capacity,
-        inp.tiebreak, inp.member, total, keep,
-    )
-
-    # --- avoid-disruption: move only the delta from current replicas ---
+    no_keep = torch.zeros_like(inp.total[:, None], dtype=torch.bool)
     current_ok = torch.where(
         inp.member, torch.minimum(inp.current, inp.capacity), 0
     )
@@ -200,8 +216,82 @@ def _plan_rows(inp: PlannerInputs) -> PlannerOutputs:
             current_total > desired_total, current_ok - shrink, current_ok + grow
         ),
     )
-    plan = torch.where(inp.avoid_disruption[:, None], steady, desired)
-    return PlannerOutputs(plan=plan, overflow=overflow)
+    return torch.where(inp.avoid_disruption[:, None], steady, desired)
+
+
+def _plan_rows(inp: PlannerInputs) -> PlannerOutputs:
+    """The full planner for every row (``_plan_one`` batched)."""
+    desired, overflow, _ = _distribute(
+        inp.weight, inp.min_replicas, inp.max_replicas, inp.capacity,
+        inp.tiebreak, inp.member, inp.total[:, None], _keep(inp),
+    )
+    return PlannerOutputs(plan=_steady_plan(inp, desired), overflow=overflow)
+
+
+# -- narrow solve ---------------------------------------------------------
+# A row's plan touches only a PREFIX of its processing order: clusters
+# past the point where the running remainder reaches zero receive
+# nothing and, without min/max/capacity/current structure, add nothing
+# but their weight to the quota denominator.  The narrow planner runs
+# over the top-M member slots in processing order with the left-out
+# members' summed weight as a phantom ``tail_weight``, and certifies per
+# row that the result equals the full-width run (uncertified rows are
+# re-solved dense by the engine).
+
+# Bit layout of the processing-order composite key (int64): the weight
+# field clamps at 2^20-1, far above the featurizer's sum<=1000 contract;
+# a clamp collision only fails the certificate, never reorders silently.
+_KEY_W_BITS = 20
+_KEY_TB_BITS = 32
+_KEY_SPECIAL_SHIFT = _KEY_W_BITS + _KEY_TB_BITS
+
+
+def processing_key(weight, tiebreak, special):
+    """int64 composite ordering members by (special desc, clamped weight
+    desc, tiebreak asc): a larger key is processed earlier, up to the
+    final index tie-break, which the consumer adds.  ``special`` marks
+    columns with planner structure (min/max/capacity/current) that must
+    never land in the phantom tail."""
+    w = torch.clamp(weight, min=0, max=(1 << _KEY_W_BITS) - 1).to(torch.int64)
+    # tiebreak asc preferred -> inverted into an unsigned 32-bit field.
+    tbu = _INF - tiebreak.to(torch.int64)
+    return (
+        (special.to(torch.int64) << _KEY_SPECIAL_SHIFT)
+        + (w << _KEY_TB_BITS)
+        + tbu
+    )
+
+
+def plan_batch_narrow(inp: PlannerInputs, tail_weight, best_tail, comp):
+    """The planner over [B, M] processing-order slots, plus its exactness
+    certificate (``_plan_one_narrow`` batched).  ``tail_weight`` i32[B]
+    is the summed clamped weight of member columns outside the slots,
+    ``best_tail`` i64[B] the largest processing key among them (-1 when
+    none), ``comp`` i64[B, M] the slots' own processing keys.  Returns
+    (outputs, cert bool[B]); cert holds iff the narrow result provably
+    equals the full-width planner:
+
+    * every slot that received replicas, accrued overflow or saturated
+      out of the active set orders strictly before the best tail member,
+      and
+    * no weighted round's remainder survived past the slots (the
+      full-width cascade would have handed it to the tail within that
+      round) — or the tail carries zero weight and is inert.
+
+    The avoid-disruption passes run on the slots without a tail: their
+    members derive from desired and current, both zero outside the slots
+    for certified rows."""
+    desired, overflow, _, active_end, spilled = _distribute(
+        inp.weight, inp.min_replicas, inp.max_replicas, inp.capacity,
+        inp.tiebreak, inp.member, inp.total[:, None], _keep(inp),
+        tail_weight=tail_weight[:, None],
+    )
+    touched = (desired > 0) | (overflow > 0) | (inp.member & ~active_end)
+    cert = (tail_weight == 0) | (
+        ~spilled & (~touched | (comp > best_tail[:, None])).all(dim=-1)
+    )
+    plan = _steady_plan(inp, desired)
+    return PlannerOutputs(plan=plan, overflow=overflow), cert
 
 
 def plan_batch(inp: PlannerInputs, *, validate: bool = True) -> PlannerOutputs:

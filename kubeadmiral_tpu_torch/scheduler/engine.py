@@ -1,17 +1,25 @@
-"""The scheduling engine: batch in, placements out (cold, dense ticks).
+"""The scheduling engine: batch in, placements out (cold ticks).
 
 Torch counterpart of the cold path of ``kubeadmiral_tpu/scheduler/
 engine.py``: take every pending SchedulingUnit, featurize against the
 member clusters (compact form, with the dense featurizer as the fallback
-when a vocabulary overflows a cap), run the dense tick on the device
-chunk by chunk over the object axis (padded to the same row and cluster
-buckets as the JAX engine, so a padded chunk is the same problem), and
-decode placements into ``ScheduleResult``s.
+when a vocabulary overflows a cap), solve on the device chunk by chunk
+over the object axis (padded to the same row and cluster buckets as the
+JAX engine, so a padded chunk is the same problem), pull each chunk's
+placements off the device as the packed wire, and decode them into
+``ScheduleResult``s.
 
-Every tick is cold: no chunk cache, delta fetch, narrow solve, drift
-path or snapshot — each call featurizes and solves every row.  The
-device is ``"cuda"`` unless the caller asks for the CPU; without CUDA
-the default raises instead of carrying on on the CPU.
+On a cluster bucket wider than the candidate width M the chunk runs the
+narrow solve (``ops.pipeline.schedule_tick_narrow``); rows that fail its
+certificate are re-solved by the dense tick and written back before the
+pack.  Narrower buckets run the dense tick.  Rows selecting more
+clusters than the wire's K slots are re-fetched as bit-packed masks plus
+the replica plane.
+
+Every tick is cold: no chunk cache, delta fetch, drift path or snapshot
+— each call featurizes and solves every row.  The device is ``"cuda"``
+unless the caller asks for the CPU; without CUDA the default raises
+instead of carrying on on the CPU.
 """
 
 from __future__ import annotations
@@ -29,8 +37,12 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     NIL_REPLICAS,
     TickInputs,
     expand_compact,
+    pack_wire,
     schedule_tick,
+    schedule_tick_narrow,
+    unpack_wire,
 )
+from kubeadmiral_tpu_torch.ops.planner import INT32_INF
 from kubeadmiral_tpu_torch.scheduler import compact as Cmp
 from kubeadmiral_tpu_torch.scheduler.compact import (
     CompactInputs,
@@ -60,6 +72,12 @@ MEGACHUNK_ROWS = 4096
 CANONICAL_C = 256
 MIN_ROW_BUCKET = 64
 MIN_CLUSTER_BUCKET = 8
+# Narrow solve and packed wire, as the JAX engine's defaults: the
+# candidate width M is pow2 over the chunk's finite maxClusters bound,
+# floored at NARROW_M (capacity-spill headroom); the wire's slot count K
+# is pow2 over the same bound, floored at PACK_K_MIN.
+NARROW_M = 128
+PACK_K_MIN = 16
 
 
 class _FrozenDict(dict):
@@ -207,6 +225,41 @@ def _cluster_bucket(n: int, minimum: int) -> int:
     return ((n + 511) // 512) * 512
 
 
+def _finite_bound(max_clusters) -> int:
+    """The largest finite, non-negative maxClusters of a chunk (0 if none)."""
+    mc = np.asarray(max_clusters)
+    finite = mc[(mc >= 0) & (mc < INT32_INF)]
+    return int(finite.max()) if finite.size else 0
+
+
+def _bitpack_bool(x):
+    """bool[N, C] -> i32[N, ceil(C/32)] little-endian bit words: a mask
+    costs 1 bit per cluster on the wire instead of 32."""
+    n, c = x.shape
+    x = torch.nn.functional.pad(x.to(torch.int64), (0, (-c) % 32))
+    bit = 2 ** torch.arange(32, dtype=torch.int64, device=x.device)
+    words = (x.reshape(n, -1, 32) * bit).sum(dim=-1)
+    # The uint32 word's bits as int32.
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def _unpack_bits(words: np.ndarray, c: int) -> np.ndarray:
+    """Host inverse of _bitpack_bool: i32[N, ceil(C/32)] -> uint8[N, C]."""
+    u8 = np.ascontiguousarray(words.astype("<i4")).view(np.uint8)
+    bits = np.unpackbits(u8.reshape(words.shape[0], -1), axis=1, bitorder="little")
+    return bits[:, :c]
+
+
+def _gather_overflow3(sel, cnt, rep, idx):
+    """K-overflow row fetch: bit-packed selected/counted masks plus the
+    replica plane of the given rows in ONE transfer (C/32 + C/32 + C
+    words against the dense 3C)."""
+    return torch.cat(
+        [_bitpack_bool(sel[idx] != 0), _bitpack_bool(cnt[idx] != 0), rep[idx]],
+        dim=1,
+    )
+
+
 def _pad_cluster_axis(arr, c_pad: int, fill):
     arr = np.asarray(arr)
     extra = c_pad - arr.shape[0]
@@ -216,12 +269,14 @@ def _pad_cluster_axis(arr, c_pad: int, fill):
 
 
 class SchedulerEngine:
-    """Chunked, shape-bucketed driver around ops.pipeline.schedule_tick.
+    """Chunked, shape-bucketed engine around ops.pipeline's narrow and
+    dense ticks.
 
     ``device`` defaults to ``"cuda"`` (phase 1 then runs as the
     hand-written kernel); pass ``device="cpu"`` for the plain torch path.
-    The chunk geometry is the JAX engine's default (module constants
-    above): 4096-row chunks and a 4096 x 5120 cell budget."""
+    The chunk geometry, candidate width and wire width are the JAX
+    engine's defaults (module constants above): 4096-row chunks, a
+    4096 x 5120 cell budget, M >= 128 and K >= 16."""
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
@@ -234,8 +289,19 @@ class SchedulerEngine:
         self._device_tables: Optional[tuple] = None
         # Per-stage wall seconds of the last schedule() call: featurize
         # (host encoding + padding), device (upload + tick, synchronised),
-        # fetch (device->host), decode (ScheduleResult construction).
+        # narrow_fallback (dense re-solve of uncertified rows and their
+        # write-back, synchronised), fetch (certificate read, pack and
+        # device->host copies), overflow_fetch (the K-overflow re-fetch,
+        # inside fetch), decode (ScheduleResult construction).
         self.timings: dict[str, float] = {}
+        # Rows certified by the narrow solve ("rows") and rows re-solved
+        # dense ("fallback"); narrow_last_m is the latest chunk's M.
+        self.narrow_stats = {"rows": 0, "fallback": 0}
+        self.narrow_last_m = 0
+        # Cumulative device->host result bytes, and rows whose selected
+        # set overflowed the wire's K slots and were re-fetched.
+        self.fetch_bytes_total = 0
+        self.overflow_rows_total = 0
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -271,6 +337,27 @@ class SchedulerEngine:
             if n <= rung:
                 return rung
         return eff_chunk
+
+    @staticmethod
+    def _narrow_m(inputs, c_bucket: int) -> Optional[int]:
+        """The chunk's candidate width M, or None for the dense tick: pow2
+        over the finite maxClusters bound, floored at NARROW_M; narrow
+        only when M is narrower than the cluster bucket."""
+        m = _pow2_bucket(
+            max(_finite_bound(inputs.max_clusters), NARROW_M), 8, 1 << 30
+        )
+        return m if m < c_bucket else None
+
+    @staticmethod
+    def _pack_k(inputs, c_bucket: int) -> int:
+        """The chunk's wire slot count K: pow2 over the finite maxClusters
+        bound, floored at PACK_K_MIN, capped at the cluster bucket (K = C
+        is lossless).  Rows selecting more than K clusters overflow and
+        are re-fetched, so K tunes bytes, never correctness."""
+        k = _pow2_bucket(
+            max(_finite_bound(inputs.max_clusters), PACK_K_MIN), 8, 1 << 30
+        )
+        return min(k, c_bucket)
 
     # -- featurization ---------------------------------------------------
     def _vocab_for(self, view: ClusterView) -> Optional[CompactVocab]:
@@ -349,6 +436,12 @@ class SchedulerEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _read_np(self, t: torch.Tensor) -> np.ndarray:
+        """Blocking device->host copy, counted in fetch_bytes_total."""
+        arr = t.cpu().numpy()
+        self.fetch_bytes_total += arr.nbytes
+        return arr
+
     # -- the tick ----------------------------------------------------------
     def schedule(
         self,
@@ -359,7 +452,11 @@ class SchedulerEngine:
         units = list(units)
         if not units:
             return []
-        timings = {"featurize": 0.0, "device": 0.0, "fetch": 0.0, "decode": 0.0}
+        timings = dict.fromkeys(
+            ("featurize", "device", "narrow_fallback", "fetch", "overflow_fetch",
+             "decode"),
+            0.0,
+        )
         self.timings = timings
         view = _build_cluster_view(clusters, units)
         c_bucket, eff_chunk, ladder = self._tick_geometry(len(view.clusters))
@@ -369,38 +466,120 @@ class SchedulerEngine:
         results: list[ScheduleResult] = []
         for start in range(0, len(units), eff_chunk):
             chunk = units[start : start + eff_chunk]
+            n = len(chunk)
             t0 = time.perf_counter()
             inputs, fmt = self._featurize_full(chunk, clusters, view, vocab)
-            b_pad = self._bucket_rows(len(chunk), ladder, eff_chunk, multi_chunk)
+            b_pad = self._bucket_rows(n, ladder, eff_chunk, multi_chunk)
             padded = self._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
+            m = self._narrow_m(inputs, c_bucket)
+            k = self._pack_k(inputs, c_bucket)
             t1 = time.perf_counter()
+            timings["featurize"] += t1 - t0
             device_in = self._device_inputs(padded, fmt, vocab, c_bucket, cluster_dev)
             tick_in = expand_compact(device_in) if fmt == "compact" else device_in
-            out = schedule_tick(tick_in)
+            if m is None:
+                out = schedule_tick(tick_in)
+            else:
+                self.narrow_last_m = m
+                out, cert = schedule_tick_narrow(tick_in, m)
+            del tick_in
             self._sync()
-            t2 = time.perf_counter()
-            n = len(chunk)
-            selected = out.selected[:n].cpu().numpy()
-            replicas = out.replicas[:n].cpu().numpy()
-            counted = out.counted[:n].cpu().numpy()
-            t3 = time.perf_counter()
-            results.extend(self._decode_rows(selected, replicas, counted, view.names))
-            t4 = time.perf_counter()
-            timings["featurize"] += t1 - t0
-            timings["device"] += t2 - t1
-            timings["fetch"] += t3 - t2
-            timings["decode"] += t4 - t3
+            timings["device"] += time.perf_counter() - t1
+            if m is not None:
+                t2 = time.perf_counter()
+                cert_np = self._read_np(cert)
+                timings["fetch"] += time.perf_counter() - t2
+                out = self._apply_cert_fallback(out, cert_np, device_in, fmt, n, timings)
+            results.extend(self._fetch_decode_packed(out, n, k, view.names, timings))
         return results
 
-    # -- decode ------------------------------------------------------------
+    # -- narrow certificate fallback ---------------------------------------
     @staticmethod
-    def _decode_rows(selected, replicas, counted, names) -> list[ScheduleResult]:
-        """Vectorized decode of dense [n, C] planes: (row, col) placement
-        pairs -> frozen ScheduleResults, one dict(zip(...)) per row."""
-        rows, cols = np.nonzero(selected)
-        bounds = np.searchsorted(rows, np.arange(selected.shape[0] + 1))
-        reps_obj = replicas[rows, cols].astype(object)
-        reps_obj[counted[rows, cols] == 0] = DUPLICATE
+    def _per_object_fields(fmt: str) -> tuple:
+        if fmt == "compact":
+            return Cmp.PER_OBJECT_FIELDS
+        return tuple(f for f in TickInputs._fields if f not in _CLUSTER_ONLY_FIELDS)
+
+    def _apply_cert_fallback(self, out, cert_np, device_in, fmt: str, n: int, timings):
+        """Resolve one narrow chunk's certificate: certified rows stand
+        (bit-identical to the dense tick by the certificate's proof);
+        uncertified rows are gathered from the chunk's device inputs,
+        expanded, re-solved by the dense tick and written back into the
+        selected/replicas/counted/reasons planes before the pack reads
+        them (scores and feasibility come from the shared phase 1 and
+        are exact already)."""
+        rows = np.nonzero(cert_np[:n] == 0)[0]
+        self.narrow_stats["rows"] += int(n - rows.size)
+        if rows.size == 0:
+            return out
+        t0 = time.perf_counter()
+        self.narrow_stats["fallback"] += int(rows.size)
+        idx = torch.from_numpy(rows).to(self.device)
+        sub = device_in._replace(
+            **{name: getattr(device_in, name)[idx] for name in self._per_object_fields(fmt)}
+        )
+        fb = schedule_tick(expand_compact(sub) if fmt == "compact" else sub)
+        for name in ("selected", "replicas", "counted", "reasons"):
+            getattr(out, name)[idx] = getattr(fb, name)
+        self._sync()
+        timings["narrow_fallback"] += time.perf_counter() - t0
+        return out
+
+    # -- packed fetch and decode -------------------------------------------
+    def _fetch_decode_packed(self, out, n: int, k: int, names, timings):
+        """Pull one chunk's first n rows off the device as the packed wire
+        (one i32[n, 4K+2+NR] copy), re-fetch the K-overflow rows, and
+        decode both."""
+        t0 = time.perf_counter()
+        planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
+        wire = self._read_np(pack_wire(*(p[:n] for p in planes), k))
+        packed = unpack_wire(wire, k)
+        over_pos = np.nonzero(packed.nsel > k)[0]
+        over_dense = self._fetch_overflow(out, over_pos, timings) if over_pos.size else None
+        t1 = time.perf_counter()
+        timings["fetch"] += t1 - t0
+        results = self._decode_packed_mixed(packed, over_pos, over_dense, names)
+        timings["decode"] += time.perf_counter() - t1
+        return results
+
+    def _fetch_overflow(self, out, rows: np.ndarray, timings):
+        """Re-fetch of K-overflow rows (the packed wire's escape hatch):
+        bit-packed selection/counted masks plus the replica plane in one
+        copy, timed as the ``overflow_fetch`` part of the fetch stage."""
+        t0 = time.perf_counter()
+        idx = torch.from_numpy(rows).to(self.device)
+        arr = self._read_np(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
+        timings["overflow_fetch"] += time.perf_counter() - t0
+        return arr, out.selected.shape[1]
+
+    @staticmethod
+    def _split_overflow(arr: np.ndarray, c_pad: int):
+        """One overflow read -> (selected, replicas, counted) planes.
+        Layout: [sel bits | cnt bits | rep] with ceil(C/32)-word masks."""
+        nw = -(-c_pad // 32)
+        sel = _unpack_bits(arr[:, :nw], c_pad)
+        cnt = _unpack_bits(arr[:, nw : 2 * nw], c_pad)
+        return sel, arr[:, 2 * nw : 2 * nw + c_pad], cnt
+
+    def _decode_packed_mixed(self, packed, over_pos, over_dense, names):
+        """Decode a packed fetch: packable rows from the wire slots,
+        K-overflow rows from their re-fetched planes."""
+        results = self._decode_packed_rows(packed, names)
+        if over_pos.size:
+            self.overflow_rows_total += int(over_pos.size)
+            sel, rep, cnt = self._split_overflow(*over_dense)
+            for p, r in zip(over_pos.tolist(), self._decode_rows(sel, rep, cnt, names)):
+                results[p] = r
+        return results
+
+    @staticmethod
+    def _build_results(n_rows, rows, cols, replicas_at, counted_at, names):
+        """Shared decode tail: (row, col) placement pairs, sorted by row,
+        -> frozen ScheduleResults, one dict(zip(...)) per row.  ``*_at``
+        are the values already gathered at the pairs."""
+        bounds = np.searchsorted(rows, np.arange(n_rows + 1))
+        reps_obj = replicas_at.astype(object)
+        reps_obj[counted_at == 0] = DUPLICATE
         sel_names = np.asarray(names, dtype=object)[cols].tolist()
         reps_list = reps_obj.tolist()
         return [
@@ -409,3 +588,24 @@ class SchedulerEngine:
             )
             for s, e in zip(bounds[:-1], bounds[1:])
         ]
+
+    @classmethod
+    def _decode_rows(cls, selected, replicas, counted, names) -> list[ScheduleResult]:
+        """Vectorized decode of dense [n, C] planes."""
+        rows, cols = np.nonzero(selected)
+        return cls._build_results(
+            selected.shape[0], rows, cols, replicas[rows, cols], counted[rows, cols], names
+        )
+
+    @classmethod
+    def _decode_packed_rows(cls, packed, names) -> list[ScheduleResult]:
+        """Decode packed [n, K] rows (slots score-ordered, PACK_FILL
+        padded).  Dict content equals the dense decode; insertion order
+        is score order, which no consumer observes.  Overflow rows
+        (nsel > K) decode truncated here and are replaced by the caller."""
+        idx = packed.idx
+        rows, slots = np.nonzero(idx >= 0)
+        return cls._build_results(
+            idx.shape[0], rows, idx[rows, slots],
+            packed.rep[rows, slots], packed.cnt[rows, slots], names,
+        )

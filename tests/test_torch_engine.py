@@ -30,6 +30,7 @@ from kubeadmiral_tpu.models.types import (
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+from kubeadmiral_tpu_torch.testing.sample_counts import sample_counts
 from kubeadmiral_tpu_torch.testing.worlds import build_world
 
 
@@ -37,7 +38,10 @@ def _jax(**kw):
     return JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
 
 
-def _port(monkeypatch, chunk_size=None, min_bucket=None, vocab_caps=None):
+def _port(
+    monkeypatch, chunk_size=None, min_bucket=None, vocab_caps=None, narrow_m=None,
+    pack_k_min=None,
+):
     """The port's CPU engine with the JAX engine's keywords set as the
     port's module constants (the port has no such options)."""
     if chunk_size is not None:
@@ -49,16 +53,29 @@ def _port(monkeypatch, chunk_size=None, min_bucket=None, vocab_caps=None):
             engine_mod, "CompactVocab",
             functools.partial(engine_mod.CompactVocab, **vocab_caps),
         )
+    if narrow_m is not None:
+        monkeypatch.setattr(engine_mod, "NARROW_M", narrow_m)
+    if pack_k_min is not None:
+        monkeypatch.setattr(engine_mod, "PACK_K_MIN", pack_k_min)
     return SchedulerEngine(device="cpu")
 
 
 def _check(monkeypatch, units, clusters, **kw):
-    """Port vs JAX default vs JAX dense (the same chunk geometry and
-    vocabulary caps); returns the port's results."""
-    got = _port(monkeypatch, **kw).schedule(units, clusters)
+    """Port vs JAX default vs JAX dense (the same chunk geometry, vocabulary
+    caps, candidate width and wire width): equal results, and on the
+    port's narrow solve and packed wire the JAX default engine's
+    narrow_stats, candidate width and overflow rows.  Returns (the port's
+    engine, its results)."""
+    port = _port(monkeypatch, **kw)
+    got = port.schedule(units, clusters)
     for narrow in (None, False):
-        results_equal(got, _jax(narrow=narrow, **kw).schedule(units, clusters))
-    return got
+        jax_engine = _jax(narrow=narrow, **kw)
+        results_equal(got, jax_engine.schedule(units, clusters))
+        if narrow is None:
+            assert port.narrow_stats == jax_engine.narrow_stats
+            assert port.narrow_last_m == jax_engine.narrow_last_m
+            assert port.overflow_rows_total == jax_engine.overflow_rows_total
+    return port, got
 
 
 def _tainted():
@@ -139,6 +156,23 @@ def _chunked_world():
     return units, clusters
 
 
+def _spread_world():
+    """Divide rows without maxClusters over 20 clusters: the wire's K is
+    PACK_K_MIN's bucket, so a small PACK_K_MIN overflows most rows."""
+    clusters = [mk_cluster(f"c{i:02d}") for i in range(20)]
+    units = [
+        mk_unit(f"obj-{i}", scheduling_mode=MODE_DIVIDE, desired_replicas=5 + i % 40,
+                avoid_disruption=False)
+        for i in range(60)
+    ]
+    return units, clusters
+
+
+def _wide_world():
+    # 150 clusters bucket to 256 > M = 128: the default engine narrows.
+    return build_world(200, 150, "5", seed=2)[:2]
+
+
 SCENARIOS = {
     "filters": (_filters_world, {}),
     "replicas": (_replicas_world, {}),
@@ -155,23 +189,50 @@ SCENARIOS = {
                      {"vocab_caps": {"gvk_cap": 1}}),
     "taint-overflow": (lambda: rich_world(b=40, c=14, seed=3),
                        {"vocab_caps": {"taint_cap": 1}}),
+    # The default candidate width on a bucket wider than M: narrow.
+    "c5-wide": (_wide_world, {}),
+    # M patched to the cluster bucket: the dense tick on the same world.
+    "c5-wide-dense": (_wide_world, {"narrow_m": 256}),
+    "pack-k-2": (_spread_world, {"pack_k_min": 2}),
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_cold_tick_matches_jax_engine(name, monkeypatch):
+# Every scenario at the default candidate width, and those that do not
+# fix their own at M = 8, which narrows the 40- and 14-cluster worlds
+# (bucket 64 and 16) too.
+CASES = [pytest.param(name, None, id=name) for name in sorted(SCENARIOS)] + [
+    pytest.param(name, 8, id=f"{name}-m8")
+    for name in sorted(SCENARIOS)
+    if "narrow_m" not in SCENARIOS[name][1]
+]
+
+
+@pytest.mark.parametrize("name,narrow_m", CASES)
+def test_cold_tick_matches_jax_engine(name, narrow_m, monkeypatch):
+    """Results, narrow_stats and overflow rows equal the JAX default
+    engine's."""
     build, kw = SCENARIOS[name]
+    if narrow_m is not None:
+        kw = {**kw, "narrow_m": narrow_m}
     units, clusters = build()
     dense_calls = []
     real = engine_mod.featurize
     monkeypatch.setattr(
         engine_mod, "featurize", lambda *a, **k: dense_calls.append(1) or real(*a, **k)
     )
-    got = _check(monkeypatch, units, clusters, **kw)
+    port, got = _check(monkeypatch, units, clusters, **kw)
     assert len(got) == len(units)
     assert any(r.clusters for r in got)
     # Only the overflow scenarios take the dense-featurize fallback.
     assert bool(dense_calls) == name.endswith("-overflow")
+    stats = port.narrow_stats
+    if name == "c5-wide" or (narrow_m and name in ("c3", "c5", "c3-multichunk")):
+        assert port.narrow_last_m > 0 and stats["rows"] + stats["fallback"] == len(units)
+    if name == "c5-wide-dense":
+        assert port.narrow_last_m == 0 and stats == {"rows": 0, "fallback": 0}
+        assert port.overflow_rows_total > 0  # the dense tick's planes, packed
+    if name == "pack-k-2":
+        assert port.overflow_rows_total > len(units) // 2
 
 
 @pytest.mark.parametrize("config", ["3", "5"])
@@ -228,3 +289,17 @@ def test_empty_inputs_and_overflow_match_jax(monkeypatch):
                    avoid_disruption=False)
     with pytest.raises(OverflowError):
         engine.schedule([huge], [mk_cluster("a"), mk_cluster("b")])
+
+
+def test_sample_counts_match_jax_engine():
+    """The CPU sampler's counts (which PERF.md's predictions scale) are
+    the JAX default engine's on the same world sample."""
+    got = sample_counts("3", 96, seed=2)
+    units, clusters, _ = build_world(96, 500, "3", seed=2)
+    jax_engine = _jax()
+    jax_engine.schedule(units, clusters)
+    assert got["narrow_m"] == jax_engine.narrow_last_m > 0
+    assert got["narrow_stats"] == jax_engine.narrow_stats
+    assert got["overflow_rows"] == jax_engine.overflow_rows_total
+    assert got["dense_plane_bytes"] == 6 * 96 * 512
+    assert 0 < got["fetch_vs_dense"] < 1
