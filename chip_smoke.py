@@ -8,11 +8,20 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
 3. builds the config 3 (10k x 500) and config 5 (100k x 5k) worlds;
 4. holds the kernel against its plain torch twin on the same CUDA
    tensors (tolerance 0: integer math, bit-identical) on a c5 chunk
-   (4096 x 5120, R=3), a c3 chunk (4096 x 512, R=2) and an odd-B case
-   with padded columns and webhook planes, times kernel vs plain with
-   CUDA events (median after warm-up), and works out the kernel's bound
-   from what these inputs need (bytes, and int32-pipe instructions with
-   the 64-bit divisions counted from the built kernel's SASS);
+   (4096 x 5120, R=3), a c3 chunk (4096 x 512, R=2), an odd-B case with
+   padded columns and webhook planes, the kernel's edge cases
+   (testing/problems.py:EDGE_SHAPES, the inputs the CPU tests hold
+   against JAX) and a case whose planes are not 16-byte aligned; times
+   kernel vs plain with CUDA events (median after warm-up, L2 flushed)
+   and works out the kernel's bound from what these inputs need (bytes;
+   int32-pipe instructions and conversions with each division at the
+   short division's cost, and under PR 1's 64-bit division count beside
+   it); prints ptxas's registers, shared memory and spills and checks the
+   short divisions' shape in the build's SASS;
+4b. attribution: the kernel's time and bound at both chunks with (a) the
+   flags as they are, (b) no fit filter and no resource plugins, (c) no
+   taint or affinity scoring, (d) every filter and plugin off, each
+   variant held against the plain version;
 5. holds the GPU narrow tick (the kernel as its phase 1) against the CPU
    narrow tick, bit for bit on every output plane, the cert plane and
    the packed wire: the whole c3 chunk and the first 512 rows of the c5
@@ -58,6 +67,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # clock; compute capability 9.0 issues 64 int32 instructions per SM clock,
 # a quarter of that.  Phase 1 is integer work, so this is its peak.
 INT32_OPS_PER_S = 67e12 / 4
+# Conversions (I2F, F2I, FRND) issue 16 per SM clock on compute
+# capability 9.0, a sixteenth of the fp32 lanes' 256 operations.
+CONV_OPS_PER_S = 67e12 / 16
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
 C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
 C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
@@ -80,6 +92,23 @@ RESOURCE_OPS = 4        # used + request for cpu and mem (any resource plugin)
 RATIO_OPS = 20          # least/most: two guards and two x100 per resource,
                         # the floor average, add
 WEBHOOK_OPS = 2         # webhook score added on a feasible cell
+# One kept division by the short path (csrc/phase1.cu: short_div),
+# counted by hand from the sm_90a build's SASS (PERF.md, PR 4): I2F.S64
+# (I2F.S32 for the int32 planes), FMUL and F2I.FLOOR for the estimate;
+# the divisor's test against 2^30 and its branch; the remainder's
+# correction, 4 instructions in 32 bits (IMAD, IMAD, ISETP, SHF) or 11 in
+# 64 (the negated divisor, IMAD.WIDE.U32 and two IMADs, the two 64-bit
+# compares, the sign, the branch out); the +1/-1 adjustment and the range
+# test with its flag, 6.  division_sass() checks the sites' shape.
+DIV_CONV_OPS = 2        # I2F, F2I.FLOOR
+DIV_FP32_OPS = 1        # FMUL
+DIV_INT32_OPS = 13      # divisor at most 2^30: the correction in 32 bits
+DIV_INT64_OPS = 20      # divisor past 2^30: in 64 bits
+# PR 1's 64-bit floor division, from PR 1's build (PERF.md, PR 1): the
+# 32-bit path when both operands are in [0, 2^32), else the 64-bit
+# routine; the short division's exact path is the latter.
+PR1_DIV_FAST = 19
+PR1_DIV_SLOW = 97
 
 
 def log(msg: str) -> None:
@@ -208,9 +237,15 @@ def profile_chunk(label: str, engine, units, clusters, top: int = 14) -> None:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+HOLD_CYCLES = 4_000_000  # ~2 ms of the card's clock
+
+
 def timed_ms(fn, runs: int = 7) -> float:
     """Median device time of fn() in ms (CUDA events), after a warm-up,
-    with L2 flushed before every run."""
+    with L2 flushed before every run.  The card spins for HOLD_CYCLES
+    after the flush, so the host has queued the start event, fn's work
+    and the end event before the start event is reached: the events
+    then hold fn's device time, not the host's time to launch it."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -218,6 +253,7 @@ def timed_ms(fn, runs: int = 7) -> float:
     times = []
     for _ in range(runs):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -228,56 +264,65 @@ def timed_ms(fn, runs: int = 7) -> float:
     return float(np.median(times))
 
 
-def div64_instructions(lib_path) -> dict:
-    """Instructions of one 64-bit division in the built kernel, from its
-    SASS: each floor division checks whether both operands fit in 32
-    bits and takes a short 32-bit path if so, else calls the 64-bit
-    routine.  The least over the division sites of each path."""
+def division_sass(lib_path) -> dict:
+    """The short divisions in the built kernel, from its SASS.  Each site
+    rounds the float estimate num * rcp down to an integer with one
+    F2I.FLOOR whose operand an FMUL wrote; no other instruction of the
+    kernel floors a float.  Returns the number of sites per kernel
+    instance; raises if the last write before an F2I.FLOOR to its
+    operand is not an FMUL, or the build has no site."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
         [cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True
     ).stdout
-    code = [
-        (int(a, 16), t.strip())
-        for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)
-    ]
-    index = {a: i for i, (a, _) in enumerate(code)}
-    target = lambda t: index[int(t.split()[-1], 16)]  # noqa: E731
-    calls = [i for i, (_, t) in enumerate(code) if t.startswith("CALL.REL.NOINC ")]
-    routines = {target(code[i][1]) for i in calls}
-    if len(routines) != 1:
-        raise AssertionError(f"expected one 64-bit division routine, found {len(routines)}")
-    start = routines.pop()
-    routine = next(k for k in range(start, len(code)) if code[k][1].startswith("RET")) - start + 1
-    fast, slow = [], []
-    for i in calls:
-        # The branch to the 32-bit path just before the call, and the
-        # branch just after it to where both paths meet.
-        j = max(k for k in range(i) if re.fullmatch(r"@!?P\d BRA 0x[0-9a-f]+", code[k][1]))
-        k = next(k for k in range(i, len(code)) if re.fullmatch(r"BRA 0x[0-9a-f]+", code[k][1]))
-        fast.append(target(code[k][1]) - target(code[j][1]))
-        slow.append(k - j + routine)
-    return {"sites": len(calls), "fast": min(fast), "slow": min(slow)}
+    sites = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        code = [t.strip() for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)]
+        floors = [i for i, t in enumerate(code) if t.startswith("F2I.FLOOR")]
+        for i in floors:
+            src = code[i].split(",")[-1].strip()
+            writer = next(
+                (t for t in reversed(code[:i])
+                 if re.match(rf"(@!?P\d )?\S+ {re.escape(src)},", t)), "",
+            )
+            if not writer.startswith("FMUL"):
+                raise AssertionError(f"{name}: F2I.FLOOR at SASS line {i} floors {writer!r}")
+        if floors:
+            args = re.search(r"phase1_kernelILi(\d)ELb(\d)ELb(\d)E", name)
+            key = "rows{}_shared{}_vec{}".format(*args.groups()) if args else name
+            sites[key] = len(floors)
+    if not sites:
+        raise AssertionError("no short-division site in the built kernel")
+    return {"sites": sites}
 
 
 def phase1_work(inp, feasible) -> dict:
     """What phase 1 must do on these inputs, given the feasibility it
-    computes: which cells each filter and score plugin touches, and how
-    many 64-bit divisions take the 32-bit path (both operands in
-    [0, 2^32)) or the full one, exactly as the kernel divides."""
+    computes: which cells each filter and score plugin touches, and the
+    divisions it keeps, counted two ways: by the short division (a
+    quotient within 2^20 and a divisor below 2^62, else the exact path)
+    and by PR 1's 64-bit division (both operands in [0, 2^32) take the
+    32-bit path, the rest the 64-bit routine)."""
     import torch
 
     from kubeadmiral_tpu_torch.ops import scores as S
 
     fe, se = inp.filter_enabled, inp.score_enabled
     c = feasible.shape[1]
-    counts = {"fast": 0, "slow": 0}
+    counts = {"short": 0, "short64": 0, "exact": 0, "fast": 0, "slow": 0}
 
     def divisions(keep, num, den):
         den = den.clamp(min=1)
+        kept = int(keep.sum())
+        q = torch.div(num, den, rounding_mode="floor")
+        short = keep & (q.abs() < 2**20 - 1) & (den < 2**62)
         fast = int((keep & (num >= 0) & (num < 2**32) & (den < 2**32)).sum())
+        counts["short"] += int(short.sum())
+        counts["short64"] += int((short & (den > 2**30)).sum())
+        counts["exact"] += kept - int(short.sum())
         counts["fast"] += fast
-        counts["slow"] += int(keep.sum()) - fast
+        counts["slow"] += kept - fast
 
     scored = {p: feasible & se[:, p, None] for p in range(S.NUM_SCORE_PLUGINS)}
     for p, plane in ((S.S_TAINT, inp.taint_counts), (S.S_AFFINITY, inp.affinity_scores)):
@@ -308,16 +353,25 @@ def phase1_work(inp, feasible) -> dict:
         "placement_cells": int((fe[:, 3] & inp.placement_has).sum()) * c,
         "scored": {p: int(m.sum()) for p, m in scored.items()},
         "resource_cells": int(resource.sum()),
+        "div_short": counts["short"],
+        "div_short64": counts["short64"],
+        "div_exact": counts["exact"],
         "div_fast": counts["fast"],
         "div_slow": counts["slow"],
     }
 
 
-def phase1_bound(inp, feasible, div: dict) -> dict:
+def phase1_bound(inp, feasible) -> dict:
     """Least time for phase 1 on these inputs: the bytes the function
     needs (each plane read once, and only where a row's enabled filters
     and plugins read it; each output written once) over the HBM rate,
-    and its int32-pipe instructions over the int32 peak."""
+    and its operations over the peak of the pipe that runs them — the
+    larger of the int32 instructions over the int32 peak and the short
+    divisions' conversions over the conversion peak (their two fp32
+    instructions are below both).  The operation side is also given
+    under PR 1's count (``ops_pr1_ms``: every division at the 64-bit
+    routine's SASS length, all at the int32 peak); the bound takes the
+    new one."""
     from kubeadmiral_tpu_torch.ops import scores as S
 
     w = phase1_work(inp, feasible)
@@ -338,7 +392,7 @@ def phase1_bound(inp, feasible, div: dict) -> dict:
         + score_bytes * (w["feasible"] + scored[S.S_TAINT] + scored[S.S_AFFINITY])
         + (1 + 4 + 8) * b * c                    # feasible, reasons, totals
     )
-    ops = (
+    base = (
         CELL_OPS * w["cells"]
         + FILTER_OPS * sum(w["filter_cells"])
         + FIT_OPS * r * w["fit_cells"]
@@ -347,26 +401,44 @@ def phase1_bound(inp, feasible, div: dict) -> dict:
         + RESOURCE_OPS * w["resource_cells"]
         + RATIO_OPS * (scored[S.S_LEAST] + scored[S.S_MOST])
         + WEBHOOK_OPS * w["feasible"]
-        + div["fast"] * w["div_fast"]
-        + div["slow"] * w["div_slow"]
     )
+    int_ops = (
+        base
+        + DIV_INT32_OPS * (w["div_short"] - w["div_short64"])
+        + DIV_INT64_OPS * w["div_short64"]
+        + PR1_DIV_SLOW * w["div_exact"]
+    )
+    conv_ops = DIV_CONV_OPS * w["div_short"]
+    pr1_ops = base + PR1_DIV_FAST * w["div_fast"] + PR1_DIV_SLOW * w["div_slow"]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    int_ms = int_ops / INT32_OPS_PER_S * 1e3
+    conv_ms = conv_ops / CONV_OPS_PER_S * 1e3
+    ops_ms = max(int_ms, conv_ms)
     return {
         "bytes": int(nbytes),
-        "ops": int(ops),
+        "ops": int(int_ops),
+        "conv_ops": int(conv_ops),
+        "ops_ms": ops_ms,
+        "ops_pr1": int(pr1_ops),
+        "ops_pr1_ms": pr1_ops / INT32_OPS_PER_S * 1e3,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "derivation": (
             f"max({nbytes} B / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.6f} ms, "
-            f"{ops} int32 instructions / {INT32_OPS_PER_S:.4g} /s = {ops_ms:.6f} ms)"
+            f"{int_ops} int32 instructions / {INT32_OPS_PER_S:.4g} /s = {int_ms:.6f} ms, "
+            f"{conv_ops} conversions / {CONV_OPS_PER_S:.4g} /s = {conv_ms:.6f} ms); "
+            f"under PR 1's division count {pr1_ops} int32 instructions = "
+            f"{pr1_ops / INT32_OPS_PER_S * 1e3:.6f} ms"
         ),
         "work": {k: v for k, v in w.items() if k != "scored"}
         | {"scored": [scored[p] for p in range(S.NUM_SCORE_PLUGINS)]},
     }
 
 
-def check_phase1(label: str, inp, div: dict = None) -> dict:
+def check_phase1(label: str, inp, timed: bool = False, plain: bool = True) -> dict:
+    """Hold the kernel against phase1_plain on ``inp`` (tolerance 0).
+    With ``timed``, also time the kernel (and the plain version unless
+    ``plain`` is False) and work out its bound."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
@@ -383,12 +455,44 @@ def check_phase1(label: str, inp, div: dict = None) -> dict:
     row = {"case": label, "shape": [b, c, int(inp.request.shape[1])], "max_abs_err": err}
     if err != 0:
         raise AssertionError(f"{label}: kernel differs from phase1_plain (max abs err {err})")
-    if div is not None:
+    if timed:
         row["ms"] = timed_ms(lambda: phase1(inp))
-        row["plain_ms"] = timed_ms(lambda: phase1_plain(inp), runs=3)
-        row.update(phase1_bound(inp, want[0], div))
+        if plain:
+            row["plain_ms"] = timed_ms(lambda: phase1_plain(inp), runs=3)
+        row.update(phase1_bound(inp, want[0]))
     log(f"phase1 {label}: {json.dumps(row)}")
     return row
+
+
+# Where the kernel's time goes, without ncu: the same chunk with the
+# row flags switched off (per row, so a disabled filter or plugin reads
+# no plane and does no work).  Feasibility follows the flags, so each
+# variant has its own bound.
+ATTRIBUTION = (
+    # key, what stays, filters off, score plugins off
+    ("a", "as the chunk has them", (), ()),
+    ("b", "no fit filter, no resource plugins", (2,), (1, 2, 4)),
+    ("c", "no taint or affinity scoring", (), (0, 3)),
+    ("d", "every filter and plugin off", (0, 1, 2, 3, 4), (0, 1, 2, 3, 4)),
+)
+
+
+def attribute(label: str, inp) -> dict:
+    """Kernel time beside its bound for each ATTRIBUTION variant of a
+    chunk, every variant held against phase1_plain.  Returns
+    {key: row}."""
+    rows = {}
+    for key, what, filters_off, scores_off in ATTRIBUTION:
+        fe, se = inp.filter_enabled.clone(), inp.score_enabled.clone()
+        fe[:, list(filters_off)] = False
+        se[:, list(scores_off)] = False
+        variant = inp._replace(filter_enabled=fe, score_enabled=se)
+        row = check_phase1(f"{label}-{key}", variant, timed=True, plain=False)
+        rows[key] = {"what": what, "ms": row["ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "share": row["bound_ms"] / row["ms"],
+                     "work": row["work"]}
+    log(f"attribution {label}: {json.dumps(rows)}")
+    return rows
 
 
 def run_tick(label: str, engine, units, clusters) -> dict:
@@ -521,7 +625,11 @@ def main() -> int:
     from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
     from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
-    from kubeadmiral_tpu_torch.testing.problems import random_tick_inputs
+    from kubeadmiral_tpu_torch.testing.problems import (
+        EDGE_SHAPES,
+        edge_tick_inputs,
+        random_tick_inputs,
+    )
     from kubeadmiral_tpu_torch.testing.worlds import SHAPES, build_world
 
     t_all = time.perf_counter()
@@ -532,8 +640,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase1_mod._library()
     log(f"phase build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, {phase1_mod.SOURCE.name})")
-    div = div64_instructions(phase1_mod.build())
-    log(f"phase1 64-bit division (SASS instructions): {json.dumps(div)}")
+    log(f"phase1 build (ptxas -v):\n{phase1_mod.build_log().strip()}")
+    div = division_sass(phase1_mod.build())
+    log(f"phase1 short division sites (SASS): {json.dumps(div)}")
 
     t0 = time.perf_counter()
     worlds = {cfg: build_world(*SHAPES[cfg], config=cfg, seed=0) for cfg in ("3", "5")}
@@ -545,12 +654,31 @@ def main() -> int:
     for cfg in ("5", "3"):
         units, clusters, _ = worlds[cfg]
         inp, _, _ = chunk_tick_inputs(gpu, units, clusters)
-        rows[cfg] = check_phase1(f"c{cfg}-chunk", inp, div)
+        rows[cfg] = check_phase1(f"c{cfg}-chunk", inp, timed=True)
         del inp
     odd = random_tick_inputs(333, 200, r=4, webhook=True, invalid=7, scale=True, seed=7)
     check_phase1("odd-B-webhook-padded", to_device(odd, "cuda"))
+    for b, c, r, invalid, seed in EDGE_SHAPES:
+        edge = to_device(edge_tick_inputs(b, c, r, invalid, seed), "cuda")
+        check_phase1(f"edge-{b}x{c}x{r}", edge)
+    # Every per-row plane a view one row in: C % 4 == 0 but the planes are
+    # not all 16-byte aligned, so the kernel loads cell by cell.
+    full = to_device(edge_tick_inputs(9, 5124, 3, 0.05, seed=9), "cuda")
+    per_row = [k for k, v in full._asdict().items() if v.shape[:1] == (9,)]
+    check_phase1("unaligned-8x5124x3", full._replace(**{k: getattr(full, k)[1:] for k in per_row}))
     torch.cuda.empty_cache()
     log(f"phase kernel-vs-plain: {time.perf_counter() - t0:.2f} s")
+
+    # Where the kernel's time goes at both chunks (PERF.md, PR 4).
+    t0 = time.perf_counter()
+    attribution = {}
+    for cfg in ("5", "3"):
+        units, clusters, _ = worlds[cfg]
+        inp, _, _ = chunk_tick_inputs(gpu, units, clusters)
+        attribution[cfg] = attribute(f"c{cfg}-chunk", inp)
+        del inp
+    torch.cuda.empty_cache()
+    log(f"phase attribution: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     for cfg, rows_checked in (("3", None), ("5", C5_NARROW_ROWS)):
@@ -619,6 +747,10 @@ def main() -> int:
                 "source": "kubeadmiral_tpu_torch/csrc/phase1.cu",
                 "replaces": "kubeadmiral_tpu/ops/pallas_slab.py:64",
                 "match": True,
+                # phase1.launches counts calls of kt_phase1, each of which
+                # launches columns_kernel, then phase1_kernel; every ms
+                # below spans both.
+                "kernels_per_call": 2,
                 "launches": ticks["5"]["phase1_launches"],
                 "launches_c3": ticks["3"]["phase1_launches"],
                 "launches_dense_c5": dense_ticks["5"]["phase1_launches"],
@@ -632,10 +764,19 @@ def main() -> int:
                 "bound_by": c5["bound_by"],
                 "library_ms": None,
                 "shape": c5["shape"],
+                "ops_ms": c5["ops_ms"],
+                "ops_pr1_ms": c5["ops_pr1_ms"],
                 "ms_c3": c3["ms"],
                 "plain_ms_c3": c3["plain_ms"],
                 "bound_ms_c3": c3["bound_ms"],
+                "bound_by_c3": c3["bound_by"],
+                "ops_ms_c3": c3["ops_ms"],
+                "ops_pr1_ms_c3": c3["ops_pr1_ms"],
                 "shape_c3": c3["shape"],
+                "attribution": {
+                    f"c{cfg}": {k: [v["ms"], v["bound_ms"]] for k, v in rows_.items()}
+                    for cfg, rows_ in attribution.items()
+                },
                 "tick_ms_c3": ticks["3"]["tick_ms"],
                 "tick_ms_c5": ticks["5"]["tick_ms"],
                 "card": card,

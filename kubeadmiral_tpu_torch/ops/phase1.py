@@ -5,14 +5,17 @@ Replaces ``kubeadmiral_tpu/ops/pallas_slab.py`` (the Pallas
 ``(feasible bool[B, C], reasons i32[B, C], totals i64[B, C])`` that
 ``ops.pipeline._phase1`` computes in the JAX package:
 
-* on CUDA tensors it launches the hand-written kernel
-  ``csrc/phase1.cu`` (``sm_90a``), built with ``nvcc`` at first use
-  into ``_build/`` and bound with ``ctypes``; a build or launch failure
-  raises — there is no fallback;
+* on CUDA tensors it launches the hand-written kernels of
+  ``csrc/phase1.cu`` (``sm_90a``: the column planes' prologue, then the
+  phase-1 kernel), built with ``nvcc`` at first use into ``_build/`` and
+  bound with ``ctypes``; a build or launch failure raises — there is no
+  fallback;
 * on CPU tensors it runs ``phase1_plain``, the same function written out
   in torch (the kernel's twin, compared with it on the card).
 
-``phase1.launches`` counts kernel launches (never plain-version calls).
+``phase1.launches`` counts the calls that launch on the card, one a call
+(never plain-version calls); each such call launches two kernels,
+``columns_kernel`` and then ``phase1_kernel``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, kept in build_log()
 )
 
 _lib = None
@@ -101,8 +105,15 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
         )
+    lib_path.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build_log() -> str:
+    """What ptxas said of the built kernel: its registers, shared memory
+    and spills."""
+    return build().with_suffix(".ptxas.txt").read_text()
 
 
 def _library():
@@ -112,8 +123,8 @@ def _library():
             lib = ctypes.CDLL(str(build()))
             fn = lib.kt_phase1
             fn.restype = ctypes.c_int
-            # 17 input + 3 output pointers, (B, C, R), stream.
-            fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            # 17 input, 3 output and 1 scratch pointers, (B, C, R), stream.
+            fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             _lib = lib
         return _lib
 
@@ -166,8 +177,10 @@ def phase1(inp):
     feasible = torch.empty((b, c), dtype=torch.bool, device=device)
     reasons = torch.empty((b, c), dtype=torch.int32, device=device)
     totals = torch.empty((b, c), dtype=torch.int64, device=device)
+    # Scratch for the kernel's column planes (csrc/phase1.cu:columns_kernel).
+    cols = torch.empty((2 * r + 3, c), dtype=torch.int64, device=device)
     ptrs = [x.data_ptr() for x in args] + [
-        feasible.data_ptr(), reasons.data_ptr(), totals.data_ptr()
+        feasible.data_ptr(), reasons.data_ptr(), totals.data_ptr(), cols.data_ptr()
     ]
     # The launch goes to the tensors' card, whichever card is current.
     with torch.cuda.device(device):

@@ -69,3 +69,85 @@ def random_tick_inputs(b, c, r=4, webhook=False, invalid=0, scale=False, seed=0)
         cpu_avail=rng.integers(-3, 25, c).astype(np.int64),
         cluster_valid=valid,
     )
+
+
+TAINT_WRAP = 21_474_836  # past it, 100 * count wraps in int32
+
+# (b, c, r, share of invalid interior columns, seed) for edge_tick_inputs:
+# C off the phase-1 kernel's four-cell quads and 16-byte accesses (33,
+# 200, 1300, 7001, 14003, 1), B off its rows per block (13, 333, 5, 3, 7),
+# C wide enough for its one-row (7001) and no-shared-state (14003)
+# layouts, and the main path's C = 5120.  The CPU tests hold the plain
+# version against JAX on the first five; the card holds the kernel
+# against the plain version on all.
+EDGE_SHAPES = (
+    (13, 33, 3, 0.0, 0),
+    (13, 200, 2, 0.05, 1),
+    (6, 1300, 4, 0.05, 2),
+    (333, 33, 3, 0.05, 3),
+    (24, 200, 3, 0.0, 4),
+    (64, 5120, 3, 0.05, 5),
+    (5, 7001, 3, 0.0, 6),
+    (3, 14003, 4, 0.05, 7),
+    (7, 1, 2, 0.0, 8),
+)
+
+
+def edge_tick_inputs(b, c, r=3, invalid=0.05, seed=0):
+    """``random_tick_inputs`` with the phase-1 kernel's edges drawn in:
+
+    * byte-scale resources (the balanced score's range shift);
+    * rows whose taint counts reach 2**31 - 1, past TAINT_WRAP, where
+      normalisation's 100 * count wraps in int32;
+    * rows with negative, and some with int32-wide, webhook and affinity
+      scores;
+    * rows whose only feasible column is the last one;
+    * rows that every column passes (with ``invalid`` = 0 their
+      affinity maximum can be negative);
+    * a ``invalid`` share of interior columns marked invalid (never the
+      last one).
+    """
+    inp = random_tick_inputs(b, c, r, webhook=True, scale=True, seed=seed)
+    rng = np.random.default_rng(seed * 104729 + b * 1000 + c + 1)
+    rows = np.arange(b)
+    valid = rng.random(c) >= invalid
+    valid[-1] = True
+    taint = inp.taint_counts.copy()
+    big = rows % 3 == 0
+    taint[big] = rng.integers(0, 2**31 - 1, (int(big.sum()), c), dtype=np.int64)
+    taint[big, 0] = 2**31 - 1
+    affinity = inp.affinity_scores.copy()
+    webhook = inp.webhook_scores.copy()
+    neg = rows % 3 == 1
+    affinity[neg] = rng.integers(-60, 0, (int(neg.sum()), c))
+    webhook[neg] = rng.integers(-500, 0, (int(neg.sum()), c))
+    wide = rows % 6 == 2
+    affinity[wide] = rng.integers(-(2**31), 2**31 - 1, (int(wide.sum()), c), dtype=np.int64)
+    webhook[wide] = rng.integers(-(2**31), 2**31 - 1, (int(wide.sum()), c), dtype=np.int64)
+    filter_enabled = inp.filter_enabled.copy()
+    webhook_ok = inp.webhook_ok.copy()
+    request = inp.request.copy()
+    planes = {
+        k: getattr(inp, k).copy()
+        for k in ("api_ok", "taint_ok_new", "taint_ok_cur", "selector_ok", "placement_ok")
+    }
+    last = rows % 5 == 4  # only the last column passes
+    webhook_ok[last] = False
+    webhook_ok[last, -1] = True
+    for plane in planes.values():
+        plane[last, -1] = True
+    request[last] = 0
+    every = rows % 7 == 5  # every column passes
+    filter_enabled[every] = False
+    webhook_ok[every] = True
+    affinity[every] = rng.integers(-60, 0, (int(every.sum()), c))
+    return inp._replace(
+        filter_enabled=filter_enabled,
+        request=request,
+        taint_counts=taint.astype(np.int32),
+        affinity_scores=affinity.astype(np.int32),
+        webhook_ok=webhook_ok,
+        webhook_scores=webhook.astype(np.int32),
+        cluster_valid=valid,
+        **planes,
+    )

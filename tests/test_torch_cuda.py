@@ -20,7 +20,11 @@ from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
 from kubeadmiral_tpu_torch.ops.pipeline import schedule_tick
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
-from kubeadmiral_tpu_torch.testing.problems import random_tick_inputs
+from kubeadmiral_tpu_torch.testing.problems import (
+    EDGE_SHAPES,
+    edge_tick_inputs,
+    random_tick_inputs,
+)
 from kubeadmiral_tpu_torch.testing.worlds import build_world
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +59,34 @@ def test_kernel_matches_plain(cuda, b, c, webhook, invalid, scale):
     assert phase1.launches == launches + 1
     for name, g, w in zip(("feasible", "reasons", "totals"), got, want):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+# The kernel's edges (testing/problems.py:EDGE_SHAPES, the inputs
+# tests/test_torch_phase1.py holds against JAX and chip_smoke.py runs).
+def _assert_kernel_matches_plain(inp):
+    launches = phase1.launches
+    got = phase1(inp)
+    want = phase1_plain(inp)
+    torch.cuda.synchronize()
+    assert phase1.launches == launches + 1
+    for name, g, w in zip(("feasible", "reasons", "totals"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("b,c,r,invalid,seed", EDGE_SHAPES)
+def test_kernel_matches_plain_on_edges(cuda, b, c, r, invalid, seed):
+    _assert_kernel_matches_plain(to_device(edge_tick_inputs(b, c, r, invalid, seed), cuda))
+
+
+@pytest.mark.parametrize("c", [36, 5124])
+def test_kernel_matches_plain_on_unaligned_rows(cuda, c):
+    # Every plane a view one row in: C % 4 == 0, but the planes do not
+    # all start 16-byte aligned, so the kernel loads cell by cell.
+    host = edge_tick_inputs(9, c, 3, 0.05, seed=9)
+    full = to_device(host, cuda)
+    per_row = {k for k, v in full._asdict().items() if v.shape[:1] == (9,)}
+    inp = full._replace(**{k: getattr(full, k)[1:] for k in per_row})
+    _assert_kernel_matches_plain(inp)
 
 
 def test_kernel_refuses_int64_score_planes(cuda):
