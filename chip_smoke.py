@@ -42,8 +42,21 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    where rows fail the certificate: requires a fallback dispatch (two
    launches) and placements equal to the narrow path's; at c3 a second
    dense and a second narrow tick follow, so the two paths run in turns
-   (narrow, dense, dense, narrow) with equal placements;
-9. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
+   (narrow, dense, dense, narrow) with equal placements; every tick of 7
+   and 8 is a cold tick on a fresh engine;
+9. the warm phase (``warm_phase``), per world at full size on one fresh
+   engine: a cold tick, a no-op tick on the same list and on a fresh list
+   of the same objects (no launch, the previous result objects), three
+   1 % churn ticks (the sub-batch path: one launch per slab plus
+   fallbacks, the changed rows equal a fresh engine's cold tick over
+   those units, the other rows the previous result objects), a capacity
+   drift and a tick back on the first clusters (one launch per chunk,
+   no per-object upload, every row equal to a fresh engine's cold tick);
+   each tick logs its wall ms, stages, cache and fetch paths, launches,
+   dispatch shapes, fetch and upload bytes, overflow and changed rows and
+   ``torch.cuda.memory_allocated()``; then holds the kernel against its
+   twin, timed with its bound, at the first churn tick's slab shape;
+10. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Any failed check exits nonzero without the final line.  Without CUDA it
@@ -131,13 +144,14 @@ def chunk_device_inputs(engine, units, clusters):
 
     view = _build_cluster_view(clusters, units)
     c_bucket, eff, ladder = engine._tick_geometry(len(view.clusters))
-    vocab = engine._vocab_for(view)
+    vocab = engine._vocab_for(view, engine._topo_fingerprint(view))
     chunk = units[:eff]
     inputs, fmt = engine._featurize_full(chunk, clusters, view, vocab)
     b_pad = engine._bucket_rows(len(chunk), ladder, eff, len(units) > eff)
     padded = engine._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
     dev = engine._device_inputs(
-        padded, fmt, vocab, c_bucket, engine._cluster_planes_device(view, c_bucket)
+        None, padded, "miss", fmt, vocab, c_bucket,
+        engine._cluster_planes_device(view, c_bucket),
     )
     return dev, fmt, engine._narrow_m(inputs, c_bucket), engine._pack_k(inputs, c_bucket)
 
@@ -495,95 +509,122 @@ def attribute(label: str, inp) -> dict:
     return rows
 
 
-def run_tick(label: str, engine, units, clusters) -> dict:
-    """One cold engine tick on the card.  Counts the phase-1 launches and
-    the engine's narrow and dense tick dispatches, and requires launches
-    = chunks + fallback dispatches."""
+def counted_tick(engine, units, clusters, capture: bool = False):
+    """engine.schedule(units, clusters) with every tick dispatch recorded
+    as (kind, rows, clusters), kind "narrow" or "dense" (on a narrow
+    path the dense ones are certificate fallbacks), the phase-1 launch
+    count set to 0 just before the call and read just after, and the
+    engine's counters as deltas over the call.  With ``capture`` the
+    first dispatch's expanded inputs are kept (on a churn tick a
+    sub-batch slab's, for check_phase1 at its shape), moved to the host
+    after the timed call so that ``memory_allocated`` counts the
+    engine's tensors only.  Returns (results, tick dict, captured host
+    inputs or None)."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
-    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
+    from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
 
-    c_bucket, eff, _ = engine._tick_geometry(len(clusters))
-    chunks = math.ceil(len(units) / eff)
-    calls = {"narrow": 0, "dense": 0}
-    real = {"narrow": engine_mod.schedule_tick_narrow, "dense": engine_mod.schedule_tick}
-
-    def counted(kind):
-        def fn(*args, **kwargs):
-            calls[kind] += 1
-            return real[kind](*args, **kwargs)
-        return fn
-
-    stats0 = dict(engine.narrow_stats)
-    over0, bytes0 = engine.overflow_rows_total, engine.fetch_bytes_total
-    engine_mod.schedule_tick_narrow = counted("narrow")
-    engine_mod.schedule_tick = counted("dense")
-    try:
+    captured = []
+    before = (
+        dict(engine.narrow_stats), dict(engine.cache_stats), dict(engine.fetch_stats),
+        dict(engine.upload_bytes), engine.overflow_rows_total, engine.fetch_bytes_total,
+    )
+    with recorded_dispatches(keep=captured if capture else None) as calls:
         phase1.launches = 0
         t0 = time.perf_counter()
         results = engine.schedule(units, clusters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = phase1.launches
-    finally:
-        engine_mod.schedule_tick_narrow = real["narrow"]
-        engine_mod.schedule_tick = real["dense"]
-    if calls["narrow"] not in (0, chunks):
-        raise AssertionError(f"{label}: {calls['narrow']} narrow ticks for {chunks} chunks")
-    # Every chunk runs one tick, narrow or dense; further dense ticks are
-    # the narrow chunks' certificate fallbacks.
-    fallback = calls["dense"] - (chunks - calls["narrow"])
-    if launches != chunks + fallback:
-        raise AssertionError(
-            f"{label}: phase1 launched {launches} times for {chunks} chunks + "
-            f"{fallback} fallback dispatches"
-        )
-    fetch_bytes = engine.fetch_bytes_total - bytes0
-    dense_bytes = 6 * len(units) * c_bucket
+    narrow0, cache0, fetch0, upload0, over0, bytes0 = before
+    captured = [type(inp)(*(x.cpu() for x in inp)) for inp in captured]
+
+    def delta(now, then):
+        return {k: v - then[k] for k, v in now.items() if v - then[k]}
+
+    narrow = [c for c in calls if c[0] == "narrow"]
     tick = {
         "objects": len(units),
         "clusters": len(clusters),
-        "c_bucket": c_bucket,
         "tick_ms": wall * 1e3,
         "objects_per_s": len(units) / wall,
-        "chunks": chunks,
-        "narrow_m": engine.narrow_last_m if calls["narrow"] else None,
-        "fallback_dispatches": fallback,
         "phase1_launches": launches,
-        "narrow_stats": {k: v - stats0[k] for k, v in engine.narrow_stats.items()},
+        "narrow_dispatches": len(narrow),
+        "dense_dispatches": len(calls) - len(narrow),
+        "dispatch_shapes": sorted({tuple(c) for c in calls}),
+        "narrow_stats": {k: v - narrow0[k] for k, v in engine.narrow_stats.items()},
+        "cache": delta(engine.cache_stats, cache0),
+        "fetch_paths": delta(engine.fetch_stats, fetch0),
         "overflow_rows": engine.overflow_rows_total - over0,
-        "fetch_bytes": fetch_bytes,
-        "dense_plane_bytes": dense_bytes,
-        "fetch_vs_dense": fetch_bytes / dense_bytes,
+        "fetch_bytes": engine.fetch_bytes_total - bytes0,
+        "upload_bytes": {k: v - upload0[k] for k, v in engine.upload_bytes.items()},
+        "changed_rows": None if engine.last_changed is None else len(engine.last_changed),
         "stage_s": dict(engine.timings),
+        "memory_allocated": torch.cuda.memory_allocated(),
     }
+    return results, tick, captured[0] if captured else None
+
+
+def run_tick(label: str, engine, units, clusters) -> dict:
+    """One cold engine tick on the card (``engine`` fresh: no cache).
+    Requires launches = chunks + fallback dispatches."""
+    c_bucket, eff, _ = engine._tick_geometry(len(clusters))
+    chunks = math.ceil(len(units) / eff)
+    results, tick, _ = counted_tick(engine, units, clusters)
+    narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+    if narrow not in (0, chunks):
+        raise AssertionError(f"{label}: {narrow} narrow ticks for {chunks} chunks")
+    # Every chunk runs one tick, narrow or dense; further dense ticks are
+    # the narrow chunks' certificate fallbacks.
+    fallback = dense - (chunks - narrow)
+    if tick["phase1_launches"] != chunks + fallback:
+        raise AssertionError(
+            f"{label}: phase1 launched {tick['phase1_launches']} times for {chunks} "
+            f"chunks + {fallback} fallback dispatches"
+        )
+    if tick["cache"] != {"miss": chunks}:
+        raise AssertionError(f"{label}: not a cold tick: {tick['cache']}")
+    dense_bytes = 6 * len(units) * c_bucket
+    tick.update(
+        c_bucket=c_bucket,
+        chunks=chunks,
+        narrow_m=engine.narrow_last_m if narrow else None,
+        fallback_dispatches=fallback,
+        dense_plane_bytes=dense_bytes,
+        fetch_vs_dense=tick["fetch_bytes"] / dense_bytes,
+    )
     log(f"tick {label}: {json.dumps(tick)}")
     return {"results": results, **tick}
 
 
-def run_with_narrow_m(label: str, engine, units, clusters, narrow_m: int) -> dict:
-    """run_tick with the engine's NARROW_M constant patched for the call."""
+def run_with_narrow_m(label: str, units, clusters, narrow_m: int) -> dict:
+    """run_tick on a fresh engine with the engine's NARROW_M constant
+    patched for the call."""
     from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 
     saved = engine_mod.NARROW_M
     engine_mod.NARROW_M = narrow_m
     try:
         return run_tick(
-            f"{label} (NARROW_M={narrow_m}, {len(units)} objects)", engine, units, clusters
+            f"{label} (NARROW_M={narrow_m}, {len(units)} objects)",
+            engine_mod.SchedulerEngine(), units, clusters,
         )
     finally:
         engine_mod.NARROW_M = saved
 
 
-def turns_c3(engine, units, clusters, got, narrow: dict, dense: dict) -> dict:
+def turns_c3(units, clusters, got, narrow: dict, dense: dict) -> dict:
     """Narrow against dense at C = 512 in turns: narrow, dense (the
-    ticks already run), then dense, narrow again, each held against the
-    first narrow run's placements.  Host stages swing with order and
-    between calls, so one pair of ticks decides nothing.  Logs and
-    returns each arm's tick_ms, device + fetch ms and decode ms."""
-    dense2 = run_with_narrow_m("c3 dense, turn 2", engine, units, clusters, narrow["c_bucket"])
-    narrow2 = run_tick("c3 narrow, turn 2", engine, units, clusters)
+    ticks already run), then dense, narrow again, each a cold tick on a
+    fresh engine held against the first narrow run's placements.  Host
+    stages swing with order and between calls, so one pair of ticks
+    decides nothing.  Logs and returns each arm's tick_ms, device +
+    fetch ms and decode ms."""
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+
+    dense2 = run_with_narrow_m("c3 dense, turn 2", units, clusters, narrow["c_bucket"])
+    narrow2 = run_tick("c3 narrow, turn 2", SchedulerEngine(), units, clusters)
     if dense2["narrow_m"] is not None or narrow2["narrow_m"] is None:
         raise AssertionError("c3 turns: an arm took the other path")
     for label, tick in (("dense, turn 2", dense2), ("narrow, turn 2", narrow2)):
@@ -599,6 +640,120 @@ def turns_c3(engine, units, clusters, got, narrow: dict, dense: dict) -> dict:
         }
     log(f"turns c3 narrow vs dense (narrow, dense, dense, narrow): {json.dumps(arms)}")
     return arms
+
+
+WARM_CHURN_TICKS = 3
+
+
+def warm_phase(cfg: str, units, clusters):
+    """The steady-state ticks of one world on one fresh engine: a cold
+    tick, a no-op tick on the same list and one on a fresh list of the
+    same objects, WARM_CHURN_TICKS 1 % churn ticks (testing/worlds.churn,
+    numpy seed 0), a capacity drift (cluster 0's available halved,
+    testing/worlds.drift) and a tick back on the first clusters.
+
+    No-op ticks must launch nothing and replay the previous result
+    objects.  A churn tick must launch one kernel per sub-batch slab plus
+    one per certificate fallback, with as many slabs as the engine's
+    ladder cuts the changed rows into; its changed rows must equal a
+    fresh engine's cold tick over those units alone (rows are
+    independent) and its other rows must be the previous tick's result
+    objects.  The drift tick and the tick back must launch one kernel per
+    chunk plus fallbacks, upload no per-object input (the chunks' device
+    copies are reused) and equal a fresh engine's cold tick on every row.
+    Returns (ticks by label, the first churn tick's slab inputs on the
+    host)."""
+    import torch
+
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.worlds import churn, drift
+
+    engine = SchedulerEngine()
+    _, eff, ladder = engine._tick_geometry(len(clusters))
+    chunks = math.ceil(len(units) / eff)
+    rng = np.random.default_rng(0)
+    ticks = {}
+
+    def fresh(label, batch, cl):
+        t0 = time.perf_counter()
+        want = SchedulerEngine().schedule(batch, cl)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"fresh engine c{cfg} {label}: {len(batch)} rows in {time.perf_counter() - t0:.2f} s")
+        return want
+
+    def record(label, tick):
+        tick.pop("results", None)
+        ticks[label] = tick
+        log(f"warm c{cfg} {label}: {json.dumps(tick)}")
+
+    def full_dispatch(label, batch, cl):
+        """A tick that dispatches every chunk on reused device inputs."""
+        got, tick, _ = counted_tick(engine, batch, cl)
+        narrow = tick["narrow_dispatches"]
+        fallback = tick["dense_dispatches"] if narrow else tick["dense_dispatches"] - chunks
+        if narrow not in (0, chunks) or tick["phase1_launches"] != chunks + fallback:
+            raise AssertionError(f"c{cfg} {label}: launches {tick}")
+        if tick["cache"] != {"hit": chunks} or tick["upload_bytes"]["object"]:
+            raise AssertionError(f"c{cfg} {label}: not a hit on device-resident inputs: {tick}")
+        assert_results_equal(f"c{cfg} {label} vs fresh engine", got, fresh(label, batch, cl))
+        tick["fallback_dispatches"] = fallback
+        record(label, tick)
+        return got
+
+    cold = run_tick(f"c{cfg} warm engine, cold", engine, units, clusters)
+    results = cold.pop("results")
+    record("cold", cold)
+    for label, batch in (("noop", units), ("noop, fresh list", list(units))):
+        again, tick, _ = counted_tick(engine, batch, clusters)
+        launched = tick["phase1_launches"] + tick["narrow_dispatches"] + tick["dense_dispatches"]
+        if launched or tick["fetch_paths"] != {"noop": chunks}:
+            raise AssertionError(f"c{cfg} {label}: {tick}")
+        if len(again) != len(results) or any(a is not b for a, b in zip(again, results)):
+            raise AssertionError(f"c{cfg} {label}: did not replay the previous results")
+        record(label, tick)
+
+    prev_units, prev, slab = units, results, None
+    for i in range(WARM_CHURN_TICKS):
+        label = f"churn {i}"
+        batch = churn(rng, prev_units)
+        got, tick, captured = counted_tick(engine, batch, clusters, capture=slab is None)
+        changed = [j for j, (a, b) in enumerate(zip(batch, prev_units)) if a is not b]
+        cut = engine._slab_cut(len(changed), eff, ladder)
+        slabs = -(-len(changed) // cut)
+        narrow = tick["narrow_dispatches"]
+        slab_dispatches = narrow or tick["dense_dispatches"]
+        fallback = tick["dense_dispatches"] if narrow else 0
+        if slab_dispatches != slabs:
+            raise AssertionError(f"c{cfg} {label}: {slab_dispatches} slab dispatches, not {slabs}")
+        if tick["phase1_launches"] != slabs + fallback:
+            raise AssertionError(
+                f"c{cfg} {label}: {tick['phase1_launches']} launches for {slabs} slabs "
+                f"+ {fallback} fallback dispatches"
+            )
+        touched = len({j // eff for j in changed})
+        paths = {"subbatch": touched}
+        if chunks > touched:
+            paths["noop"] = chunks - touched
+        if tick["fetch_paths"] != paths:
+            raise AssertionError(f"c{cfg} {label}: fetch paths {tick['fetch_paths']}, not {paths}")
+        kept = set(changed)
+        if any(got[j] is not prev[j] for j in range(len(got)) if j not in kept):
+            raise AssertionError(f"c{cfg} {label}: an unchanged row is a new result object")
+        want = fresh(f"{label}, changed units", [batch[j] for j in changed], clusters)
+        assert_results_equal(f"c{cfg} {label} changed rows vs fresh engine",
+                             [got[j] for j in changed], want)
+        tick.update(changed_units=len(changed), slabs=slabs, slab_cut=cut,
+                    fallback_dispatches=fallback)
+        record(label, tick)
+        if slab is None:
+            slab = captured
+        prev_units, prev = batch, got
+    full_dispatch("drift", prev_units, drift(clusters))
+    full_dispatch("back", prev_units, clusters)
+    del engine
+    torch.cuda.empty_cache()
+    return ticks, slab
 
 
 def assert_results_equal(label: str, got, want) -> None:
@@ -699,7 +854,7 @@ def main() -> int:
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
-        tick = run_tick(f"c{cfg} narrow", gpu, units, clusters)
+        tick = run_tick(f"c{cfg} narrow", SchedulerEngine(), units, clusters)
         if tick["narrow_m"] is None:
             raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
         got = tick.pop("results")
@@ -717,7 +872,7 @@ def main() -> int:
         # bucket.  Cut depth at c5 (first C5_DENSE_OBJECTS objects).
         t0 = time.perf_counter()
         depth = len(units) if cfg == "3" else C5_DENSE_OBJECTS
-        dense = run_with_narrow_m(f"c{cfg} dense", gpu, units[:depth], clusters, tick["c_bucket"])
+        dense = run_with_narrow_m(f"c{cfg} dense", units[:depth], clusters, tick["c_bucket"])
         if dense["narrow_m"] is not None or dense["fallback_dispatches"] != 0:
             raise AssertionError(f"c{cfg}: NARROW_M at the bucket did not take the dense path")
         assert_results_equal(f"c{cfg} dense vs narrow", dense.pop("results"), got[:depth])
@@ -726,17 +881,29 @@ def main() -> int:
         # A narrower M on the first chunk: rows fail the certificate and
         # the dense re-solve runs on the card.
         fb = run_with_narrow_m(
-            f"c{cfg} fallback", gpu, units[:FALLBACK_OBJECTS], clusters, FALLBACK_NARROW_M
+            f"c{cfg} fallback", units[:FALLBACK_OBJECTS], clusters, FALLBACK_NARROW_M
         )
         if fb["fallback_dispatches"] == 0 or fb["narrow_stats"]["fallback"] == 0:
             raise AssertionError(f"c{cfg}: the forced-fallback run re-solved no row")
         assert_results_equal(f"c{cfg} fallback vs narrow", fb.pop("results"), got[:FALLBACK_OBJECTS])
         fallback_ticks[cfg] = fb
         if cfg == "3":
-            turns_c3(gpu, units, clusters, got, tick, dense)
+            turns_c3(units, clusters, got, tick, dense)
         del got
         torch.cuda.empty_cache()
         log(f"phase e2e-c{cfg}-dense-and-fallback: {time.perf_counter() - t0:.2f} s")
+
+    # The steady-state ticks, one fresh engine per world, and the kernel
+    # at the sub-batch slab shapes the churn ticks launched.
+    warm, slab_rows = {}, {}
+    for cfg in ("3", "5"):
+        t0 = time.perf_counter()
+        warm[cfg], slab = warm_phase(cfg, *worlds[cfg][:2])
+        slab = type(slab)(*(x.cuda() for x in slab))
+        slab_rows[cfg] = check_phase1(f"c{cfg}-slab", slab, timed=True)
+        del slab
+        torch.cuda.empty_cache()
+        log(f"phase warm-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
     kernels = {
@@ -757,7 +924,9 @@ def main() -> int:
                 "launches_dense_c3": dense_ticks["3"]["phase1_launches"],
                 "launches_fallback_c5": fallback_ticks["5"]["phase1_launches"],
                 "launches_fallback_c3": fallback_ticks["3"]["phase1_launches"],
-                "max_abs_err": max(c5["max_abs_err"], c3["max_abs_err"]),
+                "max_abs_err": max(
+                    r["max_abs_err"] for r in (c5, c3, slab_rows["5"], slab_rows["3"])
+                ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
                 "bound_ms": c5["bound_ms"],
@@ -779,6 +948,29 @@ def main() -> int:
                 },
                 "tick_ms_c3": ticks["3"]["tick_ms"],
                 "tick_ms_c5": ticks["5"]["tick_ms"],
+                # The steady-state ticks (warm phase): launches per churn
+                # tick (slabs + fallback dispatches), of the no-op ticks
+                # of both worlds (0), and of the drift ticks.
+                "launches_churn_c5": [
+                    warm["5"][f"churn {i}"]["phase1_launches"] for i in range(WARM_CHURN_TICKS)
+                ],
+                "launches_churn_c3": [
+                    warm["3"][f"churn {i}"]["phase1_launches"] for i in range(WARM_CHURN_TICKS)
+                ],
+                "launches_noop": sum(
+                    w[label]["phase1_launches"]
+                    for w in warm.values()
+                    for label in ("noop", "noop, fresh list")
+                ),
+                "launches_drift_c5": warm["5"]["drift"]["phase1_launches"],
+                "launches_drift_c3": warm["3"]["drift"]["phase1_launches"],
+                **{
+                    f"slab_c{cfg}": {
+                        key: slab_rows[cfg][key]
+                        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                    }
+                    for cfg in ("5", "3")
+                },
                 "card": card,
             }
         ]

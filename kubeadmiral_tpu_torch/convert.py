@@ -26,13 +26,15 @@ _TUPLES = {
 
 
 def tensor(x, device) -> torch.Tensor:
-    """One numpy-convertible array as a tensor on ``device``."""
+    """One numpy-convertible array as a tensor on ``device``.  The tensor
+    never shares memory with ``x``, on the CPU either: the engine keeps
+    device copies of host arrays it later patches in place."""
     arr = np.asarray(x)
     if arr.dtype == np.uint32:
         arr = arr.astype(np.int64)
     if not (arr.flags.c_contiguous and arr.flags.writeable):
         arr = np.array(arr, order="C")  # a writeable C-ordered copy
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).to(device, copy=True)
 
 
 def to_device(planes, device):

@@ -165,6 +165,49 @@ class ClusterView:
         return out
 
 
+def featurize_signature(su: T.SchedulingUnit) -> tuple:
+    """Equality-comparable digest of every unit field the featurizer
+    reads (the reference's scheduling-trigger hash,
+    scheduler/schedulingtriggers.go:106-148): two units with equal
+    signatures featurize to identical rows against the same cluster
+    topology, which lets the engine patch only changed rows into a
+    cached chunk.
+
+    Memoised on the unit as ``_featurize_sig``: a SchedulingUnit is
+    immutable after construction, so the digest is computed once per
+    object.  A caller that mutates a unit's nested dicts after the first
+    call is not detected."""
+    sig = getattr(su, "_featurize_sig", None)
+    if sig is not None:
+        return sig
+    am = su.auto_migration
+    sig = (
+        su.key,
+        su.gvk,
+        su.scheduling_mode,
+        su.desired_replicas,
+        su.sticky_cluster,
+        su.avoid_disruption,
+        su.max_clusters,
+        tuple(sorted(su.resource_request.items())),
+        su.tolerations,
+        tuple(sorted(su.cluster_selector.items())),
+        su.cluster_names,
+        su.affinity,
+        tuple(sorted(su.current_clusters.items(), key=lambda kv: kv[0])),
+        tuple(sorted(su.min_replicas.items())),
+        tuple(sorted(su.max_replicas.items())),
+        tuple(sorted(su.weights.items())),
+        (am.keep_unschedulable_replicas, tuple(sorted(am.estimated_capacity.items())))
+        if am is not None
+        else None,
+        su.enabled_filters,
+        su.enabled_scores,
+    )
+    object.__setattr__(su, "_featurize_sig", sig)
+    return sig
+
+
 def _build_cluster_view(clusters, units) -> ClusterView:
     scalars: list[str] = []
     seen = set()

@@ -9,9 +9,15 @@ A copy of ``bench.py``'s ``build_world`` for configs 3 and 5
      (MostAllocated replaces the default spreading scores); every tenth
      object is a follower (placement = union of its leaders', applied
      after the tick by the control plane, not by the engine).
+
+``churn`` and ``drift`` are copies of ``bench.py``'s steady-state tick
+workloads: about 1 % of the objects changed since the last tick, and
+one cluster's free capacity halved.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -140,3 +146,30 @@ def build_world(n_objects: int, n_clusters: int, config: str = "3", seed: int = 
             )
         )
     return units, clusters, followers
+
+
+def churn(rng, units, fraction=0.01):
+    """A fresh list with about ``fraction`` of the objects replaced by
+    copies with a few more desired replicas (``rng``: a numpy
+    Generator); the other rows are the same objects."""
+    out = list(units)
+    n = max(1, int(len(units) * fraction))
+    for i in rng.integers(0, len(units), n):
+        su = units[int(i)]
+        out[int(i)] = dataclasses.replace(
+            su,
+            desired_replicas=(su.desired_replicas or 1) + int(rng.integers(1, 9)),
+        )
+    return out
+
+
+def drift(clusters, index=0):
+    """A fresh cluster list with cluster ``index``'s available
+    resources halved (a capacity drift); the other clusters are the same
+    objects."""
+    out = list(clusters)
+    out[index] = dataclasses.replace(
+        out[index],
+        available={k: max(0, v // 2) for k, v in out[index].available.items()},
+    )
+    return out

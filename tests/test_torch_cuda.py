@@ -25,7 +25,7 @@ from kubeadmiral_tpu_torch.testing.problems import (
     edge_tick_inputs,
     random_tick_inputs,
 )
-from kubeadmiral_tpu_torch.testing.worlds import build_world
+from kubeadmiral_tpu_torch.testing.worlds import build_world, churn, drift
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +117,34 @@ def test_engine_on_card_matches_cpu(cuda, config, monkeypatch):
     assert chunks > 1 and phase1.launches - launches == chunks
     want = SchedulerEngine(device="cpu").schedule(units, clusters)
     assert [r.clusters for r in got] == [r.clusters for r in want]
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_warm_sequence_on_card_matches_cpu(cuda, config, monkeypatch):
+    """Cold, churn, no-op, drift, back and churn ticks on one engine on
+    the card and one on the CPU: equal results, cache and fetch paths
+    and changed rows at every tick; no-op ticks launch nothing, the
+    others launch the kernel."""
+    units, clusters, _ = build_world(700, 600, config, seed=3)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    rng = np.random.default_rng(0)
+    churned = churn(rng, units, fraction=0.02)
+    drifted = drift(clusters)
+    for kind, batch, cl in (
+        ("cold", units, clusters),
+        ("churn", churned, clusters),
+        ("noop", churned, clusters),
+        ("drift", churned, drifted),
+        ("back", churned, clusters),
+        ("churn", churn(rng, churned, fraction=0.02), clusters),
+    ):
+        launches = phase1.launches
+        got = gpu.schedule(batch, cl)
+        launched = phase1.launches - launches
+        want = cpu.schedule(batch, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        assert gpu.cache_stats == cpu.cache_stats, kind
+        assert gpu.fetch_stats == cpu.fetch_stats, kind
+        assert gpu.last_changed == cpu.last_changed, kind
+        assert (launched == 0) == (kind == "noop"), kind
