@@ -44,16 +44,25 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    dense and a second narrow tick follow, so the two paths run in turns
    (narrow, dense, dense, narrow) with equal placements; every tick of 7
    and 8 is a cold tick on a fresh engine;
-9. the warm phase (``warm_phase``), per world at full size on one fresh
-   engine: a cold tick, a no-op tick on the same list and on a fresh list
-   of the same objects (no launch, the previous result objects), three
-   1 % churn ticks (the sub-batch path: one launch per slab plus
+9. the warm phase (``warm_phase``), per world at full size on the engine
+   of step 7's cold tick: a no-op tick on the same list and on a fresh
+   list of the same objects (no launch, the previous result objects),
+   three 1 % churn ticks (the sub-batch path: one launch per slab plus
    fallbacks, the changed rows equal a fresh engine's cold tick over
    those units, the other rows the previous result objects), a capacity
-   drift and a tick back on the first clusters (one launch per chunk,
-   no per-object upload, every row equal to a fresh engine's cold tick);
-   each tick logs its wall ms, stages, cache and fetch paths, launches,
-   dispatch shapes, fetch and upload bytes, overflow and changed rows and
+   drift (cluster 0's available halved) and a tick back on the first
+   clusters, and at c5 also ``drift-zero`` (cluster 0's available set to
+   0: fit flips, the survivor program) and ``drift-wide`` (more than a
+   quarter of the clusters halved: no gate, every chunk dispatched), each
+   followed by a tick back.  A drift tick and a tick back run the drift
+   gate where the drift is gate-shaped; they must launch the kernel once
+   per recompute slab, mass-change chunk, ungated chunk and certificate
+   fallback as the engine's counters give them, upload no per-object
+   input, equal a fresh engine's cold tick on every row, and report as
+   changed every row whose placement moved; they print ``drift_stats``,
+   ``survivor_stats``, ``gate_wait`` and the stage split.  Each tick logs
+   its wall ms, stages, cache and fetch paths, launches, dispatch
+   shapes, fetch and upload bytes, overflow and changed rows and
    ``torch.cuda.memory_allocated()``; then holds the kernel against its
    twin, timed with its bound, at the first churn tick's slab shape;
 10. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
@@ -65,6 +74,7 @@ exits 2 before doing anything.  Usage: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -518,8 +528,10 @@ def counted_tick(engine, units, clusters, capture: bool = False):
     first dispatch's expanded inputs are kept (on a churn tick a
     sub-batch slab's, for check_phase1 at its shape), moved to the host
     after the timed call so that ``memory_allocated`` counts the
-    engine's tensors only.  Returns (results, tick dict, captured host
-    inputs or None)."""
+    engine's tensors only.  Garbage is collected before the clock starts,
+    so that the script's own garbage (a fresh reference engine's results)
+    is not collected inside the timed tick.  Returns (results, tick dict,
+    captured host inputs or None)."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
@@ -529,7 +541,9 @@ def counted_tick(engine, units, clusters, capture: bool = False):
     before = (
         dict(engine.narrow_stats), dict(engine.cache_stats), dict(engine.fetch_stats),
         dict(engine.upload_bytes), engine.overflow_rows_total, engine.fetch_bytes_total,
+        dict(engine.drift_stats), dict(engine.survivor_stats),
     )
+    gc.collect()
     with recorded_dispatches(keep=captured if capture else None) as calls:
         phase1.launches = 0
         t0 = time.perf_counter()
@@ -537,7 +551,7 @@ def counted_tick(engine, units, clusters, capture: bool = False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = phase1.launches
-    narrow0, cache0, fetch0, upload0, over0, bytes0 = before
+    narrow0, cache0, fetch0, upload0, over0, bytes0, gate0, surv0 = before
     captured = [type(inp)(*(x.cpu() for x in inp)) for inp in captured]
 
     def delta(now, then):
@@ -556,6 +570,8 @@ def counted_tick(engine, units, clusters, capture: bool = False):
         "narrow_stats": {k: v - narrow0[k] for k, v in engine.narrow_stats.items()},
         "cache": delta(engine.cache_stats, cache0),
         "fetch_paths": delta(engine.fetch_stats, fetch0),
+        "drift_stats": delta(engine.drift_stats, gate0),
+        "survivor_stats": delta(engine.survivor_stats, surv0),
         "overflow_rows": engine.overflow_rows_total - over0,
         "fetch_bytes": engine.fetch_bytes_total - bytes0,
         "upload_bytes": {k: v - upload0[k] for k, v in engine.upload_bytes.items()},
@@ -643,14 +659,18 @@ def turns_c3(units, clusters, got, narrow: dict, dense: dict) -> dict:
 
 
 WARM_CHURN_TICKS = 3
+# The warm phase's capacity drifts per world (testing/worlds.py), each
+# followed by a tick back on the first clusters.
+WARM_DRIFTS = {"3": ("drift",), "5": ("drift", "drift-zero", "drift-wide")}
 
 
-def warm_phase(cfg: str, units, clusters):
-    """The steady-state ticks of one world on one fresh engine: a cold
-    tick, a no-op tick on the same list and one on a fresh list of the
-    same objects, WARM_CHURN_TICKS 1 % churn ticks (testing/worlds.churn,
-    numpy seed 0), a capacity drift (cluster 0's available halved,
-    testing/worlds.drift) and a tick back on the first clusters.
+def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
+    """The steady-state ticks of one world on ``engine``, which has just
+    run the world's cold tick (``cold``, ``results``): a no-op tick on
+    the same list and one on a fresh list of the same objects,
+    WARM_CHURN_TICKS 1 % churn ticks (testing/worlds.churn, numpy seed
+    0), then each of WARM_DRIFTS[cfg] and a tick back on the first
+    clusters.
 
     No-op ticks must launch nothing and replay the previous result
     objects.  A churn tick must launch one kernel per sub-batch slab plus
@@ -658,17 +678,15 @@ def warm_phase(cfg: str, units, clusters):
     ladder cuts the changed rows into; its changed rows must equal a
     fresh engine's cold tick over those units alone (rows are
     independent) and its other rows must be the previous tick's result
-    objects.  The drift tick and the tick back must launch one kernel per
-    chunk plus fallbacks, upload no per-object input (the chunks' device
-    copies are reused) and equal a fresh engine's cold tick on every row.
+    objects.  A drift tick and a tick back are checked by ``drift_tick``.
     Returns (ticks by label, the first churn tick's slab inputs on the
     host)."""
     import torch
 
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
-    from kubeadmiral_tpu_torch.testing.worlds import churn, drift
+    from kubeadmiral_tpu_torch.testing.worlds import churn, drift, drift_wide, drift_zero
 
-    engine = SchedulerEngine()
+    shapes = {"drift": drift, "drift-zero": drift_zero, "drift-wide": drift_wide}
     _, eff, ladder = engine._tick_geometry(len(clusters))
     chunks = math.ceil(len(units) / eff)
     rng = np.random.default_rng(0)
@@ -687,22 +705,40 @@ def warm_phase(cfg: str, units, clusters):
         ticks[label] = tick
         log(f"warm c{cfg} {label}: {json.dumps(tick)}")
 
-    def full_dispatch(label, batch, cl):
-        """A tick that dispatches every chunk on reused device inputs."""
+    def drift_tick(label, batch, cl, prev, want):
+        """A capacity-drift tick on device-resident inputs.  Gated chunks
+        launch the kernel only for the recompute rows' sub-batch slabs
+        and for mass-change chunks; chunks the gate does not take (a
+        drift wider than it handles) are dispatched whole; each of those
+        dispatches adds one launch per certificate fallback.  No
+        per-object upload; every row equal to ``want``; every row whose
+        placement moved among the changed rows."""
         got, tick, _ = counted_tick(engine, batch, cl)
-        narrow = tick["narrow_dispatches"]
-        fallback = tick["dense_dispatches"] if narrow else tick["dense_dispatches"] - chunks
-        if narrow not in (0, chunks) or tick["phase1_launches"] != chunks + fallback:
-            raise AssertionError(f"c{cfg} {label}: launches {tick}")
+        gate = tick["drift_stats"]
+        recompute = gate.get("recompute", 0)
+        slabs = -(-recompute // engine._slab_cut(recompute, eff, ladder)) if recompute else 0
+        dispatches = slabs + gate.get("fallback", 0) + chunks - gate.get("gated", 0)
+        narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+        fallback = dense if narrow else 0
+        if (narrow or dense) != dispatches or tick["phase1_launches"] != dispatches + fallback:
+            raise AssertionError(
+                f"c{cfg} {label}: {tick['phase1_launches']} launches, {narrow} narrow + "
+                f"{dense} dense dispatches for {slabs} slabs + {gate.get('fallback', 0)} "
+                f"mass-change chunks + {chunks - gate.get('gated', 0)} ungated chunks: {tick}"
+            )
         if tick["cache"] != {"hit": chunks} or tick["upload_bytes"]["object"]:
             raise AssertionError(f"c{cfg} {label}: not a hit on device-resident inputs: {tick}")
-        assert_results_equal(f"c{cfg} {label} vs fresh engine", got, fresh(label, batch, cl))
-        tick["fallback_dispatches"] = fallback
+        assert_results_equal(f"c{cfg} {label} vs fresh engine", got, want)
+        moved = {i for i, (a, b) in enumerate(zip(got, prev)) if a.clusters != b.clusters}
+        changed = (
+            set(range(len(got))) if engine.last_changed is None else set(engine.last_changed)
+        )
+        if not moved <= changed:
+            raise AssertionError(f"c{cfg} {label}: {len(moved - changed)} moved rows not changed")
+        tick.update(recompute_slabs=slabs, fallback_dispatches=fallback, moved_rows=len(moved))
         record(label, tick)
         return got
 
-    cold = run_tick(f"c{cfg} warm engine, cold", engine, units, clusters)
-    results = cold.pop("results")
     record("cold", cold)
     for label, batch in (("noop", units), ("noop, fresh list", list(units))):
         again, tick, _ = counted_tick(engine, batch, clusters)
@@ -749,8 +785,15 @@ def warm_phase(cfg: str, units, clusters):
         if slab is None:
             slab = captured
         prev_units, prev = batch, got
-    full_dispatch("drift", prev_units, drift(clusters))
-    full_dispatch("back", prev_units, clusters)
+    # One fresh cold tick on the first clusters serves every tick back.
+    back_want = None
+    for name in WARM_DRIFTS[cfg]:
+        drifted = shapes[name](clusters)
+        prev = drift_tick(name, prev_units, drifted, prev, fresh(name, prev_units, drifted))
+        if back_want is None:
+            back_want = fresh("back", prev_units, clusters)
+        back = "back" if name == "drift" else f"back from {name}"
+        prev = drift_tick(back, prev_units, clusters, prev, back_want)
     del engine
     torch.cuda.empty_cache()
     return ticks, slab
@@ -851,10 +894,12 @@ def main() -> int:
     log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
     ticks, dense_ticks, fallback_ticks = {}, {}, {}
+    warm, slab_rows = {}, {}
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
-        tick = run_tick(f"c{cfg} narrow", SchedulerEngine(), units, clusters)
+        engine = SchedulerEngine()
+        tick = run_tick(f"c{cfg} narrow", engine, units, clusters)
         if tick["narrow_m"] is None:
             raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
         got = tick.pop("results")
@@ -889,16 +934,14 @@ def main() -> int:
         fallback_ticks[cfg] = fb
         if cfg == "3":
             turns_c3(units, clusters, got, tick, dense)
-        del got
         torch.cuda.empty_cache()
         log(f"phase e2e-c{cfg}-dense-and-fallback: {time.perf_counter() - t0:.2f} s")
 
-    # The steady-state ticks, one fresh engine per world, and the kernel
-    # at the sub-batch slab shapes the churn ticks launched.
-    warm, slab_rows = {}, {}
-    for cfg in ("3", "5"):
+        # The steady-state ticks on the cold tick's engine, then the
+        # kernel at the sub-batch slab shape the first churn tick ran.
         t0 = time.perf_counter()
-        warm[cfg], slab = warm_phase(cfg, *worlds[cfg][:2])
+        warm[cfg], slab = warm_phase(cfg, units, clusters, engine, dict(tick), got)
+        del engine, got
         slab = type(slab)(*(x.cuda() for x in slab))
         slab_rows[cfg] = check_phase1(f"c{cfg}-slab", slab, timed=True)
         del slab
@@ -964,6 +1007,13 @@ def main() -> int:
                 ),
                 "launches_drift_c5": warm["5"]["drift"]["phase1_launches"],
                 "launches_drift_c3": warm["3"]["drift"]["phase1_launches"],
+                # Every drift tick and tick back of the warm phase.
+                "launches_warm_drift": {
+                    f"c{cfg} {label}": warm[cfg][label]["phase1_launches"]
+                    for cfg in ("3", "5")
+                    for label in warm[cfg]
+                    if label.startswith(("drift", "back"))
+                },
                 **{
                     f"slab_c{cfg}": {
                         key: slab_rows[cfg][key]

@@ -16,7 +16,10 @@ device.  ``schedule_tick`` runs select and planner over the whole
 cluster axis; ``schedule_tick_narrow`` runs them over M candidate
 columns per row with a per-row exactness certificate; ``pack_wire``
 compacts the output planes into K slots per row for the device->host
-copy.  Plane dtypes follow the JAX package one for one.
+copy.  The drift programs (``drift_gate_dense``/``drift_gate_compact``,
+``drift_wcheck``, ``drift_survivor``) classify and re-solve the rows a
+capacity drift can move from the stored planes of the previous tick.
+Plane dtypes follow the JAX package one for one.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from kubeadmiral_tpu_torch.ops import filters as F
 from kubeadmiral_tpu_torch.ops import reasons as RSN
+from kubeadmiral_tpu_torch.ops import scores as S
 from kubeadmiral_tpu_torch.ops.phase1 import phase1 as _phase1
 from kubeadmiral_tpu_torch.ops.planner import (
     INT32_INF,
@@ -600,3 +605,328 @@ def unpack_wire(arr, k: int) -> PackedRows:
         nfeas=arr[:, 4 * k + 1],
         rsum=arr[:, 4 * k + 2 : 4 * k + 2 + RSN.NUM_REASON_BITS],
     )
+
+
+# -- drift: phase 1 from stored planes ------------------------------------
+# A drift survivor row's topology filters are per-object and cannot have
+# moved, so phase 1 is rebuilt from the previous tick's reason plane:
+# every filter bit but resources_fit is read back, resources_fit is
+# recomputed dense against the new cluster planes, and the scores are
+# recomputed in full over the new feasibility (a fit flip shifts the
+# normalisation maxima).  Sticky-active rows are the one exception (their
+# current columns carry reason 0 whatever the filters say): the survivor
+# program fails their certificate.
+
+_NONFIT_BLOCK = RSN.FILTER_REASON_MASK & ~RSN.REASON_RESOURCES_FIT
+
+
+def _stored_filters(inp: TickInputs, reasons_rows):
+    """(feasible, base_reasons) of drift survivor rows from the stored
+    reason plane plus a dense resources_fit recompute."""
+    fit_ok = F.resources_fit(inp.request, inp.alloc, inp.used)
+    fit_enabled = inp.filter_enabled[:, F.F_RESOURCES_FIT, None]
+    topo_ok = (reasons_rows & _NONFIT_BLOCK) == 0
+    feasible = (
+        topo_ok
+        & (~fit_enabled | fit_ok)
+        & inp.cluster_valid[None, :]
+        & inp.webhook_ok
+    )
+    fit_bit = (fit_enabled & ~fit_ok).to(torch.int32) * RSN.REASON_RESOURCES_FIT
+    base_reasons = (
+        reasons_rows & ~(RSN.SELECT_REASON_MASK | RSN.REASON_RESOURCES_FIT)
+    ) | fit_bit
+    return feasible, base_reasons
+
+
+def _phase1_from_stored(inp: TickInputs, reasons_rows):
+    """(feasible, base_reasons, totals): _stored_filters plus the full
+    score recompute."""
+    feasible, base_reasons = _stored_filters(inp, reasons_rows)
+    totals = S.total_scores(
+        inp.score_enabled,
+        feasible,
+        inp.request,
+        inp.alloc,
+        inp.used,
+        inp.taint_counts,
+        inp.affinity_scores,
+    )
+    totals = totals + torch.where(feasible, inp.webhook_scores, 0)
+    return feasible, base_reasons, totals
+
+
+def drift_survivor(inp: TickInputs, reasons_rows, m: int, i32_keys: bool = False):
+    """The unified drift-survivor solve over gathered rows [n, C]
+    (expanded) and their stored reason rows: phase 1 from the stored
+    planes, then the narrow select and planner.  Returns (outputs, cert
+    i8[n]); cert == 1 guarantees the dense tick's outputs, as for
+    ``schedule_tick_narrow``, and fails closed on sticky-active rows."""
+    feasible, base_reasons, totals = _phase1_from_stored(inp, reasons_rows)
+    out, cert = _narrow_solve(inp, feasible, base_reasons, totals, m, i32_keys)
+    sticky_active = inp.sticky & inp.current_mask.any(dim=-1)
+    return out, ((cert != 0) & ~sticky_active).to(torch.int8)
+
+
+# -- drift gate ------------------------------------------------------------
+# A capacity drift changes the cluster planes at a few columns.  The gate
+# classifies every row of a cached chunk from its device-resident inputs
+# and the previous tick's planes, without select or planner:
+#
+#   recompute - the row's placement may move and is re-scheduled;
+#   wcheck    - the selection cannot move, but the row's dynamic weights
+#               read a column whose CPU figures moved (drift_wcheck
+#               decides);
+#   neither   - the row's outputs are provably those of the last tick.
+#
+# Feasibility reads the cluster planes only through resources_fit, so it
+# flips only at changed columns (a fit flip recomputes).  Without a flip
+# the totals change only at changed columns (the resource plugins are
+# per cell; taint and affinity normalise over the unchanged feasible
+# set).  A row whose top-K cut cannot engage selects its feasible set;
+# else its selected set changes iff a changed column's membership flips,
+# which the gate counts exactly by the select stage's own (-total, index)
+# order for at most DRIFT_REFINE_MAX_COLS columns (conservatively beyond
+# that).  Sticky-active rows never move.  The changed columns' new totals
+# are returned so that the stored score plane stays exact for the rows
+# the gate skips.
+
+DRIFT_RECOMPUTE = 1  # gate-mask bit: the row is re-scheduled
+DRIFT_WCHECK = 2     # gate-mask bit: the row needs the dynamic-weight check
+DRIFT_FITFLIP = 4    # gate-mask bit: feasibility flipped at a changed column
+# Widest delta the exact top-K membership refinement runs at: its rank
+# counts cost O(rows x C x D) compares.
+DRIFT_REFINE_MAX_COLS = 8
+
+
+def _resource_scores_cols(request, score_enabled, alloc_d, used_d):
+    """The cluster-plane part of a row's total at the given columns: the
+    resource plugins, enabled-masked.  i64[B, D]."""
+    parts = (
+        (S.S_BALANCED, S.balanced_allocation_score(request, alloc_d, used_d)),
+        (S.S_LEAST, S.least_allocated_score(request, alloc_d, used_d)),
+        (S.S_MOST, S.most_allocated_score(request, alloc_d, used_d)),
+    )
+    total = torch.zeros(
+        (request.shape[0], alloc_d.shape[0]), dtype=torch.int64, device=request.device
+    )
+    for idx, s in parts:
+        total = total + torch.where(score_enabled[:, idx, None], s, 0)
+    return total
+
+
+def _drift_classify(
+    fea_new_d,      # bool[B, D] feasibility at the changed columns, new planes
+    prev_feas,      # i8[B, C] previous feasibility plane
+    prev_scores,    # i32[B, C] previous post-normalize totals
+    res_old_d,      # i64[B, D] resource-score part at the columns, old planes
+    res_new_d,      # i64[B, D] the same, new planes
+    delta_idx,      # i32[D] changed columns (padding: out of range)
+    delta_valid,    # bool[D] the slot is a real changed column
+    delta_cpu,      # bool[D] the column's cpu_alloc/cpu_avail changed
+    max_clusters,   # i32[B]
+    mode_divide,    # bool[B]
+    weights_given,  # bool[B]
+    sticky_active,  # bool[B]
+    fin_idx,        # i32[Nf] rows with a finite maxClusters (padding: out of range)
+    nfeas,          # i32[B] the stored per-row feasible counts
+):
+    """Shared tail of the dense and compact gates.  Returns (i8[B] mask,
+    i32[B, D] the changed columns' new totals)."""
+    b, c = prev_feas.shape
+    device = prev_feas.device
+    d = delta_idx.shape[0]
+    d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
+    pf_d = prev_feas[:, d_safe] != 0
+    valid = delta_valid[None, :]
+    fitflip = ((fea_new_d != pf_d) & valid).any(dim=1)
+    dcpu = delta_cpu & delta_valid
+    dcpu_any = (pf_d & dcpu[None, :]).any(dim=1)
+    # The top-K cut cannot engage: unlimited, K >= nfeas, or negative K.
+    kinf = (max_clusters == _INF) | (max_clusters < 0) | (max_clusters >= nfeas)
+
+    tot_old_d = prev_scores[:, d_safe].to(torch.int64)
+    tot_new_d = torch.where(pf_d, tot_old_d - res_old_d + res_new_d, 0)
+
+    if d <= DRIFT_REFINE_MAX_COLS:
+        # Exact top-K refinement over the finite-K rows: a delta
+        # column's membership before and after, counted with the select
+        # stage's comparator packed into one collision-free int64 key.
+        # Scatters send out-of-range slots to a spare last slot (no
+        # boolean indexing: that would wait on the device).
+        didx64 = delta_idx.to(torch.int64)
+        is_delta = torch.zeros(c + 1, dtype=torch.bool, device=device)
+        is_delta[torch.where(didx64 < c, didx64, c)] = delta_valid
+        is_delta = is_delta[:c]
+        fin = fin_idx.to(torch.int64)
+        ridx = torch.clamp(fin, 0, b - 1)
+        pf_g = prev_feas[ridx] != 0                          # [Nf, C]
+        pf_d_g = pf_d[ridx]                                  # [Nf, D]
+        iota = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+        comp = (-prev_scores[ridx].to(torch.int64)) * c + iota
+        comp_u = torch.where(pf_g & ~is_delta[None, :], comp, _CERT_INF)
+        key_old = (-tot_old_d[ridx]) * c + didx64[None, :]   # [Nf, D]
+        key_new = (-tot_new_d[ridx]) * c + didx64[None, :]
+        e_mask = (pf_d_g & valid)[:, :, None]
+
+        def above_counts(key_d):
+            cnt = torch.stack(
+                [
+                    (comp_u < key_d[:, t : t + 1]).sum(dim=1, dtype=torch.int32)
+                    for t in range(d)
+                ],
+                dim=1,
+            )
+            e_beats = key_d[:, :, None] < key_d[:, None, :]
+            return cnt + (e_beats & e_mask).sum(dim=1, dtype=torch.int32)
+
+        k = torch.clamp(max_clusters[ridx], 0, c)[:, None]
+        member_old = pf_d_g & (above_counts(key_old) < k)
+        member_new = pf_d_g & (above_counts(key_new) < k)
+        sel_moved_g = ((member_old != member_new) & valid).any(dim=1)
+        # Finite-K dynamic-weight rows whose selection touches a
+        # cpu-changed column: the wcheck cannot decide them.
+        dyn_fin_g = ((member_old | member_new) & dcpu[None, :]).any(dim=1)
+        exposed_g = sel_moved_g | (mode_divide[ridx] & ~weights_given[ridx] & dyn_fin_g)
+        sel_exposed = torch.zeros(b + 1, dtype=torch.bool, device=device)
+        sel_exposed[torch.where(fin < b, fin, b)] = exposed_g
+        sel_exposed = sel_exposed[:b]
+    else:
+        # Conservative: any feasible delta column may cross the K cut.
+        sel_exposed = ((fea_new_d | pf_d) & valid).any(dim=1)
+
+    recompute = ~sticky_active & (fitflip | (~kinf & sel_exposed))
+    # Sound only where the selection is the feasible set (kinf).
+    wcheck = (
+        ~sticky_active & ~recompute & kinf & mode_divide & ~weights_given & dcpu_any
+    )
+    mask = (
+        recompute.to(torch.int8) * DRIFT_RECOMPUTE
+        + wcheck.to(torch.int8) * DRIFT_WCHECK
+        + (fitflip & ~sticky_active).to(torch.int8) * DRIFT_FITFLIP
+    )
+    return mask, tot_new_d.to(torch.int32)
+
+
+def _gate_tail(per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
+               alloc_old_d, used_old_d, alloc_new_d, used_new_d,
+               delta_idx, delta_valid, delta_cpu, fin_idx, nfeas):
+    enabled = per_object["score_enabled"]
+    request = per_object["request"]
+    return _drift_classify(
+        fea_new_d,
+        prev_feas,
+        prev_scores,
+        _resource_scores_cols(request, enabled, alloc_old_d, used_old_d),
+        _resource_scores_cols(request, enabled, alloc_new_d, used_new_d),
+        delta_idx,
+        delta_valid,
+        delta_cpu,
+        per_object["max_clusters"],
+        per_object["mode_divide"],
+        per_object["weights_given"],
+        sticky_active,
+        fin_idx,
+        nfeas,
+    )
+
+
+def drift_gate_dense(
+    per_object: dict, prev_feas, prev_scores, alloc_old_d, used_old_d,
+    alloc_new_d, used_new_d, delta_idx, delta_valid, delta_cpu, fin_idx, nfeas,
+):
+    """Drift gate over a chunk's dense device-resident per-object planes.
+
+    ``*_old_d``/``*_new_d`` are the old and new cluster tensors at the
+    changed columns (i64[D, R]); ``delta_idx`` i32[D] names the columns
+    (padding slots carry an out-of-range index and ``delta_valid``
+    False); ``fin_idx`` i32[Nf] the finite-maxClusters rows; ``nfeas``
+    i32[B] the stored feasible counts.  Returns (i8[B] mask, i32[B, D]
+    the changed columns' new totals, for ``refresh_scores``)."""
+    c = prev_feas.shape[1]
+    d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
+    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
+    fea_new_d, _ = F.combine_filters_explain(
+        per_object["filter_enabled"],
+        per_object["api_ok"][:, d_safe],
+        per_object["taint_ok_new"][:, d_safe],
+        per_object["taint_ok_cur"][:, d_safe],
+        per_object["current_mask"][:, d_safe],
+        fit_new,
+        per_object["placement_has"],
+        per_object["placement_ok"][:, d_safe],
+        per_object["selector_ok"][:, d_safe],
+    )
+    fea_new_d = fea_new_d & per_object["webhook_ok"][:, d_safe]
+    sticky_active = per_object["sticky"] & per_object["current_mask"].any(dim=1)
+    return _gate_tail(
+        per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
+        alloc_old_d, used_old_d, alloc_new_d, used_new_d,
+        delta_idx, delta_valid, delta_cpu, fin_idx, nfeas,
+    )
+
+
+def drift_gate_compact(
+    per_object: dict, tables: dict, prev_feas, prev_scores, alloc_old_d,
+    used_old_d, alloc_new_d, used_new_d, delta_idx, delta_valid, delta_cpu,
+    fin_idx, nfeas, cur_absent,
+):
+    """The drift gate over compact per-object tensors: the changed
+    columns' filter masks are gathered from the vocabulary tables (a
+    D-column slice of ``expand_compact``), so no [B, C] plane is built.
+    Returns what ``drift_gate_dense`` returns."""
+    c = prev_feas.shape[1]
+    d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
+    tol_id = per_object["tol_id"].long()
+    api = tables["api_matrix"][:, d_safe][per_object["gvk_id"].long()]
+    trow = tables["taint_set_id"][d_safe].long()
+    taint_new = tables["taint_new"][tol_id][:, trow]
+    taint_cur = tables["taint_cur"][tol_id][:, trow]
+    selector = tables["sel_matrix"][:, d_safe][per_object["sel_id"].long()]
+    placement = tables["place_matrix"][:, d_safe][per_object["place_id"].long()]
+    cur_present = per_object["sparse_cur"] != int(cur_absent)  # [B, P]
+    current_d = (
+        (per_object["sparse_idx"].to(torch.int64)[:, :, None]
+         == delta_idx.to(torch.int64)[None, None, :])
+        & cur_present[:, :, None]
+    ).any(dim=1)
+    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
+    fea_new_d, _ = F.combine_filters_explain(
+        per_object["filter_enabled"],
+        api,
+        taint_new,
+        taint_cur,
+        current_d,
+        fit_new,
+        per_object["placement_has"],
+        placement,
+        selector,
+    )
+    sticky_active = per_object["sticky"] & cur_present.any(dim=1)
+    return _gate_tail(
+        per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
+        alloc_old_d, used_old_d, alloc_new_d, used_new_d,
+        delta_idx, delta_valid, delta_cpu, fin_idx, nfeas,
+    )
+
+
+def refresh_scores(prev_scores, cols, new_cols):
+    """Write a gate's new totals into the stored score plane in place:
+    ``cols`` i64[nv] are the real changed columns (the first nv delta
+    slots), ``new_cols`` the gate's i32[B, D].  A scatter of nv columns,
+    not a copy of the plane.  Returns ``prev_scores``."""
+    if cols.numel():
+        prev_scores.index_copy_(1, cols, new_cols[:, : cols.numel()])
+    return prev_scores
+
+
+def drift_wcheck(prev_feas, rows_idx, cpu_alloc_old, cpu_avail_old,
+                 cpu_alloc_new, cpu_avail_new):
+    """Dynamic-weight check of gate-classified wcheck rows, whose
+    selection is their feasible set: i8[K], 1 where the weights over
+    prev_feas differ between the old and new cpu planes (the row is
+    recomputed).  Integer arithmetic in int64 throughout."""
+    sel = prev_feas[rows_idx] != 0
+    w_old = dynamic_weights(sel, cpu_alloc_old, cpu_avail_old)
+    w_new = dynamic_weights(sel, cpu_alloc_new, cpu_avail_new)
+    return (w_old != w_new).any(dim=-1).to(torch.int8)

@@ -24,15 +24,23 @@ whose rows are unchanged against the same view replays per chunk; a
 chunk with a few changed rows schedules only those rows, in sub-batch
 slabs, and merges them; any other dispatch diffs its outputs against the
 previous planes and fetches only the changed rows (the delta fetch).
-The drift gate, the pipelined dispatch window, snapshots, score decoding
-and webhooks are not ported: a capacity-drift tick takes the full
-dispatch with the delta fetch, and chunks are dispatched one after
-another.  The device is ``"cuda"`` unless the caller asks for the CPU;
-without CUDA the default raises instead of carrying on on the CPU.
+
+A capacity-drift tick (a clean hit whose cluster view changed at a few
+columns) runs the drift gate: one program per chunk classifies every row
+from the device-resident inputs and the stored planes; rows that can
+move are re-solved by the unified survivor program (256 rows or fewer a
+group) or the sub-batch slabs, dynamic-weight rows are checked first,
+and a chunk where most rows move takes the full dispatch.  The pipelined
+dispatch window, snapshots, score decoding and webhooks are not ported:
+chunks are dispatched one after another.  One tick runs at a time on an
+engine (a lock).  The device is ``"cuda"`` unless the caller asks for
+the CPU; without CUDA the default raises instead of carrying on on the
+CPU.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -43,10 +51,18 @@ import torch
 from kubeadmiral_tpu_torch.convert import tensor
 from kubeadmiral_tpu_torch.models import types as T
 from kubeadmiral_tpu_torch.ops.pipeline import (
+    DRIFT_RECOMPUTE,
+    DRIFT_WCHECK,
     NIL_REPLICAS,
+    PackedRows,
     TickInputs,
+    drift_gate_compact,
+    drift_gate_dense,
+    drift_survivor,
+    drift_wcheck,
     expand_compact,
     pack_wire,
+    refresh_scores,
     schedule_tick,
     schedule_tick_narrow,
     unpack_wire,
@@ -326,12 +342,15 @@ class _CachedChunk:
     device_per_object: Optional[dict] = None
     padded_shape: Optional[tuple] = None
     # The previous tick's device planes (selected, replicas, counted,
-    # scores) at the padded shape, its feasibility and reason planes, and
-    # its decoded results; prev_view is the ClusterView they were computed
-    # against (the same view and a clean hit replay with no dispatch).
+    # scores) at the padded shape, its feasibility and reason planes, the
+    # per-row feasible counts of prev_feas (kept beside it at every
+    # store and repair, read by the drift gate) and its decoded results;
+    # prev_view is the ClusterView they were computed against (the same
+    # view and a clean hit replay with no dispatch).
     prev_out: Optional[tuple] = None
     prev_feas: Optional[torch.Tensor] = None
     prev_reasons: Optional[torch.Tensor] = None
+    prev_nfeas: Optional[torch.Tensor] = None
     prev_results: Optional[list] = None
     prev_has_scores: bool = False  # score decoding is not ported
     prev_view: Optional[object] = None
@@ -372,12 +391,15 @@ class SchedulerEngine:
                 "to run on the CPU"
             )
         # Per-stage wall seconds of the last schedule() call: featurize
-        # (host encoding, padding, cache checks, input repairs), device
-        # (upload + tick, synchronised), narrow_fallback (dense re-solve
-        # of uncertified rows and their write-back, synchronised), fetch
-        # (diff mask and certificate reads, pack and device->host copies),
+        # (host encoding, padding, cache checks, input repairs, drift
+        # gate dispatch), device (upload + tick, synchronised; the
+        # weight checks and survivor programs as queued),
+        # narrow_fallback (dense re-solve of uncertified rows and their
+        # write-back, synchronised), fetch (diff mask, certificate, gate
+        # mask and weight-check reads, pack and device->host copies),
+        # gate_wait (the gate-mask and weight-check reads, inside fetch),
         # overflow_fetch (the K-overflow re-fetch, inside fetch), decode
-        # (ScheduleResult construction and merges).
+        # (ScheduleResult construction, merges, drift classification).
         self.timings: dict[str, float] = {}
         # Rows certified by the narrow solve ("rows") and rows re-solved
         # dense ("fallback"); narrow_last_m is the latest dispatch's M.
@@ -401,6 +423,27 @@ class SchedulerEngine:
         # Global rows whose placement may have changed in the last call
         # ([] none, None unknown: a chunk was fetched whole).
         self.last_changed: Optional[list[int]] = None
+        # Drift-gate row classes (the JAX engine's keys; this engine runs
+        # its default unified survivor stream, so the resolve, replan and
+        # score_only keys stay 0): gated chunks; skip rows (provably
+        # unchanged); wcheck rows (dynamic-weight check) and
+        # wcheck_changed of them; recompute rows sent to the sub-batch
+        # slabs; unified rows settled by the survivor program and
+        # unified_fallback rows failing its certificate; fallback chunks
+        # (most rows moved: the full dispatch).
+        self.drift_stats = {
+            "gated": 0, "skip": 0, "wcheck": 0, "wcheck_changed": 0,
+            "recompute": 0, "resolve": 0, "resolve_fallback": 0,
+            "replan": 0, "replan_fallback": 0,
+            "score_only": 0, "score_only_fallback": 0,
+            "unified": 0, "unified_fallback": 0,
+            "fallback": 0,
+        }
+        # Survivor program shapes: rows dispatched, groups, group-padded
+        # rows and rows failing the certificate.
+        self.survivor_stats = {
+            "rows": 0, "groups": 0, "padded_rows": 0, "fallback_rows": 0,
+        }
         self._chunk_cache: dict[int, _CachedChunk] = {}
         self._cache_used = 0
         # (cluster fingerprint, view): an unchanged cluster list yields
@@ -413,12 +456,18 @@ class SchedulerEngine:
         # padded cluster planes, each keyed to what it was built from.
         self._device_tables: Optional[tuple] = None
         self._cluster_device: Optional[tuple] = None
+        # The previous view's padded cpu planes on the device (the old
+        # side of the drift weight check), keyed like _cluster_device.
+        self._old_cpu_device: Optional[tuple] = None
         # Whole-batch no-op gate: (units list, row id array, view,
         # results, chunks) of the last call, or None.
         self._noop_gate: Optional[tuple] = None
         # Selected counts observed this tick, per cache entry, committed
         # as one pack-K vote per entry at the end of the tick.
         self._nsel_pending: dict[int, list] = {}
+        # One tick at a time: overlapping ticks from several threads
+        # would race the chunk cache.
+        self._schedule_lock = threading.Lock()
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -758,6 +807,7 @@ class SchedulerEngine:
                 entry.prev_out = cached.prev_out
                 entry.prev_feas = cached.prev_feas
                 entry.prev_reasons = cached.prev_reasons
+                entry.prev_nfeas = cached.prev_nfeas
                 entry.prev_results = cached.prev_results
                 entry.prev_has_scores = cached.prev_has_scores
                 entry.stale_out_rows = cached.stale_out_rows
@@ -899,8 +949,17 @@ class SchedulerEngine:
         self.fetch_bytes_total += arr.nbytes
         return arr
 
+    def _upload_small(self, arr) -> torch.Tensor:
+        """A small host array on the device without waiting for the work
+        queued there (a copy from pageable memory would): on the card it
+        goes through pinned memory, asynchronously."""
+        host = torch.from_numpy(np.array(arr, order="C"))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
     def _index(self, rows) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        return self._upload_small(np.asarray(rows, np.int64))
 
     def _tick(self, device_in, fmt: str, m: Optional[int]):
         """One dispatch: (outputs, cert or None).  The module-level tick
@@ -923,12 +982,17 @@ class SchedulerEngine:
         ``dirty_rows`` (global row indices) is the delta-featurization
         hint: the caller asserts that every row outside it is the
         identical unit object of its previous call over this list, so
-        the cache check visits only those rows."""
+        the cache check visits only those rows.  Ticks from several
+        threads run one at a time."""
+        with self._schedule_lock:
+            return self._schedule(units, clusters, dirty_rows)
+
+    def _schedule(self, units, clusters, dirty_rows) -> list[ScheduleResult]:
         units_arg = units
         units = list(units)
         timings = dict.fromkeys(
-            ("featurize", "device", "narrow_fallback", "fetch", "overflow_fetch",
-             "decode"),
+            ("featurize", "device", "narrow_fallback", "fetch", "gate_wait",
+             "overflow_fetch", "decode"),
             0.0,
         )
         self.timings = timings
@@ -957,7 +1021,14 @@ class SchedulerEngine:
         # Per chunk: local rows whose placement may have changed ([]
         # none, None unknown).
         chunk_changed: list[Optional[list]] = []
+        # (slot, entry, rows, their host inputs, inputs_stale): the
+        # sub-batch pass's rows.  inputs_stale says the rows' host
+        # inputs changed (a churn patch); drift recompute rows keep
+        # inputs whose device copies are current.
         pending_sub: list[tuple] = []
+        # Drift-gated chunks awaiting their row classification.
+        pending_gate: list[tuple] = []
+        drift_cache: dict[int, Optional[dict]] = {}
         c_bucket, eff_chunk, ladder = self._tick_geometry(len(view.clusters))
         multi_chunk = len(units) > eff_chunk
         vocab = self._vocab_for(view, self._topo_fingerprint(view))
@@ -1003,7 +1074,9 @@ class SchedulerEngine:
                 and patch_info is not None
             ):
                 changed_rows, sub_inputs = patch_info
-                pending_sub.append((len(chunk_results), entry, changed_rows, sub_inputs))
+                pending_sub.append(
+                    (len(chunk_results), entry, changed_rows, sub_inputs, True)
+                )
                 chunk_results.append(None)  # filled by the sub-batch pass
                 chunk_changed.append(list(changed_rows))
                 self.fetch_stats["subbatch"] += 1
@@ -1014,47 +1087,68 @@ class SchedulerEngine:
             pack_k = self._pack_k(
                 inputs, c_bucket, entry.pack_k_hint if entry is not None else 0
             )
-            padded = self._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
-            m = self._narrow_m(inputs, c_bucket)
-            t1 = time.perf_counter()
-            timings["featurize"] += t1 - t0
-            device_in = self._device_inputs(
-                entry, padded, status, fmt, vocab, c_bucket,
-                self._cluster_planes_device(view, c_bucket),
-            )
+            drift_info = None
+            if (
+                status == "hit"
+                and entry is not None
+                and entry.prev_view is not None
+                and entry.prev_view is not view
+            ):
+                drift_info = self._drift_delta(entry.prev_view, view, drift_cache)
+            if drift_info is not None and drift_info["empty"] and prev_valid:
+                # The views differ only in ways that leave the cluster
+                # tensors equal: every row reproduces its outputs.
+                self.fetch_stats["skip"] += 1
+                self.drift_stats["gated"] += 1
+                self.drift_stats["skip"] += n
+                entry.prev_view = view
+                chunk_results.append(entry.prev_results)
+                chunk_changed.append([])
+                timings["featurize"] += time.perf_counter() - t0
+                continue
+            # Drift: a clean hit whose only change is cluster resource
+            # quantities at a few columns classifies its rows on the
+            # device instead of re-running the whole chunk.
+            shape = (b_pad, c_bucket)
+            if (
+                status == "hit"
+                and drift_info is not None
+                and prev_valid
+                and entry.prev_out is not None
+                and entry.prev_feas is not None
+                and entry.device_per_object is not None
+                and tuple(entry.prev_out[0].shape) == shape
+                and tuple(entry.prev_feas.shape) == shape
+                and entry.padded_shape is not None
+                and entry.padded_shape[0] == b_pad
+            ):
+                gate = self._dispatch_drift_gate(entry, fmt, c_bucket, drift_info, vocab)
+                pending_gate.append(
+                    (len(chunk_results), entry, n, gate, fmt, b_pad, pack_k)
+                )
+                chunk_results.append(None)
+                chunk_changed.append(None)
+                timings["featurize"] += time.perf_counter() - t0
+                continue
+
+            timings["featurize"] += time.perf_counter() - t0
             delta_ok = (
                 prev_valid
                 and entry.prev_out is not None
-                and tuple(entry.prev_out[0].shape) == (b_pad, c_bucket)
+                and tuple(entry.prev_out[0].shape) == shape
             )
-            out, cert = self._tick(device_in, fmt, m)
-            self._sync()
-            timings["device"] += time.perf_counter() - t1
-            fb_rows = None
-            if cert is not None:
-                t2 = time.perf_counter()
-                cert_np = self._read_np(cert)
-                timings["fetch"] += time.perf_counter() - t2
-                out, fb_rows = self._apply_cert_fallback(
-                    out, cert_np, device_in, fmt, n, timings
-                )
-            del device_in
-            mask = None
-            if delta_ok:
-                t2 = time.perf_counter()
-                mask = self._read_np(_diff_bits(out, entry.prev_out, n))
-                if fb_rows is not None:
-                    # Rows the dense re-solve rewrote are fetched
-                    # whatever the diff says, as the JAX engine's mask
-                    # (computed on the narrow outputs) forces them.
-                    mask[fb_rows] |= _DIFF_PLACEMENT
-                timings["fetch"] += time.perf_counter() - t2
-            part, changed = self._fetch_decode_packed(
-                entry, out, mask, n, pack_k, view, timings
+            part, changed = self._dispatch_chunk(
+                entry, inputs, status, fmt, n, b_pad, pack_k, view, vocab,
+                c_bucket, delta_ok, timings,
             )
             chunk_results.append(part)
             chunk_changed.append(changed)
 
+        if pending_gate:
+            self._drain_drift_gates(
+                pending_gate, chunk_results, chunk_changed, view, timings,
+                pending_sub, c_bucket, vocab,
+            )
         if pending_sub:
             self._run_sub_batch(
                 pending_sub, chunk_results, view, timings, eff_chunk, ladder,
@@ -1081,6 +1175,463 @@ class SchedulerEngine:
             len(chunk_results),
         )
         return results
+
+    def _dispatch_chunk(
+        self, entry, inputs, status: str, fmt: str, n: int, b_pad: int, pack_k: int,
+        view, vocab, c_bucket: int, delta_ok: bool, timings,
+    ):
+        """One chunk's full dispatch (narrow or dense tick), its
+        certificate fallback and its fetch, delta against the entry's
+        prev planes when ``delta_ok``.  Returns (results, changed local
+        rows or None)."""
+        t0 = time.perf_counter()
+        padded = self._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
+        m = self._narrow_m(inputs, c_bucket)
+        t1 = time.perf_counter()
+        timings["featurize"] += t1 - t0
+        device_in = self._device_inputs(
+            entry, padded, status, fmt, vocab, c_bucket,
+            self._cluster_planes_device(view, c_bucket),
+        )
+        out, cert = self._tick(device_in, fmt, m)
+        self._sync()
+        timings["device"] += time.perf_counter() - t1
+        fb_rows = None
+        if cert is not None:
+            t2 = time.perf_counter()
+            cert_np = self._read_np(cert)
+            timings["fetch"] += time.perf_counter() - t2
+            out, fb_rows = self._apply_cert_fallback(
+                out, cert_np, device_in, fmt, n, timings
+            )
+        del device_in
+        mask = None
+        if delta_ok:
+            t2 = time.perf_counter()
+            mask = self._read_np(_diff_bits(out, entry.prev_out, n))
+            if fb_rows is not None:
+                # Rows the dense re-solve rewrote are fetched whatever
+                # the diff says, as the JAX engine's mask (computed on
+                # the narrow outputs) forces them.
+                mask[fb_rows] |= _DIFF_PLACEMENT
+            timings["fetch"] += time.perf_counter() - t2
+        return self._fetch_decode_packed(entry, out, mask, n, pack_k, view, timings)
+
+    # -- drift gate ----------------------------------------------------------
+    @staticmethod
+    def _drift_delta(old_view, view: ClusterView, cache: dict) -> Optional[dict]:
+        """The cluster columns that changed between the view a chunk's
+        outputs were computed against and this one.  None: not
+        drift-shaped (another topology or shape, or more than
+        max(8, C // 4) columns moved); {"empty": True}: the cluster
+        tensors are equal.  Else the changed columns padded to a bucket
+        (exactly 1 for one column, else pow2 floored at 8; padding slots
+        carry an out-of-range index) and the old and new cluster planes
+        at them.  Cached per old view for the tick."""
+        key = id(old_view)
+        if key in cache:
+            return cache[key]
+        info = None
+        if (
+            getattr(old_view, "names", None) == view.names
+            and np.asarray(old_view.alloc).shape == np.asarray(view.alloc).shape
+        ):
+            dcpu_col = (old_view.cpu_alloc != view.cpu_alloc) | (
+                old_view.cpu_avail != view.cpu_avail
+            )
+            diff = (
+                (old_view.alloc != view.alloc).any(axis=1)
+                | (old_view.used != view.used).any(axis=1)
+                | dcpu_col
+            )
+            cols = np.nonzero(diff)[0]
+            c = len(view.names)
+            if cols.size == 0:
+                info = {"empty": True}
+            elif cols.size <= max(8, c // 4):
+                nb = 1 if cols.size == 1 else _pow2_bucket(cols.size, 8, 1 << 30)
+                didx = np.full(nb, 1 << 30, np.int32)
+                didx[: cols.size] = cols
+                dvalid = np.zeros(nb, bool)
+                dvalid[: cols.size] = True
+                dcpu = np.zeros(nb, bool)
+                dcpu[: cols.size] = dcpu_col[cols]
+
+                def slice_cols(arr):
+                    arr = np.asarray(arr)
+                    out = np.zeros((nb,) + arr.shape[1:], arr.dtype)
+                    out[: cols.size] = arr[cols]
+                    return out
+
+                info = {
+                    "empty": False, "cols": cols, "didx": didx, "dvalid": dvalid,
+                    "dcpu": dcpu,
+                    "alloc_old_d": slice_cols(old_view.alloc),
+                    "used_old_d": slice_cols(old_view.used),
+                    "alloc_new_d": slice_cols(view.alloc),
+                    "used_new_d": slice_cols(view.used),
+                }
+        cache[key] = info
+        return info
+
+    @staticmethod
+    def _fin_rows(entry, b_pad: int) -> np.ndarray:
+        """The chunk's finite-maxClusters rows (the only rows whose top-K
+        cut can engage), padded with an out-of-range index to a two-rung
+        bucket: max(64, b_pad // 4), else b_pad."""
+        mc = np.asarray(entry.inputs.max_clusters)
+        fin = np.nonzero((mc >= 0) & (mc < INT32_INF))[0]
+        cap = max(64, b_pad // 4)
+        idx = np.full(cap if fin.size <= cap else b_pad, 1 << 30, np.int32)
+        idx[: fin.size] = fin
+        return idx
+
+    def _wcheck_cpu_device(self, old_view: ClusterView, c_bucket: int) -> dict:
+        """The previous view's padded cpu planes on the device: the old
+        side of the weight check."""
+        key = (id(old_view), c_bucket)
+        if self._old_cpu_device is not None and self._old_cpu_device[0] == key:
+            return self._old_cpu_device[2]
+        host = {
+            "cpu_alloc": _pad_cluster_axis(old_view.cpu_alloc, c_bucket, 0),
+            "cpu_avail": _pad_cluster_axis(old_view.cpu_avail, c_bucket, 0),
+        }
+        self.upload_bytes["cluster"] += sum(a.nbytes for a in host.values())
+        dev = {k: tensor(v, self.device) for k, v in host.items()}
+        self._old_cpu_device = (key, old_view, dev)
+        return dev
+
+    def _start_read(self, t: torch.Tensor):
+        """Start a device->host copy of ``t`` that a later _finish_read
+        waits for: on the card a copy into pinned memory behind an
+        event, so the wait covers only the work queued before it."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _finish_read(self, handle) -> np.ndarray:
+        host, done = handle
+        if done is not None:
+            done.synchronize()
+        arr = host.numpy()
+        self.fetch_bytes_total += arr.nbytes
+        return arr
+
+    def _read_all(self, tensors: list) -> list:
+        """Host copies of several tensors, one copy per distinct shape."""
+        out: list = [None] * len(tensors)
+        groups: dict[tuple, list[int]] = {}
+        for i, t in enumerate(tensors):
+            groups.setdefault(tuple(t.shape), []).append(i)
+        for members in groups.values():
+            if len(members) == 1:
+                out[members[0]] = self._read_np(tensors[members[0]])
+                continue
+            stacked = self._read_np(torch.stack([tensors[i] for i in members]))
+            for j, i in enumerate(members):
+                out[i] = stacked[j]
+        return out
+
+    def _dispatch_drift_gate(self, entry, fmt: str, c_bucket: int, info: dict, vocab) -> dict:
+        """Queue one chunk's drift gate and the copy of its row mask (read
+        in _drain_drift_gates; nothing here waits on the device but the
+        stale-input backstop)."""
+        b_pad = entry.padded_shape[0]
+        if entry.stale_rows:
+            # Backstop: rows patched since the last upload whose eager
+            # repair could not run.
+            self._repair_stale_inputs(entry, fmt, c_bucket)
+        slices = (
+            info["alloc_old_d"], info["used_old_d"],
+            info["alloc_new_d"], info["used_new_d"],
+        )
+        self.upload_bytes["cluster"] += sum(a.nbytes for a in slices)
+        up = self._upload_small
+        args = (
+            entry.prev_feas,
+            entry.prev_out[3],
+            *(up(a) for a in slices),
+            up(info["didx"]),
+            up(info["dvalid"]),
+            up(info["dcpu"]),
+            up(self._fin_rows(entry, b_pad)),
+            self._ensure_nfeas(entry),
+        )
+        if fmt == "compact":
+            mask, new_cols = drift_gate_compact(
+                entry.device_per_object, self._tables_device(vocab, c_bucket),
+                *args, Cmp.CUR_ABSENT,
+            )
+        else:
+            mask, new_cols = drift_gate_dense(entry.device_per_object, *args)
+        return {
+            "mask": self._start_read(mask),
+            "new_cols": new_cols,
+            "cols": self._index(info["cols"]),
+        }
+
+    @staticmethod
+    def _survivor_groups(rows: list) -> list[tuple[list, int]]:
+        """Greedy least-padding cut of rows into 256, 128 and 64-row
+        groups (140 rows: 128 + 64, never one 256)."""
+        out = []
+        i, n = 0, len(rows)
+        while i < n:
+            rem = n - i
+            size = 256 if rem > 192 else (128 if rem > 64 else 64)
+            out.append((rows[i : i + size], size))
+            i += size
+        return out
+
+    def _dispatch_drift_survivors(
+        self, pi: int, entry, fmt: str, rows: set, cluster_dev, vocab, c_bucket: int,
+    ) -> list[dict]:
+        """Queue the unified survivor program over a gated chunk's rows,
+        in _survivor_groups: each group's device inputs and stored reason
+        rows are gathered, expanded and solved by ``drift_survivor``, and
+        the wire packed at K = min(M, C).  [] when the chunk cannot take
+        the path; certificate failures stay in the recompute set."""
+        if (
+            entry.prev_reasons is None
+            or entry.device_per_object is None
+            or entry.prev_feas is None
+            or entry.prev_reasons.shape != entry.prev_feas.shape
+        ):
+            return []
+        m = self._narrow_m(entry.inputs, c_bucket)
+        if m is None or not rows:
+            return []
+        rows = sorted(rows)
+        pack_k = min(m, c_bucket)
+        device_in = self._assemble(entry.device_per_object, fmt, vocab, c_bucket, cluster_dev)
+        per_object = self._per_object_fields(fmt)
+        self.survivor_stats["rows"] += len(rows)
+        jobs = []
+        for seg, g in self._survivor_groups(rows):
+            # Padding repeats the group's first row; only seg is read.
+            idx = np.full(g, seg[0], np.int64)
+            idx[: len(seg)] = seg
+            gidx = self._index(idx)
+            sub = device_in._replace(
+                **{name: getattr(device_in, name).index_select(0, gidx) for name in per_object}
+            )
+            out, cert = drift_survivor(
+                expand_compact(sub) if fmt == "compact" else sub,
+                entry.prev_reasons.index_select(0, gidx),
+                m,
+                i32_keys=True,
+            )
+            wire = pack_wire(
+                out.selected, out.replicas, out.counted, out.scores, out.reasons, pack_k
+            )
+            self.survivor_stats["groups"] += 1
+            self.survivor_stats["padded_rows"] += g
+            jobs.append({"pi": pi, "entry": entry, "rows": seg, "out": out,
+                         "cert": cert, "wire": wire, "pack_k": pack_k})
+        return jobs
+
+    def _repair_entry_rows(self, entry, out, src_pos, dst_rows) -> bool:
+        """Write certified survivor rows into the chunk's prev planes in
+        place; False (the caller marks them stale) when the planes cannot
+        take them."""
+        if entry.prev_out is None or entry.prev_feas is None or entry.prev_reasons is None:
+            return False
+        b_pad, c_pad = entry.prev_out[0].shape
+        if (
+            tuple(entry.prev_feas.shape) != (b_pad, c_pad)
+            or tuple(entry.prev_reasons.shape) != (b_pad, c_pad)
+            or out.selected.shape[1] != c_pad
+            or max(dst_rows, default=0) >= b_pad
+        ):
+            return False
+        self._scatter_prev_rows(entry, out, self._index(src_pos), self._index(dst_rows))
+        return True
+
+    def _drain_drift_resolve(self, jobs, plans, plan_resolved, view, timings) -> None:
+        """Read the queued survivor groups (one copy per shape for the
+        certificates, one for the wires), decode the certified rows,
+        merge them into the cached decodes and write them into the prev
+        planes.  Rows failing the certificate stay in their chunk's
+        recompute set."""
+        t0 = time.perf_counter()
+        certs = self._read_all([job["cert"] for job in jobs])
+        wires = self._read_all([job["wire"] for job in jobs])
+        timings["fetch"] += time.perf_counter() - t0
+        for job, cert, wire in zip(jobs, certs, wires):
+            t0 = time.perf_counter()
+            entry, rows, out, k = job["entry"], job["rows"], job["out"], job["pack_k"]
+            nr = len(rows)
+            ok_pos = np.nonzero(cert[:nr] != 0)[0]
+            self.drift_stats["unified"] += int(ok_pos.size)
+            self.drift_stats["unified_fallback"] += int(nr - ok_pos.size)
+            self.survivor_stats["fallback_rows"] += int(nr - ok_pos.size)
+            res_rows = [rows[p] for p in ok_pos.tolist()]
+            plans[job["pi"]][3] -= set(res_rows)
+            if not ok_pos.size:
+                timings["decode"] += time.perf_counter() - t0
+                continue
+            full = unpack_wire(wire[:nr], k)
+            packed = PackedRows(*(np.asarray(f)[ok_pos] for f in full))
+            self._observe_nsel(entry, packed.nsel, out.selected.shape[1])
+            over_pos = np.nonzero(packed.nsel > k)[0]
+            over_dense = None
+            if over_pos.size:
+                t1 = time.perf_counter()
+                timings["decode"] += t1 - t0
+                over_dense = self._fetch_overflow(out, ok_pos[over_pos], timings)
+                timings["fetch"] += time.perf_counter() - t1
+                t0 = time.perf_counter()
+            results = self._decode_packed_mixed(packed, over_pos, over_dense, view.names)
+            merged = list(entry.prev_results)
+            for r, res in zip(res_rows, results):
+                merged[r] = res
+            entry.prev_results = merged
+            if not self._repair_entry_rows(entry, out, ok_pos, res_rows):
+                entry.stale_out_rows = sorted(set(entry.stale_out_rows or ()) | set(res_rows))
+            plan_resolved.setdefault(job["pi"], []).extend(res_rows)
+            timings["decode"] += time.perf_counter() - t0
+
+    def _drain_drift_gates(
+        self, items, chunk_results, chunk_changed, view, timings, pending_sub,
+        c_bucket, vocab,
+    ) -> None:
+        """Settle the gated chunks.  Masks are read in dispatch order (the
+        read of chunk i waits only on gate i); each read refreshes the
+        chunk's stored score plane at the changed columns, queues the
+        weight checks (fixed 256/128/64-row groups) and the survivor
+        program over the recompute rows.  Then the survivors and weight
+        checks are read; weight-changed rows, 256 or fewer a chunk, take
+        a second survivor wave.  Each chunk then skips, keeps the
+        resolved rows (delta), sends its remaining rows to the sub-batch
+        slabs, or, when more than half its rows move, takes the full
+        dispatch."""
+        jobs: list[dict] = []
+        plans: list[list] = []  # [slot, entry, n, recompute rows, fmt, b_pad, pack_k]
+        wcheck_jobs: list[tuple] = []  # (plan index, rows, device flags)
+        plan_resolved: dict[int, list] = {}
+        newc = self._cluster_planes_device(view, c_bucket)
+        for slot, entry, n, gate, fmt, b_pad, pack_k in items:
+            t0 = time.perf_counter()
+            mask = self._finish_read(gate["mask"])[:n]
+            dt = time.perf_counter() - t0
+            timings["gate_wait"] += dt
+            timings["fetch"] += dt
+            t0 = time.perf_counter()
+            self.drift_stats["gated"] += 1
+            # Skipped rows keep exact stored totals; recomputed rows are
+            # overwritten by their write-back after this.
+            refresh_scores(entry.prev_out[3], gate["cols"], gate["new_cols"])
+            rec = set(np.nonzero(mask & DRIFT_RECOMPUTE)[0].tolist())
+            # Rows whose stored planes or device inputs could not be
+            # brought up to date are gate-blind: recompute them.
+            forced = set()
+            if entry.stale_out_rows:
+                forced.update(r for r in entry.stale_out_rows if r < n)
+            if entry.stale_rows:
+                forced.update(r for r in entry.stale_rows if r < n)
+            rec |= forced
+            wrows = np.nonzero(mask & DRIFT_WCHECK)[0]
+            if forced and wrows.size:
+                wrows = wrows[~np.isin(wrows, sorted(forced))]
+            plans.append([slot, entry, n, rec, fmt, b_pad, pack_k])
+            pi = len(plans) - 1
+            t1 = time.perf_counter()
+            timings["decode"] += t1 - t0
+            if wrows.size:
+                self.drift_stats["wcheck"] += int(wrows.size)
+                oldc = self._wcheck_cpu_device(entry.prev_view, c_bucket)
+                for seg, g in self._survivor_groups(wrows.tolist()):
+                    ridx = np.zeros(g, np.int64)
+                    ridx[: len(seg)] = seg
+                    flags = drift_wcheck(
+                        entry.prev_feas, self._index(ridx),
+                        oldc["cpu_alloc"], oldc["cpu_avail"],
+                        newc["cpu_alloc"], newc["cpu_avail"],
+                    )
+                    wcheck_jobs.append((pi, np.asarray(seg), flags))
+            jobs.extend(
+                self._dispatch_drift_survivors(
+                    pi, entry, fmt, rec - forced, newc, vocab, c_bucket
+                )
+            )
+            timings["device"] += time.perf_counter() - t1
+
+        if jobs:
+            self._drain_drift_resolve(jobs, plans, plan_resolved, view, timings)
+
+        if wcheck_jobs:
+            t0 = time.perf_counter()
+            flags = self._read_all([job[2] for job in wcheck_jobs])
+            changed_by_pi: dict[int, list] = {}
+            for (pi, wrows, _dev), flag in zip(wcheck_jobs, flags):
+                changed = wrows[flag[: wrows.size] != 0]
+                self.drift_stats["wcheck_changed"] += int(changed.size)
+                plans[pi][3] |= set(changed.tolist())
+                if changed.size:
+                    changed_by_pi.setdefault(pi, []).extend(changed.tolist())
+            dt = time.perf_counter() - t0
+            timings["gate_wait"] += dt
+            timings["fetch"] += dt
+            # Weight-changed rows (kinf, no fit flip) take the survivor
+            # program when a chunk has one group's worth; a larger set
+            # fills a slab better.
+            t1 = time.perf_counter()
+            wave2: list[dict] = []
+            for pi, rows_c in changed_by_pi.items():
+                if len(rows_c) > 256:
+                    continue
+                entry, fmt = plans[pi][1], plans[pi][4]
+                wave2.extend(
+                    self._dispatch_drift_survivors(
+                        pi, entry, fmt, set(rows_c), newc, vocab, c_bucket
+                    )
+                )
+            timings["device"] += time.perf_counter() - t1
+            if wave2:
+                self._drain_drift_resolve(wave2, plans, plan_resolved, view, timings)
+
+        t0 = time.perf_counter()
+        fallback: list[tuple] = []
+        for pi, (slot, entry, n, rec, fmt, b_pad, pack_k) in enumerate(plans):
+            rec = {r for r in rec if r < n}
+            resolved = plan_resolved.get(pi, [])
+            if not rec:
+                entry.prev_view = view
+                chunk_results[slot] = entry.prev_results
+                if resolved:
+                    self.fetch_stats["delta"] += 1
+                    self.drift_stats["skip"] += n - len(resolved)
+                    chunk_changed[slot] = sorted(resolved)
+                else:
+                    self.fetch_stats["skip"] += 1
+                    self.drift_stats["skip"] += n
+                    chunk_changed[slot] = []
+            elif len(rec) > n // 2:
+                # Most rows move: the full dispatch with the delta fetch.
+                self.drift_stats["fallback"] += 1
+                fallback.append((slot, entry, n, fmt, b_pad, pack_k))
+            else:
+                rows = sorted(rec)
+                self.fetch_stats["delta"] += 1
+                self.drift_stats["recompute"] += len(rows)
+                self.drift_stats["skip"] += n - len(rows) - len(resolved)
+                pending_sub.append((slot, entry, rows, self._slice_rows(entry, rows), False))
+                chunk_changed[slot] = sorted(rec | set(resolved))
+        timings["featurize"] += time.perf_counter() - t0
+
+        for slot, entry, n, fmt, b_pad, pack_k in fallback:
+            delta_ok = (
+                entry.prev_out is not None
+                and tuple(entry.prev_out[0].shape) == (b_pad, c_bucket)
+            )
+            chunk_results[slot], chunk_changed[slot] = self._dispatch_chunk(
+                entry, entry.inputs, "hit", fmt, n, b_pad, pack_k, view, vocab,
+                c_bucket, delta_ok, timings,
+            )
 
     # -- narrow certificate fallback ---------------------------------------
     def _apply_cert_fallback(self, out, cert_np, device_in, fmt: str, n: int, timings):
@@ -1112,8 +1663,9 @@ class SchedulerEngine:
     def _run_sub_batch(
         self, pending, chunk_results, view, timings, eff_chunk, ladder, c_bucket, vocab
     ) -> None:
-        """Schedule every changed row of the patched chunks in slabs and
-        merge them into the cached decodes; one group per format."""
+        """Schedule every pending row (the changed rows of patched chunks,
+        the drift recompute rows of gated chunks) in slabs and merge them
+        into the cached decodes; one group per format."""
         for fmt in ("compact", "dense"):
             group = [p for p in pending if p[1].fmt == fmt]
             if group:
@@ -1142,7 +1694,7 @@ class SchedulerEngine:
     ) -> None:
         t0 = time.perf_counter()
         per_object = self._per_object_fields(fmt)
-        subs = [sub for _, _, _, sub in pending]
+        subs = [sub for _, _, _, sub, _ in pending]
         if fmt == "compact":
             # Align sparse and key widths across chunks before joining.
             p_max = max(np.asarray(s.sparse_idx).shape[1] for s in subs)
@@ -1183,26 +1735,47 @@ class SchedulerEngine:
         slab_cut = self._slab_cut(total, eff_chunk, ladder)
         m = self._narrow_m(inputs, c_bucket)
         cluster_dev = self._cluster_planes_device(view, c_bucket)
+        # Rows whose device inputs are current (drift recomputes) are
+        # gathered on the device, uploading nothing.
+        dev_rows = None
+        if not any(p[4] for p in pending) and all(
+            p[1].device_per_object is not None
+            and p[1].padded_shape is not None
+            and p[1].padded_shape[1] == c_bucket
+            for p in pending
+        ):
+            dev_rows = self._gather_device_rows(pending, fmt)
         slabs = []  # (n, out)
         for start in range(0, total, slab_cut):
-            piece = cls(
-                **{
-                    name: (
-                        np.asarray(arr)[start : start + slab_cut]
-                        if name in combined
-                        else arr
-                    )
-                    for name, arr in inputs._asdict().items()
-                }
-            )
-            n = piece.total.shape[0]
+            n = min(slab_cut, total - start)
             b_pad = self._bucket_rows(n, ladder, eff_chunk, False)
-            padded = self._pad_for_dispatch(piece, fmt, b_pad, c_bucket)
-            t1 = time.perf_counter()
-            timings["featurize"] += t1 - t0
-            device_in = self._assemble(
-                self._upload_per_object(padded, fmt), fmt, vocab, c_bucket, cluster_dev
-            )
+            if dev_rows is not None:
+                # Padding rows repeat the slab's first row: rows are
+                # independent and only the first n are read.
+                idx = np.full(b_pad, start, np.int64)
+                idx[:n] = np.arange(start, start + n)
+                gidx = self._index(idx)
+                per_object_dev = {
+                    name: t.index_select(0, gidx) for name, t in dev_rows.items()
+                }
+                t1 = time.perf_counter()
+                timings["featurize"] += t1 - t0
+            else:
+                piece = cls(
+                    **{
+                        name: (
+                            np.asarray(arr)[start : start + slab_cut]
+                            if name in combined
+                            else arr
+                        )
+                        for name, arr in inputs._asdict().items()
+                    }
+                )
+                padded = self._pad_for_dispatch(piece, fmt, b_pad, c_bucket)
+                t1 = time.perf_counter()
+                timings["featurize"] += t1 - t0
+                per_object_dev = self._upload_per_object(padded, fmt)
+            device_in = self._assemble(per_object_dev, fmt, vocab, c_bucket, cluster_dev)
             out, cert = self._tick(device_in, fmt, m)
             self._sync()
             timings["device"] += time.perf_counter() - t1
@@ -1233,16 +1806,21 @@ class SchedulerEngine:
         t3 = time.perf_counter()
         nsel_all = np.concatenate(nsel_all)
         offset = 0
-        for slot, entry, changed_rows, _sub in pending:
+        eager_repairs = []
+        for slot, entry, changed_rows, _sub, inputs_stale in pending:
             merged = list(entry.prev_results)
             for j, row in enumerate(changed_rows):
                 merged[row] = decoded[offset + j]
             self._observe_nsel(entry, nsel_all[offset : offset + len(changed_rows)], c_bucket)
             entry.prev_results = merged
             entry.prev_view = view
-            # The patched rows' device inputs are stale until the eager
-            # repair below.
-            entry.stale_rows = sorted(set(entry.stale_rows or ()) | set(changed_rows))
+            if inputs_stale:
+                # The patched rows' device inputs are stale until the
+                # eager repair below.
+                entry.stale_rows = sorted(
+                    set(entry.stale_rows or ()) | set(changed_rows)
+                )
+                eager_repairs.append(entry)
             # Write the slab outputs back into the chunk's prev planes so
             # later diffs stay exact row for row; where shapes disagree
             # the rows are marked for a forced fetch instead.
@@ -1254,13 +1832,36 @@ class SchedulerEngine:
             chunk_results[slot] = merged
         timings["decode"] += time.perf_counter() - t3
         t4 = time.perf_counter()
-        for _slot, entry, _rows, _sub in pending:
+        for entry in eager_repairs:
             self._repair_stale_inputs(entry, fmt, c_bucket)
         timings["featurize"] += time.perf_counter() - t4
 
+    def _gather_device_rows(self, pending, fmt: str) -> dict:
+        """The pending rows' per-object tensors gathered from their
+        chunks' device copies, in pending order; compact sparse-entry and
+        key-byte widths padded on the device to the widest chunk's."""
+        names = self._per_object_fields(fmt)
+        pieces = []
+        for _slot, entry, rows, _sub, _stale in pending:
+            idx = self._index(rows)
+            pieces.append(
+                {name: entry.device_per_object[name].index_select(0, idx) for name in names}
+            )
+        if fmt == "compact":
+            fills = dict(Cmp.SPARSE_FILLS, key_bytes=0)
+            for name, fill in fills.items():
+                width = max(p[name].shape[1] for p in pieces)
+                for p in pieces:
+                    extra = width - p[name].shape[1]
+                    if extra:
+                        p[name] = torch.nn.functional.pad(
+                            p[name], (0, extra), value=int(fill)
+                        )
+        return {name: torch.cat([p[name] for p in pieces]) for name in names}
+
     def _repair_prev_planes(self, entry, changed_rows, offset: int, slabs, slab_cut: int) -> bool:
         """Scatter the slab outputs of this chunk's rows into its prev
-        planes (prev_out, prev_feas, prev_reasons).  False (the caller
+        planes (prev_out, prev_feas, prev_reasons, prev_nfeas).  False (the caller
         marks the rows stale instead) when the planes are absent or a
         slab's cluster axis disagrees."""
         have = (
@@ -1287,16 +1888,8 @@ class SchedulerEngine:
         for s in segments:
             if s >= len(slabs) or slabs[s][1].selected.shape[1] != c_pad:
                 return False
-        planes = entry.prev_out + (entry.prev_feas, entry.prev_reasons)
         for s, (srcs, dsts) in segments.items():
-            out = slabs[s][1]
-            src, dst = self._index(srcs), self._index(dsts)
-            slab_planes = (
-                out.selected, out.replicas, out.counted, out.scores,
-                out.feasible, out.reasons,
-            )
-            for plane, slab_plane in zip(planes, slab_planes):
-                plane.index_copy_(0, dst, slab_plane.index_select(0, src))
+            self._scatter_prev_rows(entry, slabs[s][1], self._index(srcs), self._index(dsts))
         if entry.stale_out_rows:
             entry.stale_out_rows = sorted(set(entry.stale_out_rows) - set(changed_rows))
         return True
@@ -1323,13 +1916,42 @@ class SchedulerEngine:
             return "skip", None
         return "delta", idx
 
-    @staticmethod
-    def _store_prev(entry, out) -> None:
-        """Adopt a dispatch's six output planes as the entry's prev state."""
+    def _scatter_prev_rows(self, entry, out, src, dst) -> None:
+        """Write rows ``src`` of a dispatch's outputs into rows ``dst`` of
+        the entry's six prev planes in place, and their feasible counts
+        into prev_nfeas."""
+        nfeas = self._ensure_nfeas(entry)
+        planes = entry.prev_out + (entry.prev_feas, entry.prev_reasons)
+        out_planes = (
+            out.selected, out.replicas, out.counted, out.scores,
+            out.feasible, out.reasons,
+        )
+        for plane, out_plane in zip(planes, out_planes):
+            plane.index_copy_(0, dst, out_plane.index_select(0, src))
+        nfeas.index_copy_(
+            0, dst, (out.feasible.index_select(0, src) != 0).sum(dim=1, dtype=torch.int32)
+        )
+
+    def _store_prev(self, entry, out) -> None:
+        """Adopt a dispatch's six output planes as the entry's prev state,
+        with their feasible counts."""
         entry.prev_out = (out.selected, out.replicas, out.counted, out.scores)
         entry.prev_feas = out.feasible
         entry.prev_reasons = out.reasons
+        self._store_nfeas(entry, out.feasible)
         entry.stale_out_rows = None
+
+    @staticmethod
+    def _store_nfeas(entry, feas) -> None:
+        """The per-row feasible counts kept beside a stored prev_feas."""
+        entry.prev_nfeas = (feas != 0).sum(dim=1, dtype=torch.int32)
+
+    def _ensure_nfeas(self, entry) -> torch.Tensor:
+        """The entry's feasible counts, derived when a store predates them."""
+        nf = entry.prev_nfeas
+        if nf is None or tuple(nf.shape) != (entry.prev_feas.shape[0],):
+            self._store_nfeas(entry, entry.prev_feas)
+        return entry.prev_nfeas
 
     def _note_skip(self, entry, out, view) -> None:
         self.fetch_stats["skip"] += 1

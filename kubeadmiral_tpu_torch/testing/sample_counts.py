@@ -9,12 +9,15 @@ full worlds' counts scales these.
   fallback rows, the rows that overflow the wire's K slots, and the
   fetch bytes against the dense planes' 6 B per cell.
 * ``--warm``: one engine through a cold tick, a 1 % churn tick
-  (``testing/worlds.churn``), a no-op tick and a capacity drift
-  (``testing/worlds.drift``); per tick the cache and fetch paths, every
-  tick dispatch's shape (narrow or dense, rows x clusters: the
-  sub-batch slabs on the churn tick), fallback and overflow rows, fetch
-  and upload bytes against the dense planes, the changed rows and the
-  chunks' adaptive wire widths.  ``full_size`` gives the churn tick's
+  (``testing/worlds.churn``), a no-op tick, a capacity drift
+  (``testing/worlds.drift``) and a tick back, cluster 0's capacity cut
+  to 0 (``drift_zero``) and back, and more than a quarter of the
+  clusters halved (``drift_wide``) and back; per tick the cache and
+  fetch paths, every tick dispatch's shape (narrow or dense, rows x
+  clusters: the sub-batch slabs on the churn tick), the drift gate's
+  row classes and the survivor program's groups, fallback and overflow
+  rows, fetch and upload bytes against the dense planes, the changed
+  rows and the chunks' adaptive wire widths.  ``full_size`` gives the churn tick's
   slabs at the world's full size (the first churn draw's distinct rows
   cut on the engine's ladder).
 
@@ -33,7 +36,14 @@ import numpy as np
 
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
-from kubeadmiral_tpu_torch.testing.worlds import SHAPES, build_world, churn, drift
+from kubeadmiral_tpu_torch.testing.worlds import (
+    SHAPES,
+    build_world,
+    churn,
+    drift,
+    drift_wide,
+    drift_zero,
+)
 
 
 def sample_counts(config: str, n_objects: int, seed: int = 0) -> dict:
@@ -104,8 +114,8 @@ def full_size_slabs(config: str, seed: int = 0, fraction: float = 0.01) -> dict:
 
 
 def warm_counts(config: str, n_objects: int, seed: int = 0) -> dict:
-    """Cold, 1 % churn, no-op and drift ticks of one CPU engine over the
-    first ``n_objects`` of the world."""
+    """Cold, 1 % churn, no-op and the three drifts (each with a tick
+    back) of one CPU engine over the first ``n_objects`` of the world."""
     n_clusters = SHAPES[config][1]
     units, clusters, _ = build_world(n_objects, n_clusters, config=config, seed=seed)
     engine = SchedulerEngine(device="cpu")
@@ -119,8 +129,14 @@ def warm_counts(config: str, n_objects: int, seed: int = 0) -> dict:
         ("churn", (churned, clusters)),
         ("noop", (churned, clusters)),
         ("drift", (churned, drift(clusters))),
+        ("back", (churned, clusters)),
+        ("drift-zero", (churned, drift_zero(clusters))),
+        ("back-zero", (churned, clusters)),
+        ("drift-wide", (churned, drift_wide(clusters))),
+        ("back-wide", (churned, clusters)),
     ):
         cache0, fetch0 = dict(engine.cache_stats), dict(engine.fetch_stats)
+        gate0, surv0 = dict(engine.drift_stats), dict(engine.survivor_stats)
         narrow0, over0 = dict(engine.narrow_stats), engine.overflow_rows_total
         bytes0, upload0 = engine.fetch_bytes_total, dict(engine.upload_bytes)
         with recorded_dispatches() as shapes:
@@ -130,6 +146,10 @@ def warm_counts(config: str, n_objects: int, seed: int = 0) -> dict:
             "cache": {k: v - cache0[k] for k, v in engine.cache_stats.items() if v - cache0[k]},
             "fetch_paths": {k: v - fetch0[k] for k, v in engine.fetch_stats.items() if v - fetch0[k]},
             "dispatches": shapes,
+            "drift_stats": {k: v - gate0[k] for k, v in engine.drift_stats.items() if v - gate0[k]},
+            "survivor_stats": {
+                k: v - surv0[k] for k, v in engine.survivor_stats.items() if v - surv0[k]
+            },
             "fallback_rows": engine.narrow_stats["fallback"] - narrow0["fallback"],
             "overflow_rows": engine.overflow_rows_total - over0,
             "fetch_bytes": fetch_bytes,
@@ -153,7 +173,9 @@ def main(argv=None) -> int:
     parser.add_argument("--c3", type=int, default=2000, help="config-3 objects")
     parser.add_argument("--c5", type=int, default=1024, help="config-5 objects")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--warm", action="store_true", help="cold, churn, no-op, drift")
+    parser.add_argument(
+        "--warm", action="store_true", help="cold, churn, no-op and drift ticks"
+    )
     args = parser.parse_args(argv)
     counts = warm_counts if args.warm else sample_counts
     for config, n in (("3", args.c3), ("5", args.c5)):

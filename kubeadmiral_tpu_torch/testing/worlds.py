@@ -173,3 +173,28 @@ def drift(clusters, index=0):
         available={k: max(0, v // 2) for k, v in out[index].available.items()},
     )
     return out
+
+
+def drift_zero(clusters, index=0):
+    """A fresh cluster list with cluster ``index``'s available resources
+    set to 0: the rows it fitted stop fitting (feasibility flips)."""
+    out = list(clusters)
+    out[index] = dataclasses.replace(
+        out[index], available={k: 0 for k in out[index].available}
+    )
+    return out
+
+
+def drift_wide(clusters, count=None):
+    """A fresh cluster list with the available resources of the first
+    ``count`` clusters halved; by default len(clusters) // 4 + 1, more
+    columns than the engine's drift gate takes (max(8, C // 4))."""
+    if count is None:
+        count = len(clusters) // 4 + 1
+    out = list(clusters)
+    for i in range(count):
+        out[i] = dataclasses.replace(
+            out[i], available={k: max(0, v // 2) for k, v in out[i].available.items()}
+        )
+    return out
+

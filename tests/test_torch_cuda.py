@@ -1,6 +1,7 @@
 """The port on the card: the phase-1 CUDA kernel against its plain twin,
 the whole dense tick on CUDA against the CPU, and the engine on CUDA
-against the CPU engine — tolerance 0 (integer math).
+against the CPU engine (cold, warm and drift ticks, with their
+counters) — tolerance 0 (integer math).
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -25,7 +26,14 @@ from kubeadmiral_tpu_torch.testing.problems import (
     edge_tick_inputs,
     random_tick_inputs,
 )
-from kubeadmiral_tpu_torch.testing.worlds import build_world, churn, drift
+from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
+from kubeadmiral_tpu_torch.testing.worlds import (
+    build_world,
+    churn,
+    drift,
+    drift_wide,
+    drift_zero,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -122,9 +130,10 @@ def test_engine_on_card_matches_cpu(cuda, config, monkeypatch):
 @pytest.mark.parametrize("config", ["3", "5"])
 def test_warm_sequence_on_card_matches_cpu(cuda, config, monkeypatch):
     """Cold, churn, no-op, drift, back and churn ticks on one engine on
-    the card and one on the CPU: equal results, cache and fetch paths
-    and changed rows at every tick; no-op ticks launch nothing, the
-    others launch the kernel."""
+    the card and one on the CPU: equal results, cache, fetch, drift-gate
+    and survivor counters and changed rows at every tick; every tick
+    dispatch launches the kernel once and nothing else does; no-op ticks
+    launch nothing, cold and churn ticks launch the kernel."""
     units, clusters, _ = build_world(700, 600, config, seed=3)
     monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
     gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
@@ -139,12 +148,47 @@ def test_warm_sequence_on_card_matches_cpu(cuda, config, monkeypatch):
         ("back", churned, clusters),
         ("churn", churn(rng, churned, fraction=0.02), clusters),
     ):
-        launches = phase1.launches
-        got = gpu.schedule(batch, cl)
-        launched = phase1.launches - launches
+        with recorded_dispatches() as calls:
+            launches = phase1.launches
+            got = gpu.schedule(batch, cl)
+            launched = phase1.launches - launches
         want = cpu.schedule(batch, cl)
         assert [r.clusters for r in got] == [r.clusters for r in want], kind
-        assert gpu.cache_stats == cpu.cache_stats, kind
-        assert gpu.fetch_stats == cpu.fetch_stats, kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
         assert gpu.last_changed == cpu.last_changed, kind
-        assert (launched == 0) == (kind == "noop"), kind
+        assert launched == len(calls), kind
+        if kind == "noop":
+            assert launched == 0
+        elif kind in ("cold", "churn"):
+            assert launched > 0, kind
+
+
+@pytest.mark.parametrize("shape", ["drift", "drift_zero", "drift_wide"])
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_drift_tick_on_card_matches_cpu(cuda, config, shape, monkeypatch):
+    """A drift tick and a tick back after a cold tick, on the card and on
+    the CPU: equal results, ``last_changed``, drift-gate, survivor,
+    narrow, cache and fetch counters; the kernel launches once per tick
+    dispatch (recompute slabs, mass-change and ungated chunks,
+    certificate fallbacks) and the drift uploads no per-object input."""
+    units, clusters, _ = build_world(700, 600, config, seed=4)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    drifted = {"drift": drift, "drift_zero": drift_zero, "drift_wide": drift_wide}[shape](clusters)
+    for kind, cl in (("cold", clusters), (shape, drifted), ("back", clusters)):
+        upload = gpu.upload_bytes["object"]
+        with recorded_dispatches() as calls:
+            launches = phase1.launches
+            got = gpu.schedule(units, cl)
+            launched = phase1.launches - launches
+        want = cpu.schedule(units, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats", "narrow_stats"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+        assert gpu.last_changed == cpu.last_changed, kind
+        assert launched == len(calls), kind
+        if kind != "cold":
+            assert gpu.upload_bytes["object"] == upload, kind
+    if shape != "drift_wide":
+        assert gpu.drift_stats["gated"] > 0

@@ -40,7 +40,7 @@ def _jax(**kw):
 
 def _port(
     monkeypatch, chunk_size=None, min_bucket=None, vocab_caps=None, narrow_m=None,
-    pack_k_min=None,
+    pack_k_min=None, min_cluster_bucket=None,
 ):
     """The port's CPU engine with the JAX engine's keywords set as the
     port's module constants (the port has no such options)."""
@@ -48,6 +48,8 @@ def _port(
         monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", chunk_size)
     if min_bucket is not None:
         monkeypatch.setattr(engine_mod, "MIN_ROW_BUCKET", min_bucket)
+    if min_cluster_bucket is not None:
+        monkeypatch.setattr(engine_mod, "MIN_CLUSTER_BUCKET", min_cluster_bucket)
     if vocab_caps:
         monkeypatch.setattr(
             engine_mod, "CompactVocab",

@@ -7,13 +7,9 @@ few hundred objects over several chunks through cold, churn, no-op,
 drift, mass-churn, topology-change and ``dirty_rows=`` ticks.  At every
 tick the results equal the JAX engine's (``KT_PIPELINE_DEPTH=1``, the
 sequential dispatch the port has) and so do the chunks' adaptive wire
-widths.  On every tick but a capacity drift, ``last_changed`` and the
-cache and fetch counters equal the JAX engine's too.  A drift tick is
-the one place the two take different paths: the JAX engine's drift gate
-recomputes the rows a drift may move, the port dispatches the whole
-chunk and fetches the rows whose outputs moved, so the port's
-``last_changed`` there is the subset of the JAX engine's whose results
-changed, and the fetch counters differ.
+widths, ``last_changed`` and the cache, fetch, drift-gate, survivor and
+narrow counters.  On a drift tick ``last_changed`` holds every row whose
+result moved.
 """
 
 import copy
@@ -62,31 +58,33 @@ def test_tick_sequence_matches_jax_engine(config, monkeypatch):
     port = _port(monkeypatch, chunk_size=chunk)
     rng = np.random.default_rng(0)
     seen = set()
+    gated = []
     prev = None
 
+    counters = ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats", "narrow_stats")
+
     def tick(kind, units, clusters, drifted=False, **kw):
-        c0, f0 = dict(port.cache_stats), dict(port.fetch_stats)
-        r0, g0 = dict(ref.cache_stats), dict(ref.fetch_stats)
+        before = {name: dict(getattr(port, name)) for name in counters}
+        ref_before = {name: dict(getattr(ref, name)) for name in counters}
         got = port.schedule(units, clusters, **kw)
         want = ref.schedule(units, clusters, **kw)
         results_equal(got, want)
         assert _hints(port) == _hints(ref), kind
+        assert port.last_changed == ref.last_changed, kind
+        for name in counters:
+            mine, theirs = getattr(port, name), getattr(ref, name)
+            m0, t0 = before[name], ref_before[name]
+            assert {k: mine[k] - m0[k] for k in mine} == {
+                k: theirs[k] - t0[k] for k in theirs
+            }, (kind, name)
         if drifted:
-            # None is "every row" on either side.
+            # None is "every row".
             moved = {i for i, (a, b) in enumerate(zip(got, prev)) if a != b}
-            mine = set(range(len(got)) if port.last_changed is None else port.last_changed)
-            theirs = set(range(len(got)) if ref.last_changed is None else ref.last_changed)
-            assert moved <= mine <= theirs, kind
-        else:
-            assert port.last_changed == ref.last_changed, kind
-            for mine, theirs, m0, t0 in (
-                (port.cache_stats, ref.cache_stats, c0, r0),
-                (port.fetch_stats, ref.fetch_stats, f0, g0),
-            ):
-                assert {k: mine[k] - m0[k] for k in mine} == {
-                    k: theirs[k] - t0[k] for k in theirs
-                }, kind
+            changed = set(range(len(got)) if port.last_changed is None else port.last_changed)
+            assert moved <= changed, kind
+        f0 = before["fetch_stats"]
         seen.update(k for k in port.fetch_stats if port.fetch_stats[k] > f0[k])
+        gated.append(port.drift_stats["gated"] - before["drift_stats"]["gated"])
         return got
 
     prev = tick("cold", units, clusters)
@@ -110,6 +108,7 @@ def test_tick_sequence_matches_jax_engine(config, monkeypatch):
     prev = tick("back to the first clusters", churned, clusters)
     prev = tick("churn", churn(rng, churned), clusters)
     assert seen == {"noop", "subbatch", "skip", "delta", "full"}
+    assert sum(gated) > 0  # the drift ticks ran the gate
 
 
 def test_featurize_signature_matches_jax():
