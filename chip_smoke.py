@@ -29,12 +29,26 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
 6. profiles one chunk of the engine's path (expand, narrow tick, pack)
    per config with torch.profiler;
 7. runs one cold ``SchedulerEngine().schedule(units, clusters)`` tick per
-   config on the card at full size — the narrow solve with its dense
-   fallback and the packed wire — requires the phase-1 launch count to
-   equal chunks + fallback dispatches, prints the stage timings,
-   narrow_stats, overflow rows and fetch bytes against the dense planes'
-   6 B per cell, and holds the placements against the port's CPU engine
-   (every row at c3; the first rows at c5);
+   config on the card at full size — the pipelined window (depth 16),
+   the narrow solve with its dense fallback and the packed wire —
+   requires the phase-1 launch count to equal chunks + fallback
+   dispatches (+ planner re-dispatches, if any), prints the stage
+   timings, narrow_stats, overflow rows, fetch bytes against the dense
+   planes' 6 B per cell, ``max_memory_allocated`` and the host
+   synchronisations made inside the chunk dispatches, and holds the
+   placements against the port's CPU engine (every row at c3; the first
+   rows at c5);
+7b. the window against the sequential dispatch in turns per config: cold
+   ticks on fresh engines at depth 16, 1, 1, 16, each checked as in 7
+   and equal to 7's placements (a ``turns c5 depth`` line: wall ms,
+   stages, launches, peak memory, dispatch syncs, fetch bytes per tick);
+   then cold ticks at depth 16 with the planner's round budget
+   (``PLANNER_ROUNDS``) at 1, 2, 4, 4, 2, 1, each checked as in 7 and
+   equal to 7's placements (a ``turns c5 planner rounds`` line: wall,
+   device and device + fetch ms, re-dispatches, syncs); the ``syncs``
+   line: the synchronising operations of one chunk's dispatch
+   (c5 and c3, window and sequential) under
+   ``torch.cuda.set_sync_debug_mode("warn")``, with their sites;
 8. runs the dense tick through the engine (NARROW_M patched to the
    cluster bucket) at a cut depth — c3 whole, the first 20k c5 objects —
    requires one launch per chunk and placements equal to the narrow
@@ -74,6 +88,7 @@ exits 2 before doing anything.  Usage: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -149,7 +164,8 @@ def card_line() -> str:
 def chunk_device_inputs(engine, units, clusters):
     """The first chunk's device inputs (CompactInputs, or TickInputs on
     the dense fallback), exactly as engine.schedule builds them, with the
-    chunk's candidate width M (None: dense tick) and wire width K."""
+    chunk's candidate width M (None: dense tick), wire width K and the
+    host bound on its key lengths."""
     from kubeadmiral_tpu_torch.scheduler.featurize import _build_cluster_view
 
     view = _build_cluster_view(clusters, units)
@@ -163,15 +179,18 @@ def chunk_device_inputs(engine, units, clusters):
         None, padded, "miss", fmt, vocab, c_bucket,
         engine._cluster_planes_device(view, c_bucket),
     )
-    return dev, fmt, engine._narrow_m(inputs, c_bucket), engine._pack_k(inputs, c_bucket)
+    return (
+        dev, fmt, engine._narrow_m(inputs, c_bucket), engine._pack_k(inputs, c_bucket),
+        engine._key_max(padded, fmt),
+    )
 
 
 def chunk_tick_inputs(engine, units, clusters):
     """The first chunk's expanded device TickInputs, M and K."""
     from kubeadmiral_tpu_torch.ops.pipeline import expand_compact
 
-    dev, fmt, m, k = chunk_device_inputs(engine, units, clusters)
-    return (expand_compact(dev) if fmt == "compact" else dev), m, k
+    dev, fmt, m, k, key_max = chunk_device_inputs(engine, units, clusters)
+    return (expand_compact(dev, key_max) if fmt == "compact" else dev), m, k
 
 
 def chunk_path(inp, m, k):
@@ -236,8 +255,10 @@ def profile_chunk(label: str, engine, units, clusters, top: int = 14) -> None:
 
     from kubeadmiral_tpu_torch.ops.pipeline import expand_compact
 
-    dev, fmt, m, k = chunk_device_inputs(engine, units, clusters)
-    run = lambda: chunk_path(expand_compact(dev) if fmt == "compact" else dev, m, k)  # noqa: E731
+    dev, fmt, m, k, key_max = chunk_device_inputs(engine, units, clusters)
+    run = lambda: chunk_path(  # noqa: E731
+        expand_compact(dev, key_max) if fmt == "compact" else dev, m, k
+    )
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -519,6 +540,28 @@ def attribute(label: str, inp) -> dict:
     return rows
 
 
+@contextlib.contextmanager
+def gc_time():
+    """Yield a dict that receives the wall ms the host spent in Python's
+    garbage collector while the block ran ("ms") and its collections by
+    generation ("collections")."""
+    got = {"ms": 0.0, "collections": [0, 0, 0]}
+    started = []
+
+    def callback(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            got["ms"] += (time.perf_counter() - started.pop()) * 1e3
+            got["collections"][info["generation"]] += 1
+
+    gc.callbacks.append(callback)
+    try:
+        yield got
+    finally:
+        gc.callbacks.remove(callback)
+
+
 def counted_tick(engine, units, clusters, capture: bool = False):
     """engine.schedule(units, clusters) with every tick dispatch recorded
     as (kind, rows, clusters), kind "narrow" or "dense" (on a narrow
@@ -530,28 +573,35 @@ def counted_tick(engine, units, clusters, capture: bool = False):
     after the timed call so that ``memory_allocated`` counts the
     engine's tensors only.  Garbage is collected before the clock starts,
     so that the script's own garbage (a fresh reference engine's results)
-    is not collected inside the timed tick.  Returns (results, tick dict,
-    captured host inputs or None)."""
+    is not collected inside the timed tick; the collector's own time
+    inside the tick is reported (``gc_ms``, collections by generation).
+    The peak of ``memory_allocated`` is reset before the call; the
+    synchronising operations made inside the chunk dispatches are
+    counted (``dispatch_syncs``, testing/syncs.py).  Returns (results,
+    tick dict, captured host inputs or None)."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
     from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
+    from kubeadmiral_tpu_torch.testing.syncs import counted_dispatch_syncs
 
     captured = []
     before = (
         dict(engine.narrow_stats), dict(engine.cache_stats), dict(engine.fetch_stats),
         dict(engine.upload_bytes), engine.overflow_rows_total, engine.fetch_bytes_total,
-        dict(engine.drift_stats), dict(engine.survivor_stats),
+        dict(engine.drift_stats), dict(engine.survivor_stats), engine.planner_reruns,
     )
     gc.collect()
-    with recorded_dispatches(keep=captured if capture else None) as calls:
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_dispatches(keep=captured if capture else None) as calls, \
+            counted_dispatch_syncs(engine) as syncs, gc_time() as collector:
         phase1.launches = 0
         t0 = time.perf_counter()
         results = engine.schedule(units, clusters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = phase1.launches
-    narrow0, cache0, fetch0, upload0, over0, bytes0, gate0, surv0 = before
+    narrow0, cache0, fetch0, upload0, over0, bytes0, gate0, surv0, reruns0 = before
     captured = [type(inp)(*(x.cpu() for x in inp)) for inp in captured]
 
     def delta(now, then):
@@ -577,27 +627,37 @@ def counted_tick(engine, units, clusters, capture: bool = False):
         "upload_bytes": {k: v - upload0[k] for k, v in engine.upload_bytes.items()},
         "changed_rows": None if engine.last_changed is None else len(engine.last_changed),
         "stage_s": dict(engine.timings),
+        "gc_ms": collector["ms"],
+        "gc_collections": collector["collections"],
+        "pipeline_depth": engine.pipeline_depth,
+        "planner_reruns": engine.planner_reruns - reruns0,
+        "dispatch_syncs": len(syncs),
+        "dispatch_sync_sites": sorted(set(syncs)),
         "memory_allocated": torch.cuda.memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
     return results, tick, captured[0] if captured else None
 
 
 def run_tick(label: str, engine, units, clusters) -> dict:
     """One cold engine tick on the card (``engine`` fresh: no cache).
-    Requires launches = chunks + fallback dispatches."""
+    Requires launches = chunks + fallback dispatches + planner
+    re-dispatches (windowed chunks whose planner outlasted its round
+    budget, dispatched again)."""
     c_bucket, eff, _ = engine._tick_geometry(len(clusters))
     chunks = math.ceil(len(units) / eff)
     results, tick, _ = counted_tick(engine, units, clusters)
     narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
-    if narrow not in (0, chunks):
-        raise AssertionError(f"{label}: {narrow} narrow ticks for {chunks} chunks")
-    # Every chunk runs one tick, narrow or dense; further dense ticks are
-    # the narrow chunks' certificate fallbacks.
-    fallback = dense - (chunks - narrow)
-    if tick["phase1_launches"] != chunks + fallback:
+    reruns = tick["planner_reruns"]
+    if narrow not in (0, chunks + reruns):
+        raise AssertionError(f"{label}: {narrow} narrow ticks for {chunks} chunks + {reruns} reruns")
+    # Every chunk runs one tick, narrow or dense (twice if re-dispatched);
+    # further dense ticks are the narrow chunks' certificate fallbacks.
+    fallback = dense - (chunks + reruns - narrow)
+    if tick["phase1_launches"] != chunks + fallback + reruns:
         raise AssertionError(
             f"{label}: phase1 launched {tick['phase1_launches']} times for {chunks} "
-            f"chunks + {fallback} fallback dispatches"
+            f"chunks + {fallback} fallback dispatches + {reruns} planner re-dispatches"
         )
     if tick["cache"] != {"miss": chunks}:
         raise AssertionError(f"{label}: not a cold tick: {tick['cache']}")
@@ -656,6 +716,113 @@ def turns_c3(units, clusters, got, narrow: dict, dense: dict) -> dict:
         }
     log(f"turns c3 narrow vs dense (narrow, dense, dense, narrow): {json.dumps(arms)}")
     return arms
+
+
+# The window against the sequential dispatch, in turns (fresh engines).
+TURN_DEPTHS = (16, 1, 1, 16)
+
+
+def turns_depth(cfg: str, units, clusters, got) -> dict:
+    """Cold ticks on fresh engines at TURN_DEPTHS, each checked as
+    run_tick checks (launches = chunks + fallbacks + re-dispatches) and
+    equal to ``got`` (step 7's placements); logs and returns per depth
+    the wall ms, stages, garbage-collector time, launches, peak memory
+    and dispatch syncs."""
+    import torch
+
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+
+    arms: dict = {}
+    for turn, depth in enumerate(TURN_DEPTHS):
+        engine = SchedulerEngine()
+        engine.pipeline_depth = depth
+        tick = run_tick(f"c{cfg} depth {depth}, turn {turn}", engine, units, clusters)
+        assert_results_equal(f"c{cfg} depth {depth}, turn {turn} vs narrow", tick.pop("results"), got)
+        arm = arms.setdefault(str(depth), {
+            k: [] for k in ("tick_ms", "stage_ms", "gc_ms", "gc_collections", "launches",
+                            "max_memory_allocated", "dispatch_syncs", "planner_reruns",
+                            "fetch_bytes")
+        })
+        arm["tick_ms"].append(tick["tick_ms"])
+        arm["stage_ms"].append({k: v * 1e3 for k, v in tick["stage_s"].items()})
+        arm["gc_ms"].append(tick["gc_ms"])
+        arm["gc_collections"].append(tick["gc_collections"])
+        arm["launches"].append(tick["phase1_launches"])
+        arm["max_memory_allocated"].append(tick["max_memory_allocated"])
+        arm["dispatch_syncs"].append(tick["dispatch_syncs"])
+        arm["planner_reruns"].append(tick["planner_reruns"])
+        arm["fetch_bytes"].append(tick["fetch_bytes"])
+        del engine, tick
+        torch.cuda.empty_cache()
+    log(f"turns c{cfg} depth (16, 1, 1, 16): {json.dumps(arms)}")
+    return arms
+
+
+# The window's planner round budget in turns (fresh engines, depth 16).
+TURN_BUDGETS = (1, 2, 4, 4, 2, 1)
+
+
+def turns_budget(cfg: str, units, clusters, got) -> dict:
+    """Cold ticks at the default depth on fresh engines with the
+    engine's PLANNER_ROUNDS patched to TURN_BUDGETS, each checked as
+    run_tick checks and equal to ``got``; logs and returns per budget
+    the wall ms, the device (queuing) and device + fetch ms, planner
+    re-dispatches and dispatch syncs."""
+    import torch
+
+    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
+
+    saved = engine_mod.PLANNER_ROUNDS
+    arms: dict = {}
+    try:
+        for turn, rounds in enumerate(TURN_BUDGETS):
+            engine_mod.PLANNER_ROUNDS = rounds
+            engine = engine_mod.SchedulerEngine()
+            label = f"c{cfg} planner rounds {rounds}, turn {turn}"
+            tick = run_tick(label, engine, units, clusters)
+            assert_results_equal(f"{label} vs narrow", tick.pop("results"), got)
+            stage = tick["stage_s"]
+            arm = arms.setdefault(str(rounds), {
+                k: [] for k in ("tick_ms", "device_ms", "device_fetch_ms", "planner_reruns",
+                                "dispatch_syncs")
+            })
+            arm["tick_ms"].append(tick["tick_ms"])
+            arm["device_ms"].append(stage["device"] * 1e3)
+            arm["device_fetch_ms"].append((stage["device"] + stage["fetch"]) * 1e3)
+            arm["planner_reruns"].append(tick["planner_reruns"])
+            arm["dispatch_syncs"].append(tick["dispatch_syncs"])
+            del engine, tick
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.PLANNER_ROUNDS = saved
+    log(f"turns c{cfg} planner rounds {TURN_BUDGETS}: {json.dumps(arms)}")
+    return arms
+
+
+def dispatch_syncs(worlds) -> dict:
+    """The synchronising operations of one chunk's dispatch (the first
+    chunk's, on a fresh engine), c5 and c3, the window's and the
+    sequential one, under torch.cuda.set_sync_debug_mode("warn"): counts,
+    sites and the dispatch's host ms."""
+    import torch
+
+    from kubeadmiral_tpu_torch.testing.syncs import first_chunk_syncs
+
+    out = {}
+    for cfg in ("5", "3"):
+        units, clusters, _ = worlds[cfg]
+        for name, windowed in (("window", True), ("sequential", False)):
+            probe = first_chunk_syncs(units, clusters, windowed)
+            sites: dict = {}
+            for site in probe["sites"]:
+                sites[site] = sites.get(site, 0) + 1
+            out[f"c{cfg} {name}"] = {
+                "syncs": len(probe["sites"]), "sites": sites, "other_warnings": probe["other"],
+                "queue_ms": probe["queue_ms"],
+            }
+        torch.cuda.empty_cache()
+    log(f"syncs: {json.dumps(out)}")
+    return out
 
 
 WARM_CHURN_TICKS = 3
@@ -717,14 +884,18 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
         gate = tick["drift_stats"]
         recompute = gate.get("recompute", 0)
         slabs = -(-recompute // engine._slab_cut(recompute, eff, ladder)) if recompute else 0
-        dispatches = slabs + gate.get("fallback", 0) + chunks - gate.get("gated", 0)
+        dispatches = (
+            slabs + gate.get("fallback", 0) + chunks - gate.get("gated", 0)
+            + tick["planner_reruns"]
+        )
         narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
         fallback = dense if narrow else 0
         if (narrow or dense) != dispatches or tick["phase1_launches"] != dispatches + fallback:
             raise AssertionError(
                 f"c{cfg} {label}: {tick['phase1_launches']} launches, {narrow} narrow + "
                 f"{dense} dense dispatches for {slabs} slabs + {gate.get('fallback', 0)} "
-                f"mass-change chunks + {chunks - gate.get('gated', 0)} ungated chunks: {tick}"
+                f"mass-change chunks + {chunks - gate.get('gated', 0)} ungated chunks "
+                f"+ {tick['planner_reruns']} planner re-dispatches: {tick}"
             )
         if tick["cache"] != {"hit": chunks} or tick["upload_bytes"]["object"]:
             raise AssertionError(f"c{cfg} {label}: not a hit on device-resident inputs: {tick}")
@@ -893,8 +1064,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase profile: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    syncs = dispatch_syncs(worlds)
+    log(f"phase syncs: {time.perf_counter() - t0:.2f} s")
+
     ticks, dense_ticks, fallback_ticks = {}, {}, {}
-    warm, slab_rows = {}, {}
+    warm, slab_rows, depth_turns = {}, {}, {}
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
@@ -912,6 +1087,14 @@ def main() -> int:
         del want
         torch.cuda.empty_cache()
         log(f"phase e2e-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
+        # The window against the sequential dispatch, in turns.
+        t0 = time.perf_counter()
+        depth_turns[cfg] = turns_depth(cfg, units, clusters, got)
+        log(f"phase turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        turns_budget(cfg, units, clusters, got)
+        log(f"phase budget-turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
         # The dense tick through the engine: M patched to the cluster
         # bucket.  Cut depth at c5 (first C5_DENSE_OBJECTS objects).
@@ -991,6 +1174,15 @@ def main() -> int:
                 },
                 "tick_ms_c3": ticks["3"]["tick_ms"],
                 "tick_ms_c5": ticks["5"]["tick_ms"],
+                # The window (depth 16) and the sequential dispatch (1)
+                # in turns: launches per cold tick, and the
+                # synchronising operations of one chunk's dispatch.
+                "launches_turns": {
+                    f"c{cfg} depth {depth}": arm["launches"]
+                    for cfg, arms in depth_turns.items()
+                    for depth, arm in arms.items()
+                },
+                "dispatch_syncs": {k: v["syncs"] for k, v in syncs.items()},
                 # The steady-state ticks (warm phase): launches per churn
                 # tick (slabs + fallback dispatches), of the no-op ticks
                 # of both worlds (0), and of the drift ticks.

@@ -28,13 +28,21 @@ _TUPLES = {
 def tensor(x, device) -> torch.Tensor:
     """One numpy-convertible array as a tensor on ``device``.  The tensor
     never shares memory with ``x``, on the CPU either: the engine keeps
-    device copies of host arrays it later patches in place."""
+    device copies of host arrays it later patches in place.  On the card
+    the copy goes through pinned memory, queued on the current stream
+    without waiting for the work already there (a copy from pageable
+    memory would wait); the pinned block is not reused before the copy
+    has run (PyTorch's caching host allocator records it on the stream),
+    and ``x`` may be patched as soon as this returns."""
     arr = np.asarray(x)
     if arr.dtype == np.uint32:
         arr = arr.astype(np.int64)
     if not (arr.flags.c_contiguous and arr.flags.writeable):
         arr = np.array(arr, order="C")  # a writeable C-ordered copy
-    return torch.from_numpy(arr).to(device, copy=True)
+    host = torch.from_numpy(arr)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device, copy=True)
 
 
 def to_device(planes, device):

@@ -106,39 +106,48 @@ class TickOutputs(NamedTuple):
                              # exactly where selected
 
 
-def fnv_tiebreak_plane(key_bytes, key_len, name_hash_state):
+def fnv_tiebreak_plane(key_bytes, key_len, name_hash_state, n_bytes=None):
     """The planner tie-break plane: continue each cluster name's FNV-1
     state over the object key's bytes (h = h*prime ^ byte, uint32
     wraparound computed in int64 under a 32-bit mask), then map to
     order-preserving int32 (utils/hashing.uint32_to_sortable_int32).
     Bytes past every key's length leave the state unchanged, so the scan
-    stops at the longest key."""
+    may stop at any ``n_bytes`` at least the longest key: the caller's
+    host-side bound (the keys' lengths are host arrays before the upload;
+    reading them back from the card would wait for it), else the padded
+    width."""
     b = key_bytes.shape[0]
     c = name_hash_state.shape[0]
     state = name_hash_state.to(torch.int64)[None, :].expand(b, c)
     key_bytes = key_bytes.to(torch.int64)
     key_len = key_len.to(torch.int64)
-    n_bytes = min(key_bytes.shape[1], int(key_len.max())) if b else 0
-    for j in range(n_bytes):
+    width = key_bytes.shape[1]
+    n_bytes = width if n_bytes is None else min(width, int(n_bytes))
+    for j in range(n_bytes if b else 0):
         upd = ((state * _FNV_PRIME) & 0xFFFFFFFF) ^ key_bytes[:, j : j + 1]
         state = torch.where((key_len > j)[:, None], upd, state)
     return (state - 2**31).to(torch.int32)
 
 
 def _scatter_rows(b, c, idx, vals, default, dtype):
-    """Dense [b, c] grid from per-row sparse (idx, value) entries;
-    out-of-range indices (the EMPTY_SLOT sentinel) are dropped."""
-    out = torch.full((b, c), default, dtype=dtype, device=idx.device)
+    """Dense [b, c] grid (contiguous) from per-row sparse (idx, value)
+    entries; out-of-range indices (the EMPTY_SLOT sentinel) are dropped:
+    they scatter into a spare slot past the grid (a boolean-mask index
+    would wait on the device for its count)."""
+    out = torch.full((b * c + 1,), default, dtype=dtype, device=idx.device)
     keep = (idx >= 0) & (idx < c)
-    rows = torch.arange(b, device=idx.device)[:, None].expand_as(idx)
-    out[rows[keep], idx[keep].long()] = vals[keep].to(dtype)
-    return out
+    rows = torch.arange(b, device=idx.device)[:, None]
+    flat = torch.where(keep, rows * c + idx.long(), b * c)
+    out.scatter_(0, flat.reshape(-1), vals.to(dtype).reshape(-1))
+    return out[: b * c].view(b, c)
 
 
-def expand_compact(ci) -> TickInputs:
+def expand_compact(ci, key_len_max=None) -> TickInputs:
     """Device-side expansion of CompactInputs into the dense planes the
     tick consumes: vocabulary-table gathers, sparse policy scatters and
-    the FNV-1 tie-break plane.  Bit-exact with scheduler/featurize.py."""
+    the FNV-1 tie-break plane.  Bit-exact with scheduler/featurize.py.
+    ``key_len_max``: a host-side bound on the rows' key lengths, where
+    the FNV scan may stop (``fnv_tiebreak_plane``)."""
     b = ci.gvk_id.shape[0]
     c = ci.cluster_valid.shape[0]
     device = ci.gvk_id.device
@@ -164,7 +173,9 @@ def expand_compact(ci) -> TickInputs:
         b, c, idx, torch.where(ci.sparse_cur >= 0, ci.sparse_cur, _NIL), _NIL, i32
     )
 
-    tiebreak = fnv_tiebreak_plane(ci.key_bytes, ci.key_len, ci.name_hash_state)
+    tiebreak = fnv_tiebreak_plane(
+        ci.key_bytes, ci.key_len, ci.name_hash_state, key_len_max
+    )
 
     return TickInputs(
         filter_enabled=ci.filter_enabled,
@@ -221,10 +232,10 @@ def _planner_weights(inp: TickInputs, selected):
     return torch.where(selected, weights, 0)
 
 
-def schedule_tick(inp: TickInputs) -> TickOutputs:
+def schedule_tick(inp: TickInputs, budget=None) -> TickOutputs:
     """One dense tick over a batch: phase 1 (the CUDA kernel on the
     card), top-K select, dynamic weights, the replica planner and the
-    finalize tail."""
+    finalize tail.  ``budget``: the planner's ``RoundBudget``, if any."""
     feasible, reasons, totals = _phase1(inp)
 
     # --- Select ---
@@ -247,6 +258,7 @@ def schedule_tick(inp: TickInputs) -> TickOutputs:
             keep_unschedulable=inp.keep_unschedulable,
         ),
         validate=False,
+        budget=budget,
     )
     # The RSP merges capacity overflow back into the result as "nice to
     # schedule" replicas (rsp.go:158-177) and drops zero entries.
@@ -380,7 +392,7 @@ def _scatter_mask(shape, cols, values, device):
     )
 
 
-def _plan_topm(inp: TickInputs, selected, weights, m: int):
+def _plan_topm(inp: TickInputs, selected, weights, m: int, budget=None):
     """The planner over the top-M member slots in ITS OWN processing
     order.  Returns (divide_replicas i64[B, C], cert bool[B]); cert holds
     iff ``plan_batch_narrow``'s phantom-tail certificate held and no
@@ -447,6 +459,7 @@ def _plan_topm(inp: TickInputs, selected, weights, m: int):
         tail_w,
         best_tail,
         take_p(comp_true),
+        budget,
     )
     divide_n = (plan_out.plan + plan_out.overflow).to(torch.int64)
     divide_replicas = torch.zeros((b, c), dtype=torch.int64, device=device)
@@ -454,7 +467,9 @@ def _plan_topm(inp: TickInputs, selected, weights, m: int):
     return divide_replicas, pcert & ~spec_out
 
 
-def _narrow_solve(inp: TickInputs, feasible, reasons, totals, m: int, i32_keys: bool):
+def _narrow_solve(
+    inp: TickInputs, feasible, reasons, totals, m: int, i32_keys: bool, budget=None
+):
     """Select + planner over M candidate columns, given the phase-1
     triple.  Returns (outputs, cert i8[B])."""
     b, c = feasible.shape
@@ -497,7 +512,7 @@ def _narrow_solve(inp: TickInputs, feasible, reasons, totals, m: int, i32_keys: 
 
     # --- planner candidates: top-M members in processing order ------------
     weights = _planner_weights(inp, selected)
-    divide_replicas, plan_cert = _plan_topm(inp, selected, weights, m)
+    divide_replicas, plan_cert = _plan_topm(inp, selected, weights, m, budget)
 
     # Sticky rows certify under the same conditions: their reasons keep
     # the would-be pipeline's zero-replica bits.
@@ -506,16 +521,17 @@ def _narrow_solve(inp: TickInputs, feasible, reasons, totals, m: int, i32_keys: 
     return out, cert.to(torch.int8)
 
 
-def schedule_tick_narrow(inp: TickInputs, m: int, i32_keys: bool = True):
+def schedule_tick_narrow(inp: TickInputs, m: int, i32_keys: bool = True, budget=None):
     """The narrow tick; returns (outputs, cert i8[B]).
 
     ``m`` is the candidate width.  ``cert[b] == 1`` guarantees row b's
     outputs are bit-identical to ``schedule_tick``; rows with 0 must be
     re-solved dense.  ``i32_keys`` demotes the select composite key to
     int32 where the range allows (cert-guarded per row).  Phase 1 is
-    ``ops.phase1.phase1``: the CUDA kernel on CUDA tensors."""
+    ``ops.phase1.phase1``: the CUDA kernel on CUDA tensors.  ``budget``:
+    the planner's ``RoundBudget``, if any."""
     feasible, reasons, totals = _phase1(inp)
-    return _narrow_solve(inp, feasible, reasons, totals, m, i32_keys)
+    return _narrow_solve(inp, feasible, reasons, totals, m, i32_keys, budget)
 
 
 # -- packed placement wire ------------------------------------------------

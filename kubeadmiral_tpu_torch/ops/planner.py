@@ -12,6 +12,10 @@ has the closed form ``max(r0 - A_s, cummax(A_s) - A_s)`` with
 (``_running_remainder``).  The weighted rounds run batched: every row
 steps while any row still moves, and a row that has stopped keeps its
 state (what ``vmap`` of ``lax.while_loop`` does in the JAX package).
+Since a stopped row keeps its state, extra rounds change nothing: under
+a ``RoundBudget`` with a round count each loop runs that many rounds
+without reading the device, and the rows still going after them are
+reported (the caller re-solves those with the checked loop).
 
 Value contract (int32 math, kept where the reference keeps it so
 wraparound matches): ``total * max(weight) + sum(weight)`` must stay
@@ -20,7 +24,7 @@ below 2**31; ``validate_ranges`` enforces it host-side.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,6 +59,42 @@ class PlannerOutputs(NamedTuple):
     overflow: torch.Tensor  # [B, C]
 
 
+class RoundBudget:
+    """How a solve runs its weighted-round loops.  ``rounds``: each loop
+    runs that many rounds with no host read of the loop condition
+    (``bool(go.any())`` waits for the card); None: until no row goes,
+    read every round.  ``unsettled`` collects, over the solve's loops,
+    the rows still going after their rounds (bool[B] on the device; None
+    before the first loop): their results are not final.  With
+    ``record``, ``per_row`` receives each loop's rounds per row (an
+    int32 numpy array, read from the device after the loop)."""
+
+    def __init__(self, rounds: Optional[int], record: bool = False):
+        self.rounds = rounds
+        self.unsettled = None
+        self.per_row: Optional[list] = [] if record else None
+
+    def run(self, step, state: tuple) -> tuple:
+        """Apply ``step`` to ``state`` (whose last member is the [B, 1]
+        go flag) for the budget's rounds."""
+        counter = None
+        if self.per_row is not None:
+            counter = torch.zeros_like(state[-1], dtype=torch.int32)
+        done = 0
+        while (
+            done < self.rounds if self.rounds is not None else bool(state[-1].any())
+        ):
+            if counter is not None:
+                counter += state[-1]
+            state = step(*state)
+            done += 1
+        if counter is not None:
+            self.per_row.append(counter[:, 0].cpu().numpy())
+        go = state[-1][:, 0]
+        self.unsettled = go if self.unsettled is None else self.unsettled | go
+        return state
+
+
 def _running_remainder(r0, c):
     """Remainder seen by each slot in a sequential min-take pass: slot j
     gets ``rem`` after slots 0..j-1 each took ``min(c_i, rem)``.
@@ -76,7 +116,7 @@ def _processing_order(weight_key, tiebreak):
 
 def _distribute(
     weight, min_replicas, max_replicas, capacity, tiebreak, member, total, keep,
-    tail_weight=None,
+    tail_weight=None, budget=None,
 ):
     """getDesiredPlan (planner.go:211-304) for every row.  ``total`` and
     ``keep`` are [B, 1].  Returns (plan, overflow, unplaced remainder
@@ -90,7 +130,10 @@ def _distribute(
     receives nothing.  The result then also carries the final active set
     (cluster order) and the per-row ``spilled`` flag: some round's
     remainder survived past the slots, which the full-width cascade
-    would have handed to the tail."""
+    would have handed to the tail.
+
+    ``budget`` (a RoundBudget): run its rounds; without one, rounds
+    run until no row goes, the loop condition read every round."""
     # Processing order: members first, weight desc, tiebreak asc, index
     # asc.  Non-positive weight = no share; the sort runs on the
     # clamped weight.
@@ -117,7 +160,8 @@ def _distribute(
     moved = torch.ones_like(remaining, dtype=torch.bool)
     spilled = torch.zeros_like(remaining, dtype=torch.bool)
     go = moved & (remaining > 0)
-    while bool(go.any()):
+
+    def one_round(plan, overflow, active, remaining, moved, spilled, go):
         w_active = torch.where(active, w, 0)
         weight_sum = w_active.sum(dim=-1, keepdim=True, dtype=w_active.dtype)
         if tail_weight is not None:
@@ -145,13 +189,19 @@ def _distribute(
         new_remaining = d - taken.sum(dim=-1, keepdim=True, dtype=taken.dtype)
         new_moved = (taken > 0).any(dim=-1, keepdim=True) & (weight_sum > 0)
 
+        # A row that has stopped keeps its state.
         plan = torch.where(go, new_plan, plan)
         overflow = torch.where(go, new_overflow, overflow)
         active = torch.where(go, active & ~full, active)
         remaining = torch.where(go, new_remaining, remaining)
         moved = torch.where(go, new_moved, moved)
         spilled = torch.where(go, spilled | (new_remaining > 0), spilled)
-        go = moved & (remaining > 0)
+        return plan, overflow, active, remaining, moved, spilled, moved & (remaining > 0)
+
+    state = (budget or RoundBudget(None)).run(
+        one_round, (plan, overflow, active, remaining, moved, spilled, go)
+    )
+    plan, overflow, active, remaining, moved, spilled, go = state
 
     # Without keep_unschedulable, overflow is trimmed to what could not
     # be placed anywhere at all.
@@ -174,7 +224,7 @@ def _keep(inp: PlannerInputs):
     return (inp.keep_unschedulable | ~inp.avoid_disruption)[:, None]
 
 
-def _steady_plan(inp: PlannerInputs, desired):
+def _steady_plan(inp: PlannerInputs, desired, budget=None):
     """The avoid-disruption branch: move only the delta from the current
     replicas (scale up by shortfall, scale down by excess); rows without
     avoid-disruption take ``desired`` as is."""
@@ -196,7 +246,7 @@ def _steady_plan(inp: PlannerInputs, desired):
     )
     grow, _, _ = _distribute(
         up_weight, zeros, up_max, no_cap, inp.tiebreak, up_member,
-        torch.clamp(desired_total - current_total, min=0), no_keep,
+        torch.clamp(desired_total - current_total, min=0), no_keep, budget=budget,
     )
 
     # Scale down: clusters above their desired share shrink, weighted by
@@ -206,7 +256,7 @@ def _steady_plan(inp: PlannerInputs, desired):
     shrink, _, _ = _distribute(
         down_weight, zeros, torch.where(down_member, current_ok, _INF), no_cap,
         inp.tiebreak, down_member,
-        torch.clamp(current_total - desired_total, min=0), no_keep,
+        torch.clamp(current_total - desired_total, min=0), no_keep, budget=budget,
     )
 
     steady = torch.where(
@@ -219,13 +269,13 @@ def _steady_plan(inp: PlannerInputs, desired):
     return torch.where(inp.avoid_disruption[:, None], steady, desired)
 
 
-def _plan_rows(inp: PlannerInputs) -> PlannerOutputs:
+def _plan_rows(inp: PlannerInputs, budget=None) -> PlannerOutputs:
     """The full planner for every row (``_plan_one`` batched)."""
     desired, overflow, _ = _distribute(
         inp.weight, inp.min_replicas, inp.max_replicas, inp.capacity,
-        inp.tiebreak, inp.member, inp.total[:, None], _keep(inp),
+        inp.tiebreak, inp.member, inp.total[:, None], _keep(inp), budget=budget,
     )
-    return PlannerOutputs(plan=_steady_plan(inp, desired), overflow=overflow)
+    return PlannerOutputs(plan=_steady_plan(inp, desired, budget), overflow=overflow)
 
 
 # -- narrow solve ---------------------------------------------------------
@@ -262,7 +312,7 @@ def processing_key(weight, tiebreak, special):
     )
 
 
-def plan_batch_narrow(inp: PlannerInputs, tail_weight, best_tail, comp):
+def plan_batch_narrow(inp: PlannerInputs, tail_weight, best_tail, comp, budget=None):
     """The planner over [B, M] processing-order slots, plus its exactness
     certificate (``_plan_one_narrow`` batched).  ``tail_weight`` i32[B]
     is the summed clamped weight of member columns outside the slots,
@@ -284,21 +334,23 @@ def plan_batch_narrow(inp: PlannerInputs, tail_weight, best_tail, comp):
     desired, overflow, _, active_end, spilled = _distribute(
         inp.weight, inp.min_replicas, inp.max_replicas, inp.capacity,
         inp.tiebreak, inp.member, inp.total[:, None], _keep(inp),
-        tail_weight=tail_weight[:, None],
+        tail_weight=tail_weight[:, None], budget=budget,
     )
     touched = (desired > 0) | (overflow > 0) | (inp.member & ~active_end)
     cert = (tail_weight == 0) | (
         ~spilled & (~touched | (comp > best_tail[:, None])).all(dim=-1)
     )
-    plan = _steady_plan(inp, desired)
+    plan = _steady_plan(inp, desired, budget)
     return PlannerOutputs(plan=plan, overflow=overflow), cert
 
 
-def plan_batch(inp: PlannerInputs, *, validate: bool = True) -> PlannerOutputs:
+def plan_batch(
+    inp: PlannerInputs, *, validate: bool = True, budget=None
+) -> PlannerOutputs:
     """Plan every object in the batch; validates the int32 contract first."""
     if validate:
         validate_ranges(inp.total.cpu().numpy(), inp.weight.cpu().numpy())
-    return _plan_rows(inp)
+    return _plan_rows(inp, budget)
 
 
 def validate_ranges(total: np.ndarray, weight: np.ndarray) -> None:

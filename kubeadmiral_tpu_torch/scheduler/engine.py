@@ -30,10 +30,20 @@ columns) runs the drift gate: one program per chunk classifies every row
 from the device-resident inputs and the stored planes; rows that can
 move are re-solved by the unified survivor program (256 rows or fewer a
 group) or the sub-batch slabs, dynamic-weight rows are checked first,
-and a chunk where most rows move takes the full dispatch.  The pipelined
-dispatch window, snapshots, score decoding and webhooks are not ported:
-chunks are dispatched one after another.  One tick runs at a time on an
-engine (a lock).  The device is ``"cuda"`` unless the caller asks for
+and a chunk where most rows move takes the full dispatch.
+
+Full dispatches run through the pipelined window (the JAX engine's
+default): up to ``pipeline_depth`` chunks (PIPELINE_DEPTH, 16) are
+queued on the card while the host featurizes the next ones, then the
+window is drained with one read per kind and width of certificate, diff
+mask, wire and overflow gather (the chunks' tensors joined on the card).
+Queuing waits for nothing: uploads go through pinned memory, and the
+planner runs a fixed round budget with its unsettled rows read at the
+drain (a chunk with one is dispatched again with the checked loop).
+Depth 1 is the sequential path: a window of one chunk, dispatched with
+the checked round loop, waited for and fetched before the next.  Snapshots,
+score decoding and webhooks are not ported.  One tick runs at a time on
+an engine (a lock).  The device is ``"cuda"`` unless the caller asks for
 the CPU; without CUDA the default raises instead of carrying on on the
 CPU.
 """
@@ -67,7 +77,7 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     schedule_tick_narrow,
     unpack_wire,
 )
-from kubeadmiral_tpu_torch.ops.planner import INT32_INF
+from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
 from kubeadmiral_tpu_torch.scheduler import compact as Cmp
 from kubeadmiral_tpu_torch.scheduler.compact import (
     CompactInputs,
@@ -115,6 +125,16 @@ CACHE_BYTES = 16 << 30
 # times the byte optimum.
 PACK_OVERFLOW_PCT = 0.01
 PACK_WIDEN = 1.25
+# Chunks in flight before the window is drained (the JAX engine's
+# default KT_PIPELINE_DEPTH); 1 is the sequential dispatch.
+PIPELINE_DEPTH = 16
+# Weighted planner rounds a windowed dispatch runs without reading the
+# card, per round loop (three a solve).  Every row of the c3 and c5
+# worlds settles in one round (testing/sample_counts.py,
+# planner_rounds), and a chunk with a row still going after
+# PLANNER_ROUNDS is dispatched again at its drain, so any budget is
+# exact; each extra round is host time in every windowed dispatch.
+PLANNER_ROUNDS = 1
 
 # Bits of the per-row diff mask against the previous tick's planes.
 _DIFF_PLACEMENT = 1
@@ -369,6 +389,34 @@ class _CachedChunk:
     pack_shrink_votes: int = 0
 
 
+@dataclass
+class _InFlight:
+    """A chunk's full dispatch queued on the device, awaiting its drain:
+    its outputs, certificate (narrow; None dense), the planner's
+    unsettled rows (bool[B] under a round budget, else None) and what the
+    drain needs to re-dispatch, re-solve and fetch it."""
+
+    slot: int
+    entry: Optional[_CachedChunk]
+    out: object  # TickOutputs
+    cert: Optional[torch.Tensor]
+    unsettled: Optional[torch.Tensor]
+    device_in: object
+    fmt: str
+    n: int
+    pack_k: int
+    m: Optional[int]
+    key_max: Optional[int]
+    delta_ok: bool
+    # Rows the certificate fallback re-solved (forced into the delta).
+    fb_rows: Optional[np.ndarray] = None
+
+
+def _planes(out) -> tuple:
+    """The five planes a wire packs, in pack_wire's order."""
+    return (out.selected, out.replicas, out.counted, out.scores, out.reasons)
+
+
 class SchedulerEngine:
     """Chunked, shape-bucketed engine around ops.pipeline's narrow and
     dense ticks, with the JAX engine's chunk cache, no-op replay,
@@ -392,14 +440,18 @@ class SchedulerEngine:
             )
         # Per-stage wall seconds of the last schedule() call: featurize
         # (host encoding, padding, cache checks, input repairs, drift
-        # gate dispatch), device (upload + tick, synchronised; the
-        # weight checks and survivor programs as queued),
-        # narrow_fallback (dense re-solve of uncertified rows and their
-        # write-back, synchronised), fetch (diff mask, certificate, gate
-        # mask and weight-check reads, pack and device->host copies),
-        # gate_wait (the gate-mask and weight-check reads, inside fetch),
-        # overflow_fetch (the K-overflow re-fetch, inside fetch), decode
-        # (ScheduleResult construction, merges, drift classification).
+        # gate dispatch), device (upload + tick; the weight checks,
+        # survivor programs and windowed dispatches as queued, the
+        # sequential ones synchronised), narrow_fallback (dense re-solve
+        # of uncertified rows and their write-back, synchronised), fetch
+        # (certificate, diff mask, gate mask and weight-check reads,
+        # pack and device->host copies; with the window, the wait for
+        # the card's work lands here, as in the JAX engine, so a
+        # windowed device stage is not comparable with a sequential
+        # one), gate_wait (the gate-mask and weight-check reads, inside
+        # fetch), overflow_fetch (the K-overflow re-fetch, inside
+        # fetch), decode (ScheduleResult construction, merges, drift
+        # classification).
         self.timings: dict[str, float] = {}
         # Rows certified by the narrow solve ("rows") and rows re-solved
         # dense ("fallback"); narrow_last_m is the latest dispatch's M.
@@ -468,6 +520,11 @@ class SchedulerEngine:
         # One tick at a time: overlapping ticks from several threads
         # would race the chunk cache.
         self._schedule_lock = threading.Lock()
+        # Chunks in flight before a drain (1: the sequential dispatch),
+        # and windowed chunks dispatched again because a planner row
+        # was still going after PLANNER_ROUNDS.
+        self.pipeline_depth = PIPELINE_DEPTH
+        self.planner_reruns = 0
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -934,7 +991,7 @@ class SchedulerEngine:
         else:
             piece = _pad_clusters(piece, c_bucket)
         rows = self._upload_per_object(piece, fmt)
-        dst = torch.tensor(stale, dtype=torch.int64, device=self.device)
+        dst = self._index(stale)
         for name, dev in entry.device_per_object.items():
             dev.index_copy_(0, dst, rows[name])
         entry.stale_rows = None
@@ -949,26 +1006,28 @@ class SchedulerEngine:
         self.fetch_bytes_total += arr.nbytes
         return arr
 
-    def _upload_small(self, arr) -> torch.Tensor:
-        """A small host array on the device without waiting for the work
-        queued there (a copy from pageable memory would): on the card it
-        goes through pinned memory, asynchronously."""
-        host = torch.from_numpy(np.array(arr, order="C"))
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
-
     def _index(self, rows) -> torch.Tensor:
-        return self._upload_small(np.asarray(rows, np.int64))
+        return tensor(np.asarray(rows, np.int64), self.device)
 
-    def _tick(self, device_in, fmt: str, m: Optional[int]):
-        """One dispatch: (outputs, cert or None).  The module-level tick
-        functions are looked up at call time (chip_smoke counts them)."""
-        tick_in = expand_compact(device_in) if fmt == "compact" else device_in
+    @staticmethod
+    def _key_max(inputs, fmt: str) -> Optional[int]:
+        """The longest object key of compact host inputs (where the
+        device-side FNV scan may stop), None for the dense format."""
+        if fmt != "compact":
+            return None
+        key_len = np.asarray(inputs.key_len)
+        return int(key_len.max()) if key_len.size else 0
+
+    def _tick(self, device_in, fmt: str, m: Optional[int], key_max=None, budget=None):
+        """One dispatch: (outputs, cert or None).  ``key_max`` bounds the
+        keys (``_key_max``); ``budget`` is the planner's RoundBudget, if
+        any.  The module-level tick functions are looked up at call time
+        (chip_smoke counts them)."""
+        tick_in = expand_compact(device_in, key_max) if fmt == "compact" else device_in
         if m is None:
-            return schedule_tick(tick_in), None
+            return schedule_tick(tick_in, budget=budget), None
         self.narrow_last_m = m
-        return schedule_tick_narrow(tick_in, m)
+        return schedule_tick_narrow(tick_in, m, budget=budget)
 
     # -- the tick ----------------------------------------------------------
     def schedule(
@@ -1029,6 +1088,8 @@ class SchedulerEngine:
         # Drift-gated chunks awaiting their row classification.
         pending_gate: list[tuple] = []
         drift_cache: dict[int, Optional[dict]] = {}
+        # Full dispatches in flight (the pipelined window).
+        window: list[_InFlight] = []
         c_bucket, eff_chunk, ladder = self._tick_geometry(len(view.clusters))
         multi_chunk = len(units) > eff_chunk
         vocab = self._vocab_for(view, self._topo_fingerprint(view))
@@ -1137,13 +1198,17 @@ class SchedulerEngine:
                 and entry.prev_out is not None
                 and tuple(entry.prev_out[0].shape) == shape
             )
-            part, changed = self._dispatch_chunk(
-                entry, inputs, status, fmt, n, b_pad, pack_k, view, vocab,
-                c_bucket, delta_ok, timings,
+            chunk_results.append(None)
+            chunk_changed.append(None)
+            self._full_dispatch(
+                window, len(chunk_results) - 1, entry, inputs, status, fmt, n,
+                b_pad, pack_k, view, vocab, c_bucket, delta_ok, chunk_results,
+                chunk_changed, timings,
             )
-            chunk_results.append(part)
-            chunk_changed.append(changed)
 
+        # The window drains before the drift gates and the sub-batch
+        # pass, which read the chunks' stored planes.
+        self._drain_window(window, chunk_results, chunk_changed, view, timings)
         if pending_gate:
             self._drain_drift_gates(
                 pending_gate, chunk_results, chunk_changed, view, timings,
@@ -1176,46 +1241,185 @@ class SchedulerEngine:
         )
         return results
 
-    def _dispatch_chunk(
-        self, entry, inputs, status: str, fmt: str, n: int, b_pad: int, pack_k: int,
-        view, vocab, c_bucket: int, delta_ok: bool, timings,
-    ):
-        """One chunk's full dispatch (narrow or dense tick), its
-        certificate fallback and its fetch, delta against the entry's
-        prev planes when ``delta_ok``.  Returns (results, changed local
-        rows or None)."""
+    # -- full dispatch: through the window ---------------------------------
+    def _full_dispatch(
+        self, window: list, slot: int, entry, inputs, status: str, fmt: str, n: int,
+        b_pad: int, pack_k: int, view, vocab, c_bucket: int, delta_ok: bool,
+        chunk_results, chunk_changed, timings,
+    ) -> None:
+        """One chunk dispatched whole, its results landing in ``slot``:
+        queued into ``window``, which is drained once it holds
+        ``pipeline_depth`` chunks.  Depth 1 is the sequential dispatch: a
+        window of one chunk whose planner runs the checked round loop,
+        with the wait for the card counted as ``device``."""
+        windowed = self.pipeline_depth > 1
+        window.append(
+            self._queue_chunk(
+                slot, entry, inputs, status, fmt, n, b_pad, pack_k, view, vocab,
+                c_bucket, delta_ok, timings,
+                RoundBudget(PLANNER_ROUNDS) if windowed else None,
+            )
+        )
+        if not windowed:
+            t0 = time.perf_counter()
+            self._sync()
+            timings["device"] += time.perf_counter() - t0
+        if len(window) >= max(1, self.pipeline_depth):
+            self._drain_window(window, chunk_results, chunk_changed, view, timings)
+
+    def _queue_chunk(
+        self, slot: int, entry, inputs, status: str, fmt: str, n: int, b_pad: int,
+        pack_k: int, view, vocab, c_bucket: int, delta_ok: bool, timings, budget=None,
+    ) -> "_InFlight":
+        """Pad, upload and queue one chunk's tick (narrow or dense), with
+        the planner under ``budget`` if given.  Under a round budget
+        nothing here waits for the card (without one the planner reads
+        its loop condition); the queuing time counts as ``device``."""
         t0 = time.perf_counter()
         padded = self._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
         m = self._narrow_m(inputs, c_bucket)
+        key_max = self._key_max(padded, fmt)
         t1 = time.perf_counter()
         timings["featurize"] += t1 - t0
         device_in = self._device_inputs(
             entry, padded, status, fmt, vocab, c_bucket,
             self._cluster_planes_device(view, c_bucket),
         )
-        out, cert = self._tick(device_in, fmt, m)
-        self._sync()
+        out, cert = self._tick(device_in, fmt, m, key_max, budget)
         timings["device"] += time.perf_counter() - t1
-        fb_rows = None
-        if cert is not None:
-            t2 = time.perf_counter()
-            cert_np = self._read_np(cert)
-            timings["fetch"] += time.perf_counter() - t2
-            out, fb_rows = self._apply_cert_fallback(
-                out, cert_np, device_in, fmt, n, timings
-            )
-        del device_in
-        mask = None
-        if delta_ok:
-            t2 = time.perf_counter()
-            mask = self._read_np(_diff_bits(out, entry.prev_out, n))
-            if fb_rows is not None:
+        return _InFlight(
+            slot=slot, entry=entry, out=out, cert=cert,
+            unsettled=None if budget is None else budget.unsettled,
+            device_in=device_in, fmt=fmt, n=n, pack_k=pack_k, m=m,
+            key_max=key_max, delta_ok=delta_ok,
+        )
+
+    def _drain_window(self, items: list, chunk_results, chunk_changed, view, timings) -> None:
+        """Drain the in-flight window with batched reads (the JAX
+        engine's _drain_fetch_window with the packed wire): settle the
+        certificates and planner budgets, read every diff mask (one
+        read), plan each chunk's fetch (skip, delta or full), then
+        pack, read and decode the wires.  Empties ``items``."""
+        if not items:
+            return
+        self._settle_window(items, timings)
+        t0 = time.perf_counter()
+        diffed = [it for it in items if it.delta_ok]
+        masks = self._read_all([_diff_bits(it.out, it.entry.prev_out, it.n) for it in diffed])
+        timings["fetch"] += time.perf_counter() - t0
+        mask_of = {id(it): mask for it, mask in zip(diffed, masks)}
+        delta_items, full_items = [], []
+        for it in items:
+            if not it.delta_ok:
+                full_items.append(it)
+                continue
+            mask = mask_of[id(it)]
+            if it.fb_rows is not None:
                 # Rows the dense re-solve rewrote are fetched whatever
-                # the diff says, as the JAX engine's mask (computed on
-                # the narrow outputs) forces them.
-                mask[fb_rows] |= _DIFF_PLACEMENT
-            timings["fetch"] += time.perf_counter() - t2
-        return self._fetch_decode_packed(entry, out, mask, n, pack_k, view, timings)
+                # the diff says (the JAX engine's mask forces them).
+                mask = mask.copy()
+                mask[it.fb_rows] |= _DIFF_PLACEMENT
+            kind, idx = self._plan_delta(it.entry, mask, it.n)
+            if kind == "skip":
+                self._note_skip(it.entry, it.out, view)
+                chunk_results[it.slot] = it.entry.prev_results
+                chunk_changed[it.slot] = []
+            elif kind == "full":
+                full_items.append(it)
+            else:
+                delta_items.append((it, idx))
+        self._drain_window_packed(delta_items, full_items, chunk_results, chunk_changed,
+                                  view, timings)
+        items.clear()
+
+    def _settle_window(self, items: list, timings) -> None:
+        """Resolve a window's certificates and planner budgets before any
+        plane leaves the card.  Each chunk's i8[B] flags (bit 0 its
+        narrow certificate, bit 1 a planner row still going after the
+        round budget) are read in one copy.  A chunk with an
+        unsettled row is dispatched again with the checked round loop
+        (counted in ``planner_reruns``) and its certificate read alone;
+        then uncertified rows are re-solved dense and written back
+        (_apply_cert_fallback), their rows kept in ``fb_rows``."""
+        flagged, devs = [], []
+        for it in items:
+            flag = it.cert
+            if it.unsettled is not None:
+                late = it.unsettled.to(torch.int8) * 2
+                flag = late if flag is None else flag | late
+            if flag is not None:
+                flagged.append(it)
+                devs.append(flag)
+        t0 = time.perf_counter()
+        flags = self._read_all(devs)
+        timings["fetch"] += time.perf_counter() - t0
+        for it, flag in zip(flagged, flags):
+            if (flag & 2).any():
+                t0 = time.perf_counter()
+                self.planner_reruns += 1
+                it.out, it.cert = self._tick(it.device_in, it.fmt, it.m, it.key_max)
+                timings["device"] += time.perf_counter() - t0
+                if it.cert is None:
+                    continue
+                t0 = time.perf_counter()
+                flag = self._read_np(it.cert)
+                timings["fetch"] += time.perf_counter() - t0
+            if it.cert is not None:
+                it.out, it.fb_rows = self._apply_cert_fallback(
+                    it.out, flag & 1, it.device_in, it.fmt, it.n, timings
+                )
+        for it in items:
+            it.device_in = None
+
+    def _drain_window_packed(
+        self, delta_items, full_items, chunk_results, chunk_changed, view, timings,
+    ) -> None:
+        """Every planned chunk's wire queued before the first read: the
+        changed rows' (delta: a row gather) or the first n rows' (full),
+        read in one copy per wire width (_read_all); then the K-overflow
+        rows of the whole window (_fetch_overflow_window) and the
+        decodes."""
+        t0 = time.perf_counter()
+        wires = []  # (item, gathered rows or None for full, device wire)
+        for it, idx in delta_items:
+            self.fetch_stats["delta"] += 1
+            gidx = self._index(idx)
+            wire = pack_wire(*(p.index_select(0, gidx) for p in _planes(it.out)), it.pack_k)
+            wires.append((it, idx, wire))
+        for it in full_items:
+            wire = pack_wire(*(p[: it.n] for p in _planes(it.out)), it.pack_k)
+            wires.append((it, None, wire))
+        arrs = self._read_all([w[2] for w in wires])
+        timings["fetch"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        parsed = []  # (item, gathered rows or None, packed, overflow positions)
+        over_jobs = []  # (parsed index, the dispatch's outputs, its overflow rows)
+        for (it, idx, _wire), arr in zip(wires, arrs):
+            packed = unpack_wire(arr, it.pack_k)
+            self._observe_nsel(it.entry, packed.nsel, it.out.selected.shape[1])
+            over_pos = np.nonzero(packed.nsel > it.pack_k)[0]
+            if over_pos.size:
+                over_jobs.append(
+                    (len(parsed), it.out, over_pos if idx is None else idx[over_pos])
+                )
+            parsed.append((it, idx, packed, over_pos))
+        over = self._fetch_overflow_window([job[1:] for job in over_jobs], timings)
+        over_of = {job[0]: dense for job, dense in zip(over_jobs, over)}
+        timings["fetch"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for i, (it, idx, packed, over_pos) in enumerate(parsed):
+            if idx is not None:
+                chunk_results[it.slot], chunk_changed[it.slot] = self._apply_packed_delta(
+                    it.entry, it.out, idx, packed, over_pos, over_of.get(i), view
+                )
+            else:
+                chunk_results[it.slot] = self._apply_packed_full(
+                    it.entry, it.out, packed, over_pos, over_of.get(i), view
+                )
+                chunk_changed[it.slot] = None
+        timings["decode"] += time.perf_counter() - t0
 
     # -- drift gate ----------------------------------------------------------
     @staticmethod
@@ -1322,24 +1526,37 @@ class SchedulerEngine:
         return arr
 
     def _read_all(self, tensors: list) -> list:
-        """Host copies of several tensors, one copy per distinct shape."""
+        """Host copies of several tensors: those of one dtype and one
+        shape past the first axis are joined on the device (torch.cat)
+        and read in one copy, then split by their row counts; every copy
+        is queued before the first wait."""
         out: list = [None] * len(tensors)
         groups: dict[tuple, list[int]] = {}
         for i, t in enumerate(tensors):
-            groups.setdefault(tuple(t.shape), []).append(i)
-        for members in groups.values():
-            if len(members) == 1:
-                out[members[0]] = self._read_np(tensors[members[0]])
-                continue
-            stacked = self._read_np(torch.stack([tensors[i] for i in members]))
-            for j, i in enumerate(members):
-                out[i] = stacked[j]
+            groups.setdefault((tuple(t.shape[1:]), t.dtype), []).append(i)
+        reads = [
+            (
+                members,
+                self._start_read(
+                    tensors[members[0]]
+                    if len(members) == 1
+                    else torch.cat([tensors[i] for i in members])
+                ),
+            )
+            for members in groups.values()
+        ]
+        for members, handle in reads:
+            arr = self._finish_read(handle)
+            start = 0
+            for i in members:
+                rows = tensors[i].shape[0]
+                out[i] = arr[start : start + rows]
+                start += rows
         return out
 
     def _dispatch_drift_gate(self, entry, fmt: str, c_bucket: int, info: dict, vocab) -> dict:
         """Queue one chunk's drift gate and the copy of its row mask (read
-        in _drain_drift_gates; nothing here waits on the device but the
-        stale-input backstop)."""
+        in _drain_drift_gates; nothing here waits on the device)."""
         b_pad = entry.padded_shape[0]
         if entry.stale_rows:
             # Backstop: rows patched since the last upload whose eager
@@ -1350,15 +1567,13 @@ class SchedulerEngine:
             info["alloc_new_d"], info["used_new_d"],
         )
         self.upload_bytes["cluster"] += sum(a.nbytes for a in slices)
-        up = self._upload_small
+        dev = self.device
         args = (
             entry.prev_feas,
             entry.prev_out[3],
-            *(up(a) for a in slices),
-            up(info["didx"]),
-            up(info["dvalid"]),
-            up(info["dcpu"]),
-            up(self._fin_rows(entry, b_pad)),
+            *(tensor(a, dev) for a in slices),
+            *(tensor(info[k], dev) for k in ("didx", "dvalid", "dcpu")),
+            tensor(self._fin_rows(entry, b_pad), dev),
             self._ensure_nfeas(entry),
         )
         if fmt == "compact":
@@ -1409,6 +1624,7 @@ class SchedulerEngine:
         pack_k = min(m, c_bucket)
         device_in = self._assemble(entry.device_per_object, fmt, vocab, c_bucket, cluster_dev)
         per_object = self._per_object_fields(fmt)
+        key_max = self._key_max(entry.inputs, fmt)
         self.survivor_stats["rows"] += len(rows)
         jobs = []
         for seg, g in self._survivor_groups(rows):
@@ -1420,7 +1636,7 @@ class SchedulerEngine:
                 **{name: getattr(device_in, name).index_select(0, gidx) for name in per_object}
             )
             out, cert = drift_survivor(
-                expand_compact(sub) if fmt == "compact" else sub,
+                expand_compact(sub, key_max) if fmt == "compact" else sub,
                 entry.prev_reasons.index_select(0, gidx),
                 m,
                 i32_keys=True,
@@ -1623,15 +1839,17 @@ class SchedulerEngine:
                 chunk_changed[slot] = sorted(rec | set(resolved))
         timings["featurize"] += time.perf_counter() - t0
 
+        window: list[_InFlight] = []
         for slot, entry, n, fmt, b_pad, pack_k in fallback:
             delta_ok = (
                 entry.prev_out is not None
                 and tuple(entry.prev_out[0].shape) == (b_pad, c_bucket)
             )
-            chunk_results[slot], chunk_changed[slot] = self._dispatch_chunk(
-                entry, entry.inputs, "hit", fmt, n, b_pad, pack_k, view, vocab,
-                c_bucket, delta_ok, timings,
+            self._full_dispatch(
+                window, slot, entry, entry.inputs, "hit", fmt, n, b_pad, pack_k,
+                view, vocab, c_bucket, delta_ok, chunk_results, chunk_changed, timings,
             )
+        self._drain_window(window, chunk_results, chunk_changed, view, timings)
 
     # -- narrow certificate fallback ---------------------------------------
     def _apply_cert_fallback(self, out, cert_np, device_in, fmt: str, n: int, timings):
@@ -1734,6 +1952,7 @@ class SchedulerEngine:
         pack_k = self._pack_k(inputs, c_bucket, max(p[1].pack_k_hint for p in pending))
         slab_cut = self._slab_cut(total, eff_chunk, ladder)
         m = self._narrow_m(inputs, c_bucket)
+        key_max = self._key_max(inputs, fmt)
         cluster_dev = self._cluster_planes_device(view, c_bucket)
         # Rows whose device inputs are current (drift recomputes) are
         # gathered on the device, uploading nothing.
@@ -1776,7 +1995,7 @@ class SchedulerEngine:
                 timings["featurize"] += t1 - t0
                 per_object_dev = self._upload_per_object(padded, fmt)
             device_in = self._assemble(per_object_dev, fmt, vocab, c_bucket, cluster_dev)
-            out, cert = self._tick(device_in, fmt, m)
+            out, cert = self._tick(device_in, fmt, m, key_max)
             self._sync()
             timings["device"] += time.perf_counter() - t1
             if cert is not None:
@@ -1980,59 +2199,26 @@ class SchedulerEngine:
             entry.prev_view = view
         return results
 
-    def _fetch_decode_packed(self, entry, out, mask, n: int, k: int, view, timings):
-        """Pull one dispatch's results off the device as the packed wire:
-        nothing when the diff mask shows no change (skip), the changed
-        rows' wire rows (delta: a row gather, the pack, one copy), or
-        the first n rows' wire (full); then re-fetch the K-overflow rows
-        and decode.  Returns (results, changed local rows or None)."""
-        t0 = time.perf_counter()
-        planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
-        if mask is not None:
-            kind, idx = self._plan_delta(entry, mask, n)
-            if kind == "skip":
-                self._note_skip(entry, out, view)
-                timings["fetch"] += time.perf_counter() - t0
-                return entry.prev_results, []
-            if kind == "delta":
-                self.fetch_stats["delta"] += 1
-                gidx = self._index(idx)
-                wire = self._read_np(pack_wire(*(p[gidx] for p in planes), k))
-                packed = unpack_wire(wire, k)
-                self._observe_nsel(entry, packed.nsel, out.selected.shape[1])
-                over_pos = np.nonzero(packed.nsel > k)[0]
-                over_dense = (
-                    self._fetch_overflow(out, idx[over_pos], timings)
-                    if over_pos.size
-                    else None
-                )
-                t1 = time.perf_counter()
-                timings["fetch"] += t1 - t0
-                merged, idx_rows = self._apply_packed_delta(
-                    entry, out, idx, packed, over_pos, over_dense, view
-                )
-                timings["decode"] += time.perf_counter() - t1
-                return merged, idx_rows
-        wire = self._read_np(pack_wire(*(p[:n] for p in planes), k))
-        packed = unpack_wire(wire, k)
-        self._observe_nsel(entry, packed.nsel, out.selected.shape[1])
-        over_pos = np.nonzero(packed.nsel > k)[0]
-        over_dense = self._fetch_overflow(out, over_pos, timings) if over_pos.size else None
-        t1 = time.perf_counter()
-        timings["fetch"] += t1 - t0
-        results = self._apply_packed_full(entry, out, packed, over_pos, over_dense, view)
-        timings["decode"] += time.perf_counter() - t1
-        return results, None
-
     def _fetch_overflow(self, out, rows: np.ndarray, timings):
         """Re-fetch of K-overflow rows (the packed wire's escape hatch):
         bit-packed selection/counted masks plus the replica plane in one
         copy, timed as the ``overflow_fetch`` part of the fetch stage."""
+        return self._fetch_overflow_window([(out, rows)], timings)[0]
+
+    def _fetch_overflow_window(self, jobs: list, timings) -> list:
+        """The K-overflow rows of several dispatches, ``jobs`` of (outputs,
+        rows): each job's rows gathered, and the gathers read in one copy
+        per cluster width (_read_all).  Returns each job's (rows' words,
+        c_pad)."""
+        if not jobs:
+            return []
         t0 = time.perf_counter()
-        idx = self._index(rows)
-        arr = self._read_np(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
+        arrs = self._read_all([
+            _gather_overflow3(out.selected, out.counted, out.replicas, self._index(rows))
+            for out, rows in jobs
+        ])
         timings["overflow_fetch"] += time.perf_counter() - t0
-        return arr, out.selected.shape[1]
+        return [(arr, out.selected.shape[1]) for (out, _rows), arr in zip(jobs, arrs)]
 
     @staticmethod
     def _split_overflow(arr: np.ndarray, c_pad: int):

@@ -6,8 +6,12 @@ only: a CPU run says nothing of the card's times.  A prediction of the
 full worlds' counts scales these.
 
 * The cold mode (default): the narrow width M, the certified and
-  fallback rows, the rows that overflow the wire's K slots, and the
-  fetch bytes against the dense planes' 6 B per cell.
+  fallback rows, the rows that overflow the wire's K slots, the fetch
+  bytes against the dense planes' 6 B per cell, and the planner's
+  weighted rounds (``planner_rounds``): how many rounds each
+  ``_distribute`` call's loop ran (its slowest row) and how many each
+  row took, as {rounds: count} over the tick's calls (three a dispatch:
+  the desired plan, then the scale-up and scale-down passes).
 * ``--warm``: one engine through a cold tick, a 1 % churn tick
   (``testing/worlds.churn``), a no-op tick, a capacity drift
   (``testing/worlds.drift``) and a tick back, cluster 0's capacity cut
@@ -34,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 
+from kubeadmiral_tpu_torch.ops.planner import RoundBudget
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 from kubeadmiral_tpu_torch.testing.worlds import (
@@ -51,7 +56,8 @@ def sample_counts(config: str, n_objects: int, seed: int = 0) -> dict:
     n_clusters = SHAPES[config][1]
     units, clusters, _ = build_world(n_objects, n_clusters, config=config, seed=seed)
     engine = SchedulerEngine(device="cpu")
-    engine.schedule(units, clusters)
+    with logged_rounds() as rounds:
+        engine.schedule(units, clusters)
     c_bucket = engine._tick_geometry(n_clusters)[0]
     dense = 6 * n_objects * c_bucket
     return {
@@ -65,7 +71,47 @@ def sample_counts(config: str, n_objects: int, seed: int = 0) -> dict:
         "fetch_bytes": engine.fetch_bytes_total,
         "dense_plane_bytes": dense,
         "fetch_vs_dense": engine.fetch_bytes_total / dense,
+        "planner_rounds": round_distribution(rounds),
     }
+
+
+@contextlib.contextmanager
+def logged_rounds():
+    """Run every tick dispatch of the engine with the checked round loop
+    under a recording ops.planner.RoundBudget (in place of the engine's
+    own budget, if any) for the duration; yields the list that receives
+    each round loop's rounds per row."""
+    log: list = []
+    real = {"narrow": engine_mod.schedule_tick_narrow, "dense": engine_mod.schedule_tick}
+
+    def logged(fn):
+        def call(*args, budget=None, **kwargs):
+            recorder = RoundBudget(None, record=True)
+            try:
+                return fn(*args, budget=recorder, **kwargs)
+            finally:
+                log.extend(recorder.per_row)
+        return call
+
+    engine_mod.schedule_tick_narrow = logged(real["narrow"])
+    engine_mod.schedule_tick = logged(real["dense"])
+    try:
+        yield log
+    finally:
+        engine_mod.schedule_tick_narrow = real["narrow"]
+        engine_mod.schedule_tick = real["dense"]
+
+
+def round_distribution(log: list) -> dict:
+    """{"calls", "per_call", "per_row"}: the loops run, and {rounds: count}
+    of each loop's round count (its slowest row's) and of each row's."""
+    def histogram(values):
+        keys, counts = np.unique(np.asarray(values, np.int64), return_counts=True)
+        return {int(k): int(n) for k, n in zip(keys, counts)}
+
+    per_call = [int(r.max(initial=0)) for r in log]
+    rows = np.concatenate(log) if log else np.zeros(0, np.int32)
+    return {"calls": len(log), "per_call": histogram(per_call), "per_row": histogram(rows)}
 
 
 @contextlib.contextmanager

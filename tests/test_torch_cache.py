@@ -1,14 +1,17 @@
 """The port's chunk cache, no-op replay, sub-batch path and delta fetch
 against the JAX engine: each case of tests/test_engine_cache.py run on
-the port's ``SchedulerEngine(device="cpu")`` beside a JAX engine
-(``KT_PIPELINE_DEPTH=1``, the sequential dispatch the port has) taking
-the same ticks.  Every tick's results equal the JAX engine's and a fresh
-port engine's cold tick; the JAX test's assertions hold on the port;
-where both engines take the same path, the cache and fetch counters are
-equal too.  The JAX keywords are set as the port's module constants.
+the port's ``SchedulerEngine(device="cpu")`` beside a JAX engine taking
+the same ticks, both at the sequential dispatch (port ``pipeline_depth``
+1, JAX ``KT_PIPELINE_DEPTH=1``) and, in ``test_case_at_depth_16``, both
+at the pipelined window's default depth of 16.  Every tick's results
+equal the JAX engine's and a fresh port engine's cold tick; the JAX
+test's assertions hold on the port; where both engines take the same
+path, the cache and fetch counters are equal too.  The JAX keywords are
+set as the port's module constants.
 """
 
 import dataclasses
+import sys
 
 import pytest
 
@@ -21,13 +24,21 @@ from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.testing.worlds import build_world
 
 
+# The pipeline depth of both engines of a pair (test_case_at_depth_16
+# sets 16).
+DEPTH = 1
+
+
 def _pair(monkeypatch, cache_bytes=16 << 30, **kw):
-    """(the port's engine, the JAX engine) with the same geometry."""
-    monkeypatch.setenv("KT_PIPELINE_DEPTH", "1")
+    """(the port's engine, the JAX engine) with the same geometry, both
+    at pipeline depth DEPTH."""
+    monkeypatch.setenv("KT_PIPELINE_DEPTH", str(DEPTH))
     ref = JaxEngine(
         mesh=None, flight_recorder=None, devprof=None, cache_bytes=cache_bytes, **kw
     )
-    return _port(monkeypatch, **kw), ref
+    port = _port(monkeypatch, **kw)
+    port.pipeline_depth = DEPTH
+    return port, ref
 
 
 def _both(engine, ref, units, clusters, **kw):
@@ -356,3 +367,28 @@ def test_warm_fallback_rows_are_fetched(monkeypatch):
     assert engine.last_changed == ref.last_changed
     _same_counters(engine, ref)
     assert engine.narrow_stats == ref.narrow_stats
+
+
+_CASES = [
+    pytest.param(getattr(cls(), name), id=f"{cls.__name__}.{name}")
+    for cls in (TestEngineCache, TestLazyDeviceRepair)
+    for name in sorted(vars(cls))
+    if name.startswith("test_")
+] + [
+    pytest.param(fn, id=fn.__name__)
+    for fn in (
+        test_drift_after_churn_fetches_delta_not_full,
+        test_label_churn_miss_carries_prev_outputs,
+        test_renamed_fleet_never_reuses_stale_decodes,
+        test_whole_batch_noop_gate_is_identity_keyed,
+        test_warm_fallback_rows_are_fetched,
+    )
+]
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_case_at_depth_16(case, monkeypatch):
+    """Every case above with both engines at the pipelined window's
+    default depth: the port's window against the JAX engine's."""
+    monkeypatch.setattr(sys.modules[__name__], "DEPTH", 16)
+    case(monkeypatch)

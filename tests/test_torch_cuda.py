@@ -1,7 +1,9 @@
 """The port on the card: the phase-1 CUDA kernel against its plain twin,
 the whole dense tick on CUDA against the CPU, and the engine on CUDA
 against the CPU engine (cold, warm and drift ticks, with their
-counters) — tolerance 0 (integer math).
+counters; the pipelined window on the card against the CPU engine's
+sequential dispatch) — tolerance 0 (integer math) — and the window's
+dispatch of a chunk making no host synchronisation.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -27,7 +29,9 @@ from kubeadmiral_tpu_torch.testing.problems import (
     random_tick_inputs,
 )
 from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
+from kubeadmiral_tpu_torch.testing.syncs import first_chunk_syncs
 from kubeadmiral_tpu_torch.testing.worlds import (
+    SHAPES,
     build_world,
     churn,
     drift,
@@ -192,3 +196,46 @@ def test_drift_tick_on_card_matches_cpu(cuda, config, shape, monkeypatch):
             assert gpu.upload_bytes["object"] == upload, kind
     if shape != "drift_wide":
         assert gpu.drift_stats["gated"] > 0
+
+
+def test_c3_cold_tick_in_the_window_matches_cpu_at_depth_1(cuda, monkeypatch):
+    """A c3-sample cold tick through the pipelined window on the card
+    (the default depth 16, six chunks in one window) against the CPU
+    engine's sequential dispatch: equal results, ``last_changed``, pack-K
+    hints, overflow rows and narrow, cache and fetch counters; the kernel
+    launches once per tick dispatch: chunks, certificate fallbacks and
+    planner re-dispatches."""
+    units, clusters, _ = build_world(3000, SHAPES["3"][1], "3", seed=5)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 512)
+    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    assert gpu.pipeline_depth == 16
+    cpu.pipeline_depth = 1
+    with recorded_dispatches() as calls:
+        launches = phase1.launches
+        got = gpu.schedule(units, clusters)
+        launched = phase1.launches - launches
+    want = cpu.schedule(units, clusters)
+    assert [r.clusters for r in got] == [r.clusters for r in want]
+    for name in ("cache_stats", "fetch_stats", "narrow_stats", "drift_stats", "survivor_stats"):
+        assert getattr(gpu, name) == getattr(cpu, name), name
+    assert gpu.last_changed == cpu.last_changed
+    assert gpu.overflow_rows_total == cpu.overflow_rows_total
+    hints = [[e.pack_k_hint for _, e in sorted(x._chunk_cache.items())] for x in (gpu, cpu)]
+    assert hints[0] == hints[1]
+    chunks = math.ceil(len(units) / gpu._tick_geometry(len(clusters))[1])
+    narrow = [c for c in calls if c[0] == "narrow"]
+    assert chunks == 6 and len(narrow) == chunks + gpu.planner_reruns
+    assert launched == len(calls)
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_window_dispatch_makes_no_host_sync(cuda, config):
+    """The window's dispatch of a chunk (uploads, expansion, the narrow
+    tick under the planner's round budget) raises nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``.  The sequential
+    dispatch reads the planner's loop condition once a round, and waits
+    nowhere else."""
+    units, clusters, _ = build_world(600, SHAPES[config][1], config, seed=6)
+    assert first_chunk_syncs(units, clusters, windowed=True, mode="error")["sites"] == []
+    sites = first_chunk_syncs(units, clusters, windowed=False)["sites"]
+    assert sites and all("ops/planner.py" in site for site in sites), sites

@@ -1,9 +1,11 @@
 """The port's drift gate through the engine, beside the JAX engine.
 
 Each case of tests/test_drift_tick.py and tests/test_survivor_unified.py
-runs on the port's ``SchedulerEngine(device="cpu")`` and on a JAX engine
-built under ``KT_PIPELINE_DEPTH=1`` (the sequential dispatch the port
-has), tick by tick: results, ``drift_stats``, ``survivor_stats``,
+runs on the port's ``SchedulerEngine(device="cpu")`` and on a JAX engine,
+both at the sequential dispatch (port ``pipeline_depth`` 1, JAX
+``KT_PIPELINE_DEPTH=1``) and, in ``test_case_at_depth_16``, both at the
+pipelined window's default depth of 16, tick by tick: results,
+``drift_stats``, ``survivor_stats``,
 ``fetch_stats``, ``narrow_stats``, ``last_changed`` and
 ``upload_bytes["cluster"]`` are equal after every tick, and the JAX
 tests' own assertions hold on the port.  The JAX keywords are set as
@@ -11,8 +13,10 @@ the port's module constants.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
+import pytest
 
 from test_drift_replan import _clusters, _fitflip_world, _quarter_cpu, GVK
 from test_drift_tick import halve_available
@@ -33,14 +37,21 @@ from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
 COUNTERS = ("drift_stats", "survivor_stats", "fetch_stats", "narrow_stats")
 
 
+# The pipeline depth of both engines of a Pair (test_case_at_depth_16
+# sets 16).
+DEPTH = 1
+
+
 class Pair:
-    """The port's engine and the JAX engine taking the same ticks."""
+    """The port's engine and the JAX engine taking the same ticks, both
+    at pipeline depth DEPTH."""
 
     def __init__(self, monkeypatch, **kw):
-        monkeypatch.setenv("KT_PIPELINE_DEPTH", "1")
+        monkeypatch.setenv("KT_PIPELINE_DEPTH", str(DEPTH))
         self.monkeypatch, self.kw = monkeypatch, kw
         self.ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
         self.port = _port(monkeypatch, **kw)
+        self.port.pipeline_depth = DEPTH
 
     def tick(self, units, clusters):
         got = self.port.schedule(units, clusters)
@@ -358,3 +369,20 @@ class TestSurvivors:
         assert pair.stats["gated"] >= 1
         results_equal(got, pair.fresh(units, drifted))
         _nfeas_consistent(pair.port)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        pytest.param(getattr(cls(), name), id=f"{cls.__name__}.{name}")
+        for cls in (TestDriftTick, TestSurvivors)
+        for name in sorted(vars(cls))
+        if name.startswith("test_")
+    ],
+)
+def test_case_at_depth_16(case, monkeypatch):
+    """Every case above with both engines at the pipelined window's
+    default depth: the drift gate's full dispatches (mass-change chunks,
+    ungated chunks) and the ticks around it go through the windows."""
+    monkeypatch.setattr(sys.modules[__name__], "DEPTH", 16)
+    case(monkeypatch)

@@ -5,11 +5,12 @@ cold tick under random sequences.
 The sequence differential runs seeded config 3 and config 5 worlds of a
 few hundred objects over several chunks through cold, churn, no-op,
 drift, mass-churn, topology-change and ``dirty_rows=`` ticks.  At every
-tick the results equal the JAX engine's (``KT_PIPELINE_DEPTH=1``, the
-sequential dispatch the port has) and so do the chunks' adaptive wire
-widths, ``last_changed`` and the cache, fetch, drift-gate, survivor and
-narrow counters.  On a drift tick ``last_changed`` holds every row whose
-result moved.
+tick the results equal the JAX engine's and so do the chunks' adaptive
+wire widths, ``last_changed`` and the cache, fetch, drift-gate, survivor
+and narrow counters, with both engines at the sequential dispatch (port
+``pipeline_depth`` 1, JAX ``KT_PIPELINE_DEPTH=1``) and, in the
+``_at_depth_16`` tests, at the pipelined window's default depth of 16.
+On a drift tick ``last_changed`` holds every row whose result moved.
 """
 
 import copy
@@ -51,11 +52,22 @@ SEQUENCE_WORLDS = {"3": (300, 40, 64), "5": (600, 300, 128)}
 
 @pytest.mark.parametrize("config", sorted(SEQUENCE_WORLDS))
 def test_tick_sequence_matches_jax_engine(config, monkeypatch):
+    _tick_sequence(config, monkeypatch, depth=1)
+
+
+@pytest.mark.parametrize("config", sorted(SEQUENCE_WORLDS))
+def test_tick_sequence_matches_jax_engine_at_depth_16(config, monkeypatch):
+    _tick_sequence(config, monkeypatch, depth=16)
+
+
+def _tick_sequence(config, monkeypatch, depth):
+    """The sequence on both engines at pipeline depth ``depth``."""
     n, c, chunk = SEQUENCE_WORLDS[config]
     units, clusters, _ = build_world(n, c, config, seed=1)
-    monkeypatch.setenv("KT_PIPELINE_DEPTH", "1")
+    monkeypatch.setenv("KT_PIPELINE_DEPTH", str(depth))
     ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, chunk_size=chunk)
     port = _port(monkeypatch, chunk_size=chunk)
+    port.pipeline_depth = depth
     rng = np.random.default_rng(0)
     seen = set()
     gated = []
@@ -176,11 +188,24 @@ STEPS = st.lists(
 @settings(max_examples=12, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(steps=STEPS)
 def test_random_sequences_match_a_fresh_cold_tick(steps, monkeypatch):
-    """Random churn, drift and no-op ticks on one warm port engine: every
-    tick equals a fresh port engine's cold tick."""
+    """Random churn, drift and no-op ticks on one warm port engine at the
+    sequential dispatch: every tick equals a fresh port engine's cold
+    tick."""
+    _random_sequence(steps, monkeypatch, depth=1)
+
+
+@settings(max_examples=12, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(steps=STEPS)
+def test_random_sequences_match_a_fresh_cold_tick_at_depth_16(steps, monkeypatch):
+    """The same with the warm engine's window at depth 16."""
+    _random_sequence(steps, monkeypatch, depth=16)
+
+
+def _random_sequence(steps, monkeypatch, depth):
     units, clusters = make_world(b=48, c=10)
     kw = dict(chunk_size=16, min_bucket=8)
     engine = _port(monkeypatch, **kw)
+    engine.pipeline_depth = depth
     engine.schedule(units, clusters)
     for kind, seed in steps:
         rng = np.random.default_rng(seed)
