@@ -79,6 +79,21 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    shapes, fetch and upload bytes, overflow and changed rows and
    ``torch.cuda.memory_allocated()``; then holds the kernel against its
    twin, timed with its bound, at the first churn tick's slab shape;
+9b. the surface phase (``surface_phase``), per world on a fresh engine:
+   a cold ``want_scores`` tick (results and scores equal to the CPU
+   engine's on the check rows; fetch bytes equal to step 7's plus the
+   overflow rows' score words), a no-op and a 1 % churn tick with
+   scores and a follower index (follower rows are their leaders'
+   unions), a plain tick (no launch), a capacity drift with scores and
+   a tick back (the drift gate bypassed: one launch per chunk; placements
+   and scores equal to a fresh engine's), then a ``webhook_eval`` tick
+   with scores (``testing/worlds.py:webhook``; c5 cut to
+   C5_DENSE_OBJECTS objects): one launch per chunk plus certificate
+   fallbacks, results equal to the CPU engine's, the chunk cache
+   untouched, a plain tick after it replaying with no launch; then the
+   kernel against its twin, timed with its bound, on the first webhook
+   chunk's inputs.  Each window drain logs its chunks, memory and the
+   pinned host bytes held;
 10. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -562,8 +577,20 @@ def gc_time():
         gc.callbacks.remove(callback)
 
 
-def counted_tick(engine, units, clusters, capture: bool = False):
-    """engine.schedule(units, clusters) with every tick dispatch recorded
+def pinned_bytes():
+    """The byte counters of PyTorch's caching host allocator (the pinned
+    staging of uploads and reads), or None where this torch has no
+    ``torch.cuda.host_memory_stats``."""
+    import torch
+
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    return {k: v for k, v in stats().items() if "bytes" in k}
+
+
+def counted_tick(engine, units, clusters, capture: bool = False, **kw):
+    """engine.schedule(units, clusters, **kw) with every tick dispatch recorded
     as (kind, rows, clusters), kind "narrow" or "dense" (on a narrow
     path the dense ones are certificate fallbacks), the phase-1 launch
     count set to 0 just before the call and read just after, and the
@@ -577,8 +604,10 @@ def counted_tick(engine, units, clusters, capture: bool = False):
     inside the tick is reported (``gc_ms``, collections by generation).
     The peak of ``memory_allocated`` is reset before the call; the
     synchronising operations made inside the chunk dispatches are
-    counted (``dispatch_syncs``, testing/syncs.py).  Returns (results,
-    tick dict, captured host inputs or None)."""
+    counted (``dispatch_syncs``, testing/syncs.py); each window drain
+    records its chunks, ``memory_allocated`` and the pinned host bytes
+    held as it starts (``drains``).  Returns (results, tick dict,
+    captured host inputs or None)."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
@@ -591,16 +620,31 @@ def counted_tick(engine, units, clusters, capture: bool = False):
         dict(engine.upload_bytes), engine.overflow_rows_total, engine.fetch_bytes_total,
         dict(engine.drift_stats), dict(engine.survivor_stats), engine.planner_reruns,
     )
+    drains = []
+    real_drain = engine._drain_window
+
+    def drain(items, *args):
+        if items:
+            drains.append({
+                "chunks": len(items), "memory_allocated": torch.cuda.memory_allocated(),
+                "pinned": pinned_bytes(),
+            })
+        return real_drain(items, *args)
+
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_dispatches(keep=captured if capture else None) as calls, \
-            counted_dispatch_syncs(engine) as syncs, gc_time() as collector:
-        phase1.launches = 0
-        t0 = time.perf_counter()
-        results = engine.schedule(units, clusters)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = phase1.launches
+    engine._drain_window = drain
+    try:
+        with recorded_dispatches(keep=captured if capture else None) as calls, \
+                counted_dispatch_syncs(engine) as syncs, gc_time() as collector:
+            phase1.launches = 0
+            t0 = time.perf_counter()
+            results = engine.schedule(units, clusters, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = phase1.launches
+    finally:
+        del engine._drain_window
     narrow0, cache0, fetch0, upload0, over0, bytes0, gate0, surv0, reruns0 = before
     captured = [type(inp)(*(x.cpu() for x in inp)) for inp in captured]
 
@@ -635,18 +679,19 @@ def counted_tick(engine, units, clusters, capture: bool = False):
         "dispatch_sync_sites": sorted(set(syncs)),
         "memory_allocated": torch.cuda.memory_allocated(),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "drains": drains,
     }
     return results, tick, captured[0] if captured else None
 
 
-def run_tick(label: str, engine, units, clusters) -> dict:
-    """One cold engine tick on the card (``engine`` fresh: no cache).
-    Requires launches = chunks + fallback dispatches + planner
-    re-dispatches (windowed chunks whose planner outlasted its round
-    budget, dispatched again)."""
+def run_tick(label: str, engine, units, clusters, **kw) -> dict:
+    """One cold engine tick on the card (``engine`` fresh: no cache;
+    ``kw`` to schedule).  Requires launches = chunks + fallback
+    dispatches + planner re-dispatches (windowed chunks whose planner
+    outlasted its round budget, dispatched again)."""
     c_bucket, eff, _ = engine._tick_geometry(len(clusters))
     chunks = math.ceil(len(units) / eff)
-    results, tick, _ = counted_tick(engine, units, clusters)
+    results, tick, _ = counted_tick(engine, units, clusters, **kw)
     narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
     reruns = tick["planner_reruns"]
     if narrow not in (0, chunks + reruns):
@@ -970,18 +1015,209 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
     return ticks, slab
 
 
-def assert_results_equal(label: str, got, want) -> None:
+def assert_results_equal(label: str, got, want, scores: bool = False) -> None:
+    """Equal placements row by row (and equal score dicts with
+    ``scores``)."""
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} results vs {len(want)}")
     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a.clusters != b.clusters]
+    if scores:
+        bad += [i for i, (a, b) in enumerate(zip(got, want)) if a.scores != b.scores]
     if bad:
-        i = bad[0]
+        i = min(bad)
         raise AssertionError(
-            f"{label}: {len(bad)} rows differ; row {i}: {dict(got[i].clusters)} "
-            f"vs {dict(want[i].clusters)}"
+            f"{label}: {len(set(bad))} rows differ; row {i}: {dict(got[i].clusters)} "
+            f"{dict(got[i].scores)} vs {dict(want[i].clusters)} {dict(want[i].scores)}"
         )
     placed = sum(1 for r in got if r.clusters)
-    log(f"check {label}: {len(got)} rows equal ({placed} placed)")
+    scored = f", {sum(1 for r in got if r.scores)} with scores" if scores else ""
+    log(f"check {label}: {len(got)} rows equal ({placed} placed{scored})")
+
+
+# The surface phase's follower index: every FOLLOW_EVERY-th row follows
+# its two predecessors.
+FOLLOW_EVERY = 50
+
+
+def check_unions(label: str, results, follows: dict) -> None:
+    """Every follower row's placement is its leaders' union, without
+    replica counts."""
+    for f, leaders in follows.items():
+        want = set()
+        for leader in leaders:
+            want.update(results[leader].clusters)
+        got = results[f].clusters
+        if set(got) != want or any(v is not None for v in got.values()):
+            raise AssertionError(f"{label}: follower row {f} is not its leaders' union")
+    log(f"check {label}: {len(follows)} follower rows are their leaders' unions")
+
+
+def surface_phase(cfg: str, units, clusters, plain_cold: dict) -> dict:
+    """The rest of schedule()'s surface at full size on a fresh engine.
+
+    Scores: a cold ``want_scores`` tick (launches as run_tick; results
+    and scores equal to the CPU engine's on the check rows; fetch bytes
+    equal to step 7's plain cold tick's plus the overflow rows' score
+    words, 4 B a cluster slot, when neither re-dispatched), a no-op and
+    a 1 % churn tick with scores and a follower index (FOLLOW_EVERY),
+    a plain tick on the same list (the scored decodes serve it: no
+    launch), a capacity drift with scores (no gate: every chunk
+    dispatched whole) and a tick back, each drift tick equal in
+    placements and scores to a fresh engine's.
+
+    Webhook: a ``want_scores`` tick with testing/worlds.py:webhook(0)
+    over the first C5_DENSE_OBJECTS objects at c5 (all at c3): one
+    launch per chunk plus certificate fallbacks (some rows' webhook
+    scores leave the narrow key range, so there are some); results and
+    scores equal to the CPU engine's on the check rows; the chunk cache
+    untouched; then a plain tick over the whole list replays with no
+    launch and no upload; then the kernel against phase1_plain on the
+    first webhook chunk's inputs, timed, with its bound.  Returns {"ticks":
+    by label, "webhook_chunk": check_phase1's row}."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.follower import FollowerIndex
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.worlds import churn, drift, webhook
+
+    engine = SchedulerEngine()
+    c_bucket, eff, ladder = engine._tick_geometry(len(clusters))
+    chunks = math.ceil(len(units) / eff)
+    check = len(units) if cfg == "3" else C5_CHECK_ROWS
+    follows = {i: (i - 2, i - 1) for i in range(FOLLOW_EVERY, len(units), FOLLOW_EVERY)}
+    fidx = FollowerIndex(follows)
+    ticks = {}
+
+    def record(label, tick):
+        tick.pop("results", None)
+        ticks[label] = tick
+        log(f"surface c{cfg} {label}: {json.dumps(tick)}")
+
+    def cpu_check(label, got, batch, cl, **kw):
+        rows = min(check, len(got))
+        t0 = time.perf_counter()
+        want = SchedulerEngine(device="cpu").schedule(batch[:rows], cl, **kw)
+        log(f"cpu engine c{cfg} {label}: {rows} rows in {time.perf_counter() - t0:.2f} s")
+        assert_results_equal(f"c{cfg} {label} gpu vs cpu", got[:rows], want, scores=True)
+
+    def fresh(label, batch, cl):
+        t0 = time.perf_counter()
+        want = SchedulerEngine().schedule(batch, cl, want_scores=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"fresh engine c{cfg} {label}: {len(batch)} rows in {time.perf_counter() - t0:.2f} s")
+        return want
+
+    def no_launch(label, tick, paths=None):
+        launched = tick["phase1_launches"] + tick["narrow_dispatches"] + tick["dense_dispatches"]
+        if launched or tick["upload_bytes"]["object"]:
+            raise AssertionError(f"c{cfg} {label}: launched or uploaded: {tick}")
+        if paths is not None and tick["fetch_paths"] != paths:
+            raise AssertionError(f"c{cfg} {label}: fetch paths {tick['fetch_paths']}")
+
+    def same_objects(label, got, prev, skip=()):
+        if any(got[j] is not prev[j] for j in range(len(got)) if j not in skip):
+            raise AssertionError(f"c{cfg} {label}: a row is not the previous result object")
+
+    # Scored cold tick: the plain cold tick's bytes plus the score words
+    # of its overflow rows.
+    tick = run_tick(f"c{cfg} scores cold", engine, units, clusters, want_scores=True)
+    got = tick.pop("results")
+    if tick["overflow_rows"] != plain_cold["overflow_rows"]:
+        raise AssertionError(f"c{cfg} scores cold: overflow rows differ from the plain cold tick")
+    predicted = plain_cold["fetch_bytes"] + tick["overflow_rows"] * c_bucket * 4
+    tick["predicted_fetch_bytes"] = predicted
+    if tick["planner_reruns"] == 0 and plain_cold["planner_reruns"] == 0:
+        if tick["fetch_bytes"] != predicted:
+            raise AssertionError(
+                f"c{cfg} scores cold: {tick['fetch_bytes']} fetch bytes, {predicted} predicted"
+            )
+    record("cold", tick)
+    cpu_check("scores cold", got, units, clusters, want_scores=True)
+
+    again, tick, _ = counted_tick(engine, units, clusters, want_scores=True, follower_index=fidx)
+    no_launch("noop", tick, {"noop": chunks})
+    same_objects("noop", again, got, skip=follows)
+    check_unions(f"c{cfg} surface noop", again, follows)
+    record("noop", tick)
+
+    rng = np.random.default_rng(0)
+    batch = churn(rng, units)
+    got, tick, _ = counted_tick(
+        engine, batch, clusters, want_scores=True, follower_index=fidx
+    )
+    changed = [j for j, (a, b) in enumerate(zip(batch, units)) if a is not b]
+    cut = engine._slab_cut(len(changed), eff, ladder)
+    slabs = -(-len(changed) // cut)
+    narrow = tick["narrow_dispatches"]
+    fallback = tick["dense_dispatches"] if narrow else 0
+    if (narrow or tick["dense_dispatches"]) != slabs or tick["phase1_launches"] != slabs + fallback:
+        raise AssertionError(f"c{cfg} surface churn: {tick['phase1_launches']} launches, {slabs} slabs")
+    same_objects("churn", got, again, skip=set(changed) | set(follows))
+    check_unions(f"c{cfg} surface churn", got, follows)
+    mine = [j for j in changed if j not in follows]
+    want = fresh("churn, changed units", [batch[j] for j in mine], clusters)
+    assert_results_equal(f"c{cfg} surface churn changed rows vs fresh engine",
+                         [got[j] for j in mine], want, scores=True)
+    tick.update(changed_units=len(changed), slabs=slabs, fallback_dispatches=fallback)
+    record("churn", tick)
+
+    plain, tick, _ = counted_tick(engine, batch, clusters)
+    no_launch("plain", tick, {"noop": chunks})
+    same_objects("plain", plain, got, skip=follows)
+    record("plain", tick)
+
+    prev = plain
+    for label, cl in (("drift", drift(clusters)), ("back", clusters)):
+        got, tick, _ = counted_tick(engine, batch, cl, want_scores=True)
+        narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+        reruns = tick["planner_reruns"]
+        fallback = dense if narrow else 0
+        if tick["drift_stats"].get("gated", 0) or (narrow or dense) != chunks + reruns:
+            raise AssertionError(f"c{cfg} surface {label}: the drift gate ran: {tick}")
+        if tick["phase1_launches"] != chunks + reruns + fallback:
+            raise AssertionError(f"c{cfg} surface {label}: {tick['phase1_launches']} launches")
+        if tick["cache"] != {"hit": chunks} or tick["upload_bytes"]["object"]:
+            raise AssertionError(f"c{cfg} surface {label}: not a hit on device inputs: {tick}")
+        assert_results_equal(f"c{cfg} surface {label} vs fresh engine", got,
+                             fresh(label, batch, cl), scores=True)
+        moved = {i for i, (a, b) in enumerate(zip(got, prev)) if a.clusters != b.clusters}
+        if engine.last_changed is not None and not moved <= set(engine.last_changed):
+            raise AssertionError(f"c{cfg} surface {label}: moved rows not changed")
+        tick.update(fallback_dispatches=fallback, moved_rows=len(moved))
+        record(label, tick)
+        prev = got
+
+    # Webhook: a dense-featurized, uncached tick; then a plain tick back.
+    depth = len(units) if cfg == "3" else C5_DENSE_OBJECTS
+    hook = webhook(seed=0)
+    wchunks = math.ceil(depth / eff)
+    hooked, tick, captured = counted_tick(
+        engine, batch[:depth], clusters, capture=True, want_scores=True, webhook_eval=hook
+    )
+    narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+    reruns = tick["planner_reruns"]
+    if narrow != wchunks + reruns or tick["phase1_launches"] != narrow + dense:
+        raise AssertionError(f"c{cfg} webhook: {tick['phase1_launches']} launches, {narrow} narrow")
+    if not dense or not tick["narrow_stats"]["fallback"]:
+        raise AssertionError(f"c{cfg} webhook: no certificate fallback: {tick['narrow_stats']}")
+    if tick["cache"] or tick["fetch_paths"] != {"full": wchunks}:
+        raise AssertionError(f"c{cfg} webhook: touched the chunk cache: {tick}")
+    tick.update(chunks=wchunks, fallback_dispatches=dense)
+    record("webhook", tick)
+    cpu_check("webhook", hooked, batch, clusters, want_scores=True, webhook_eval=hook)
+    back, tick, _ = counted_tick(engine, batch, clusters)
+    no_launch("plain after webhook", tick)
+    same_objects("plain after webhook", back, prev)
+    record("plain after webhook", tick)
+    del engine, hooked, back
+    torch.cuda.empty_cache()
+    inp = type(captured)(*(x.cuda() for x in captured))
+    del captured
+    row = check_phase1(f"c{cfg}-webhook-chunk", inp, timed=True)
+    del inp
+    torch.cuda.empty_cache()
+    return {"ticks": ticks, "webhook_chunk": row}
 
 
 def main() -> int:
@@ -1069,7 +1305,7 @@ def main() -> int:
     log(f"phase syncs: {time.perf_counter() - t0:.2f} s")
 
     ticks, dense_ticks, fallback_ticks = {}, {}, {}
-    warm, slab_rows, depth_turns = {}, {}, {}
+    warm, slab_rows, depth_turns, surface = {}, {}, {}, {}
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
@@ -1131,6 +1367,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase warm-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
+        # Scores, follower unions and webhook ticks on a fresh engine.
+        t0 = time.perf_counter()
+        surface[cfg] = surface_phase(cfg, units, clusters, ticks[cfg])
+        log(f"phase surface-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
     c5, c3 = rows["5"], rows["3"]
     kernels = {
         "kernels": [
@@ -1151,7 +1392,9 @@ def main() -> int:
                 "launches_fallback_c5": fallback_ticks["5"]["phase1_launches"],
                 "launches_fallback_c3": fallback_ticks["3"]["phase1_launches"],
                 "max_abs_err": max(
-                    r["max_abs_err"] for r in (c5, c3, slab_rows["5"], slab_rows["3"])
+                    r["max_abs_err"]
+                    for r in (c5, c3, slab_rows["5"], slab_rows["3"],
+                              surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"])
                 ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -1209,6 +1452,31 @@ def main() -> int:
                 **{
                     f"slab_c{cfg}": {
                         key: slab_rows[cfg][key]
+                        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                    }
+                    for cfg in ("5", "3")
+                },
+                # The surface phase: launches per scored tick (cold,
+                # no-op, churn, plain, drift, back) and per tick of the
+                # webhook step, and the kernel on the first webhook chunk.
+                **{
+                    f"launches_scores_c{cfg}": {
+                        label: t["phase1_launches"]
+                        for label, t in surface[cfg]["ticks"].items()
+                        if label not in ("webhook", "plain after webhook")
+                    }
+                    for cfg in ("5", "3")
+                },
+                **{
+                    f"launches_webhook_c{cfg}": {
+                        label: surface[cfg]["ticks"][label]["phase1_launches"]
+                        for label in ("webhook", "plain after webhook")
+                    }
+                    for cfg in ("5", "3")
+                },
+                **{
+                    f"webhook_chunk_c{cfg}": {
+                        key: surface[cfg]["webhook_chunk"][key]
                         for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
                     }
                     for cfg in ("5", "3")

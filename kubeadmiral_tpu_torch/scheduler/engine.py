@@ -41,11 +41,21 @@ Queuing waits for nothing: uploads go through pinned memory, and the
 planner runs a fixed round budget with its unsettled rows read at the
 drain (a chunk with one is dispatched again with the checked loop).
 Depth 1 is the sequential path: a window of one chunk, dispatched with
-the checked round loop, waited for and fetched before the next.  Snapshots,
-score decoding and webhooks are not ported.  One tick runs at a time on
-an engine (a lock).  The device is ``"cuda"`` unless the caller asks for
-the CPU; without CUDA the default raises instead of carrying on on the
-CPU.
+the checked round loop, waited for and fetched before the next.
+
+``schedule`` takes the JAX engine's whole call surface: a caller-built
+cluster ``view``; ``webhook_eval`` (webhook planes are per-tick results,
+so a webhook tick featurizes every chunk dense, reads and writes no
+cache entry and neither hits nor arms the no-op gate); ``want_scores``
+(each result also carries the selected clusters' scores, decoded off the
+same wire and cached beside the placements; a tick that wants scores
+takes no drift gate); ``follower_index`` (the follower union of
+``ops/follower.py`` over the returned rows, recomputed for the followers
+of ``last_changed``); ``dirty_rows``; and it counts its ticks
+(``tick_seq``, ``last_tick_id``).  Snapshots are not ported.  One tick
+runs at a time on an engine (a lock).  The device is ``"cuda"`` unless
+the caller asks for the CPU; without CUDA the default raises instead of
+carrying on on the CPU.
 """
 
 from __future__ import annotations
@@ -164,8 +174,8 @@ class _FrozenDict(dict):
 class ScheduleResult:
     """Placement decision for one object: cluster -> replicas (None in
     Duplicate mode), mirroring core.ScheduleResult.SuggestedClusters.
-    ``scores`` (post-normalize totals of the selected clusters) stays
-    empty: score decoding is not ported yet."""
+    ``scores`` holds the selected clusters' post-normalize totals on a
+    tick that asked for them (``want_scores``), else it is empty."""
 
     clusters: dict[str, Optional[int]]
     scores: dict[str, int] = field(default_factory=dict)
@@ -321,6 +331,12 @@ def _gather_overflow3(sel, cnt, rep, idx):
     )
 
 
+def _gather_overflow4(sel, cnt, rep, sco, idx):
+    """The score-carrying variant, for a decode that carries scores: the
+    score plane's C words after _gather_overflow3's."""
+    return torch.cat([_gather_overflow3(sel, cnt, rep, idx), sco[idx]], dim=1)
+
+
 def _pad_cluster_axis(arr, c_pad: int, fill):
     arr = np.asarray(arr)
     extra = c_pad - arr.shape[0]
@@ -372,7 +388,9 @@ class _CachedChunk:
     prev_reasons: Optional[torch.Tensor] = None
     prev_nfeas: Optional[torch.Tensor] = None
     prev_results: Optional[list] = None
-    prev_has_scores: bool = False  # score decoding is not ported
+    # Whether prev_results carry score dicts (decoded on a want_scores
+    # tick): a tick that wants scores replays them only then.
+    prev_has_scores: bool = False
     prev_view: Optional[object] = None
     # (changed rows, their featurized rows) of the last patch, consumed
     # once by the sub-batch path.
@@ -408,6 +426,9 @@ class _InFlight:
     m: Optional[int]
     key_max: Optional[int]
     delta_ok: bool
+    # Whether a full fetch decodes scores (the tick's want_scores); a
+    # delta fetch follows its entry's prev_has_scores.
+    want_scores: bool = False
     # Rows the certificate fallback re-solved (forced into the delta).
     fb_rows: Optional[np.ndarray] = None
 
@@ -525,6 +546,10 @@ class SchedulerEngine:
         # was still going after PLANNER_ROUNDS.
         self.pipeline_depth = PIPELINE_DEPTH
         self.planner_reruns = 0
+        # Ticks with units so far, and the last tick's id (the tick
+        # count: the port has no device profiler to issue other ids).
+        self.tick_seq = 0
+        self.last_tick_id = 0
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -770,12 +795,19 @@ class SchedulerEngine:
         sub = Cmp.pad_axis1(sub, Cmp.SPARSE_FILLS, p_cached)
         return Cmp.pad_axis1(sub, {"key_bytes": 0}, l_cached)
 
-    def _featurize_chunk(self, idx: int, chunk, clusters, view, vocab, dirty=None):
+    def _featurize_chunk(
+        self, idx: int, chunk, clusters, view, webhook_eval, vocab, dirty=None
+    ):
         """(inputs, status, entry, fmt); status is "hit" (rows unchanged),
         "patch" (at most a quarter of the rows re-featurized and patched
-        in) or "miss" (full featurize).  ``dirty`` (local rows) asserts
-        every other row is the identical object of the previous call, so
-        only those rows are checked."""
+        in), "miss" (full featurize) or "nocache" (a webhook tick: the
+        webhook planes are this tick's results, so the chunk is
+        featurized dense and no cache entry is read or written).
+        ``dirty`` (local rows) asserts every other row is the identical
+        object of the previous call, so only those rows are checked."""
+        if webhook_eval is not None:
+            fb = featurize(chunk, clusters, view=view, webhook_eval=webhook_eval)
+            return fb.inputs, "nocache", None, "dense"
         topo_fp = self._topo_fingerprint(view)
         cached = self._chunk_cache.get(idx)
         if (
@@ -1034,19 +1066,41 @@ class SchedulerEngine:
         self,
         units: Sequence[T.SchedulingUnit],
         clusters: Sequence[T.ClusterState],
+        view: Optional[ClusterView] = None,
+        webhook_eval=None,
+        want_scores: bool = False,
+        follower_index=None,
         dirty_rows=None,
     ) -> list[ScheduleResult]:
         """Schedule every unit against the clusters.
 
-        ``dirty_rows`` (global row indices) is the delta-featurization
-        hint: the caller asserts that every row outside it is the
-        identical unit object of its previous call over this list, so
-        the cache check visits only those rows.  Ticks from several
-        threads run one at a time."""
+        ``view`` is a ClusterView the caller built over ``clusters``
+        (None: the engine's cached one).  ``webhook_eval(unit, clusters)
+        -> (ok_row, score_row) | None`` adds out-of-process plugins' mask
+        and score planes (featurize.featurize).  ``want_scores`` also
+        decodes each result's score dict.  ``follower_index`` (an
+        ops.follower.FollowerIndex) overwrites follower rows with their
+        leaders' placement union.  ``dirty_rows`` (global row indices) is
+        the delta-featurization hint: the caller asserts that every row
+        outside it is the identical unit object of its previous call over
+        this list, so the cache check visits only those rows.  Ticks from
+        several threads run one at a time; each with units advances
+        ``tick_seq``."""
+        if not units:
+            self.last_changed = []
+            return []
         with self._schedule_lock:
-            return self._schedule(units, clusters, dirty_rows)
+            self.tick_seq += 1
+            self.last_tick_id = self.tick_seq
+            return self._schedule(
+                units, clusters, view, webhook_eval, want_scores, follower_index,
+                dirty_rows,
+            )
 
-    def _schedule(self, units, clusters, dirty_rows) -> list[ScheduleResult]:
+    def _schedule(
+        self, units, clusters, view, webhook_eval, want_scores, follower_index,
+        dirty_rows,
+    ) -> list[ScheduleResult]:
         units_arg = units
         units = list(units)
         timings = dict.fromkeys(
@@ -1055,22 +1109,25 @@ class SchedulerEngine:
             0.0,
         )
         self.timings = timings
-        if not units:
-            self.last_changed = []
-            return []
-        view = self._cached_view(units, clusters)
+        if view is None:
+            view = self._cached_view(units, clusters)
         # Whole-batch no-op gate: the same list (or a fresh list of the
         # same objects, compared by id; the gate keeps them alive, so an
-        # id match is identity) against the same view replays the
-        # previous results with no per-chunk walk.
-        if self._noop_gate is not None:
-            g_units, g_ids, g_view, g_results, g_chunks = self._noop_gate
-            replay = units_arg is g_units and view is g_view
-            if not replay and view is g_view and len(units) == len(g_units):
+        # id match is identity) against the same view, with the same
+        # want_scores and follower index, replays the previous results
+        # with no per-chunk walk.  A webhook tick neither hits nor arms
+        # it (its plugin set is not in the key).
+        if webhook_eval is None and self._noop_gate is not None:
+            g_units, g_ids, g_view, g_ws, g_fidx, g_results, g_chunks = self._noop_gate
+            same = view is g_view and want_scores == g_ws and follower_index is g_fidx
+            replay = same and units_arg is g_units
+            if not replay and same and len(units) == len(g_units):
                 ids = np.fromiter(map(id, units), np.int64, count=len(units))
                 if np.array_equal(ids, g_ids):
                     replay = True
-                    self._noop_gate = (units_arg, g_ids, g_view, g_results, g_chunks)
+                    self._noop_gate = (
+                        units_arg, g_ids, g_view, g_ws, g_fidx, g_results, g_chunks
+                    )
             if replay:
                 self.fetch_stats["noop"] += g_chunks
                 self.last_changed = []
@@ -1092,7 +1149,11 @@ class SchedulerEngine:
         window: list[_InFlight] = []
         c_bucket, eff_chunk, ladder = self._tick_geometry(len(view.clusters))
         multi_chunk = len(units) > eff_chunk
-        vocab = self._vocab_for(view, self._topo_fingerprint(view))
+        vocab = (
+            self._vocab_for(view, self._topo_fingerprint(view))
+            if webhook_eval is None
+            else None
+        )
         dirty_sorted = (
             np.asarray(sorted(dirty_rows), dtype=np.int64)
             if dirty_rows is not None
@@ -1108,15 +1169,18 @@ class SchedulerEngine:
                 dirty_chunk = (dirty_sorted[lo:hi] - start).tolist()
             t0 = time.perf_counter()
             inputs, status, entry, fmt = self._featurize_chunk(
-                chunk_idx, chunk, clusters, view, vocab, dirty=dirty_chunk
+                chunk_idx, chunk, clusters, view, webhook_eval, vocab, dirty=dirty_chunk
             )
             patch_info = None
             if entry is not None:
                 patch_info, entry.last_patch = entry.last_patch, None
+            # The cached decode serves this tick only if it carries what
+            # the tick needs (scores when want_scores).
             prev_valid = (
                 entry is not None
                 and entry.prev_results is not None
                 and len(entry.prev_results) == n
+                and (entry.prev_has_scores or not want_scores)
             )
             # Per-chunk no-op: a clean hit against the same view would
             # reproduce the previous outputs.
@@ -1169,12 +1233,16 @@ class SchedulerEngine:
                 continue
             # Drift: a clean hit whose only change is cluster resource
             # quantities at a few columns classifies its rows on the
-            # device instead of re-running the whole chunk.
+            # device instead of re-running the whole chunk.  Not for a
+            # decode that carries scores: the gate's skipped rows keep
+            # their stored score dicts, which the drift may have moved.
             shape = (b_pad, c_bucket)
             if (
                 status == "hit"
                 and drift_info is not None
                 and prev_valid
+                and not want_scores
+                and not entry.prev_has_scores
                 and entry.prev_out is not None
                 and entry.prev_feas is not None
                 and entry.device_per_object is not None
@@ -1203,7 +1271,7 @@ class SchedulerEngine:
             self._full_dispatch(
                 window, len(chunk_results) - 1, entry, inputs, status, fmt, n,
                 b_pad, pack_k, view, vocab, c_bucket, delta_ok, chunk_results,
-                chunk_changed, timings,
+                chunk_changed, timings, want_scores,
             )
 
         # The window drains before the drift gates and the sub-batch
@@ -1232,12 +1300,18 @@ class SchedulerEngine:
                 for slot, ch in enumerate(chunk_changed)
                 for row in ch
             ]
+        if follower_index is not None:
+            t0 = time.perf_counter()
+            follower_index.apply(results, self.last_changed)
+            timings["follower"] = time.perf_counter() - t0
         self._noop_gate = (
-            units_arg,
-            np.fromiter(map(id, units), np.int64, count=len(units)),
-            view,
-            results,
-            len(chunk_results),
+            (
+                units_arg,
+                np.fromiter(map(id, units), np.int64, count=len(units)),
+                view, want_scores, follower_index, results, len(chunk_results),
+            )
+            if webhook_eval is None
+            else None
         )
         return results
 
@@ -1245,21 +1319,22 @@ class SchedulerEngine:
     def _full_dispatch(
         self, window: list, slot: int, entry, inputs, status: str, fmt: str, n: int,
         b_pad: int, pack_k: int, view, vocab, c_bucket: int, delta_ok: bool,
-        chunk_results, chunk_changed, timings,
+        chunk_results, chunk_changed, timings, want_scores: bool = False,
     ) -> None:
-        """One chunk dispatched whole, its results landing in ``slot``:
-        queued into ``window``, which is drained once it holds
-        ``pipeline_depth`` chunks.  Depth 1 is the sequential dispatch: a
-        window of one chunk whose planner runs the checked round loop,
-        with the wait for the card counted as ``device``."""
+        """One chunk dispatched whole, its results landing in ``slot``
+        (a full fetch decodes scores if ``want_scores``): queued into
+        ``window``, which is drained once it holds ``pipeline_depth``
+        chunks.  Depth 1 is the sequential dispatch: a window of one
+        chunk whose planner runs the checked round loop, with the wait
+        for the card counted as ``device``."""
         windowed = self.pipeline_depth > 1
-        window.append(
-            self._queue_chunk(
-                slot, entry, inputs, status, fmt, n, b_pad, pack_k, view, vocab,
-                c_bucket, delta_ok, timings,
-                RoundBudget(PLANNER_ROUNDS) if windowed else None,
-            )
+        item = self._queue_chunk(
+            slot, entry, inputs, status, fmt, n, b_pad, pack_k, view, vocab,
+            c_bucket, delta_ok, timings,
+            RoundBudget(PLANNER_ROUNDS) if windowed else None,
         )
+        item.want_scores = want_scores
+        window.append(item)
         if not windowed:
             t0 = time.perf_counter()
             self._sync()
@@ -1377,8 +1452,9 @@ class SchedulerEngine:
         """Every planned chunk's wire queued before the first read: the
         changed rows' (delta: a row gather) or the first n rows' (full),
         read in one copy per wire width (_read_all); then the K-overflow
-        rows of the whole window (_fetch_overflow_window) and the
-        decodes."""
+        rows of the whole window (_fetch_overflow_window; with the score
+        plane where the decode carries scores: a delta's entry's
+        prev_has_scores, a full fetch's want_scores) and the decodes."""
         t0 = time.perf_counter()
         wires = []  # (item, gathered rows or None for full, device wire)
         for it, idx in delta_items:
@@ -1394,15 +1470,19 @@ class SchedulerEngine:
 
         t0 = time.perf_counter()
         parsed = []  # (item, gathered rows or None, packed, overflow positions)
-        over_jobs = []  # (parsed index, the dispatch's outputs, its overflow rows)
+        # (parsed index, the dispatch's outputs, its overflow rows, scores)
+        over_jobs = []
         for (it, idx, _wire), arr in zip(wires, arrs):
             packed = unpack_wire(arr, it.pack_k)
             self._observe_nsel(it.entry, packed.nsel, it.out.selected.shape[1])
             over_pos = np.nonzero(packed.nsel > it.pack_k)[0]
             if over_pos.size:
-                over_jobs.append(
-                    (len(parsed), it.out, over_pos if idx is None else idx[over_pos])
-                )
+                if idx is None:
+                    over_jobs.append((len(parsed), it.out, over_pos, it.want_scores))
+                else:
+                    over_jobs.append(
+                        (len(parsed), it.out, idx[over_pos], it.entry.prev_has_scores)
+                    )
             parsed.append((it, idx, packed, over_pos))
         over = self._fetch_overflow_window([job[1:] for job in over_jobs], timings)
         over_of = {job[0]: dense for job, dense in zip(over_jobs, over)}
@@ -1416,7 +1496,8 @@ class SchedulerEngine:
                 )
             else:
                 chunk_results[it.slot] = self._apply_packed_full(
-                    it.entry, it.out, packed, over_pos, over_of.get(i), view
+                    it.entry, it.out, packed, over_pos, over_of.get(i), view,
+                    it.want_scores,
                 )
                 chunk_changed[it.slot] = None
         timings["decode"] += time.perf_counter() - t0
@@ -1698,10 +1779,12 @@ class SchedulerEngine:
             if over_pos.size:
                 t1 = time.perf_counter()
                 timings["decode"] += t1 - t0
-                over_dense = self._fetch_overflow(out, ok_pos[over_pos], timings)
+                over_dense = self._fetch_overflow(out, ok_pos[over_pos], False, timings)
                 timings["fetch"] += time.perf_counter() - t1
                 t0 = time.perf_counter()
-            results = self._decode_packed_mixed(packed, over_pos, over_dense, view.names)
+            results = self._decode_packed_mixed(
+                packed, over_pos, over_dense, view.names, False
+            )
             merged = list(entry.prev_results)
             for r, res in zip(res_rows, results):
                 merged[r] = res
@@ -1950,6 +2033,8 @@ class SchedulerEngine:
         # The widest hint of the group's chunks (the slabs serve rows of
         # every chunk), else the static maxClusters bound.
         pack_k = self._pack_k(inputs, c_bucket, max(p[1].pack_k_hint for p in pending))
+        # Scores are decoded if any chunk's cached decode carries them.
+        want_scores = any(p[1].prev_has_scores for p in pending)
         slab_cut = self._slab_cut(total, eff_chunk, ladder)
         m = self._narrow_m(inputs, c_bucket)
         key_max = self._key_max(inputs, fmt)
@@ -2016,10 +2101,16 @@ class SchedulerEngine:
             packed = unpack_wire(self._read_np(pack_wire(*(p[:n] for p in planes), pack_k)), pack_k)
             nsel_all.append(packed.nsel)
             over_pos = np.nonzero(packed.nsel > pack_k)[0]
-            over_dense = self._fetch_overflow(out, over_pos, timings) if over_pos.size else None
+            over_dense = (
+                self._fetch_overflow(out, over_pos, want_scores, timings)
+                if over_pos.size
+                else None
+            )
             t3 = time.perf_counter()
             timings["fetch"] += t3 - t2
-            decoded.extend(self._decode_packed_mixed(packed, over_pos, over_dense, view.names))
+            decoded.extend(
+                self._decode_packed_mixed(packed, over_pos, over_dense, view.names, want_scores)
+            )
             timings["decode"] += time.perf_counter() - t3
 
         t3 = time.perf_counter()
@@ -2029,7 +2120,10 @@ class SchedulerEngine:
         for slot, entry, changed_rows, _sub, inputs_stale in pending:
             merged = list(entry.prev_results)
             for j, row in enumerate(changed_rows):
-                merged[row] = decoded[offset + j]
+                res = decoded[offset + j]
+                if want_scores and not entry.prev_has_scores:
+                    res = ScheduleResult(res.clusters)
+                merged[row] = res
             self._observe_nsel(entry, nsel_all[offset : offset + len(changed_rows)], c_bucket)
             entry.prev_results = merged
             entry.prev_view = view
@@ -2178,9 +2272,12 @@ class SchedulerEngine:
         entry.prev_view = view
 
     def _apply_packed_delta(self, entry, out, idx, packed, over_pos, over_dense, view):
-        """Decode the gathered rows and merge them into the cached decode;
-        returns (merged results, changed rows)."""
-        results = self._decode_packed_mixed(packed, over_pos, over_dense, view.names)
+        """Decode the gathered rows (with scores if the cached decode
+        carries them) and merge them into the cached decode; returns
+        (merged results, changed rows)."""
+        results = self._decode_packed_mixed(
+            packed, over_pos, over_dense, view.names, entry.prev_has_scores
+        )
         idx_rows = idx.tolist()
         merged = list(entry.prev_results)
         for row, res in zip(idx_rows, results):
@@ -2190,90 +2287,129 @@ class SchedulerEngine:
         entry.prev_view = view
         return merged, idx_rows
 
-    def _apply_packed_full(self, entry, out, packed, over_pos, over_dense, view):
+    def _apply_packed_full(
+        self, entry, out, packed, over_pos, over_dense, view, want_scores: bool
+    ):
+        """Decode a whole fetched chunk (with scores if ``want_scores``).
+        With an entry, the fresh outputs and decode are always stored, on
+        a want_scores tick too: a tick that patched rows and skipped the
+        store would leave a decode of the old inputs for the next no-op
+        to replay."""
         self.fetch_stats["full"] += 1
-        results = self._decode_packed_mixed(packed, over_pos, over_dense, view.names)
+        results = self._decode_packed_mixed(
+            packed, over_pos, over_dense, view.names, want_scores
+        )
         if entry is not None:
             self._store_prev(entry, out)
             entry.prev_results = results
+            entry.prev_has_scores = want_scores
             entry.prev_view = view
         return results
 
-    def _fetch_overflow(self, out, rows: np.ndarray, timings):
+    def _fetch_overflow(self, out, rows: np.ndarray, with_scores: bool, timings):
         """Re-fetch of K-overflow rows (the packed wire's escape hatch):
-        bit-packed selection/counted masks plus the replica plane in one
-        copy, timed as the ``overflow_fetch`` part of the fetch stage."""
-        return self._fetch_overflow_window([(out, rows)], timings)[0]
+        bit-packed selection/counted masks plus the replica plane (and
+        the score plane ``with_scores``) in one copy, timed as the
+        ``overflow_fetch`` part of the fetch stage."""
+        return self._fetch_overflow_window([(out, rows, with_scores)], timings)[0]
 
     def _fetch_overflow_window(self, jobs: list, timings) -> list:
         """The K-overflow rows of several dispatches, ``jobs`` of (outputs,
-        rows): each job's rows gathered, and the gathers read in one copy
-        per cluster width (_read_all).  Returns each job's (rows' words,
-        c_pad)."""
+        rows, with_scores): each job's rows gathered, and the gathers read
+        in one copy per width (_read_all: the cluster width, and whether
+        the score plane rides along).  Returns each job's (rows' words,
+        c_pad, with_scores)."""
         if not jobs:
             return []
         t0 = time.perf_counter()
-        arrs = self._read_all([
-            _gather_overflow3(out.selected, out.counted, out.replicas, self._index(rows))
-            for out, rows in jobs
-        ])
+        gathers = []
+        for out, rows, with_scores in jobs:
+            idx = self._index(rows)
+            if with_scores:
+                gathers.append(_gather_overflow4(
+                    out.selected, out.counted, out.replicas, out.scores, idx
+                ))
+            else:
+                gathers.append(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
+        arrs = self._read_all(gathers)
         timings["overflow_fetch"] += time.perf_counter() - t0
-        return [(arr, out.selected.shape[1]) for (out, _rows), arr in zip(jobs, arrs)]
+        return [
+            (arr, out.selected.shape[1], with_scores)
+            for (out, _rows, with_scores), arr in zip(jobs, arrs)
+        ]
 
     @staticmethod
     def _split_overflow(arr: np.ndarray, c_pad: int):
         """One overflow read -> (selected, replicas, counted) planes.
-        Layout: [sel bits | cnt bits | rep] with ceil(C/32)-word masks."""
+        Layout: [sel bits | cnt bits | rep | sco, with scores] with
+        ceil(C/32)-word masks."""
         nw = -(-c_pad // 32)
         sel = _unpack_bits(arr[:, :nw], c_pad)
         cnt = _unpack_bits(arr[:, nw : 2 * nw], c_pad)
         return sel, arr[:, 2 * nw : 2 * nw + c_pad], cnt
 
-    def _decode_packed_mixed(self, packed, over_pos, over_dense, names):
+    def _decode_packed_mixed(self, packed, over_pos, over_dense, names, with_scores: bool):
         """Decode a packed fetch: packable rows from the wire slots,
-        K-overflow rows from their re-fetched planes."""
-        results = self._decode_packed_rows(packed, names)
+        K-overflow rows from their re-fetched planes; score dicts too if
+        ``with_scores``."""
+        results = self._decode_packed_rows(packed, names, with_scores)
         if over_pos.size:
             self.overflow_rows_total += int(over_pos.size)
-            sel, rep, cnt = self._split_overflow(*over_dense)
-            for p, r in zip(over_pos.tolist(), self._decode_rows(sel, rep, cnt, names)):
+            arr, c_pad, has_scores = over_dense
+            sel, rep, cnt = self._split_overflow(arr, c_pad)
+            # A score-carrying read ends with the C score words.
+            sco = arr[:, -c_pad:] if with_scores and has_scores else None
+            decoded = self._decode_rows(sel, rep, cnt, names, sco)
+            for p, r in zip(over_pos.tolist(), decoded):
                 results[p] = r
         return results
 
     @staticmethod
-    def _build_results(n_rows, rows, cols, replicas_at, counted_at, names):
+    def _build_results(n_rows, rows, cols, replicas_at, counted_at, names, scores_at=None):
         """Shared decode tail: (row, col) placement pairs, sorted by row,
-        -> frozen ScheduleResults, one dict(zip(...)) per row.  ``*_at``
+        -> frozen ScheduleResults, one dict(zip(...)) per row, and a score
+        dict over the same pairs when ``scores_at`` is given.  ``*_at``
         are the values already gathered at the pairs."""
         bounds = np.searchsorted(rows, np.arange(n_rows + 1))
         reps_obj = replicas_at.astype(object)
         reps_obj[counted_at == 0] = DUPLICATE
         sel_names = np.asarray(names, dtype=object)[cols].tolist()
         reps_list = reps_obj.tolist()
+        spans = zip(bounds[:-1], bounds[1:])
+        if scores_at is None:
+            return [
+                ScheduleResult(clusters=_FrozenDict(zip(sel_names[s:e], reps_list[s:e])))
+                for s, e in spans
+            ]
+        score_list = scores_at.tolist()
         return [
             ScheduleResult(
-                clusters=_FrozenDict(zip(sel_names[s:e], reps_list[s:e]))
+                clusters=_FrozenDict(zip(sel_names[s:e], reps_list[s:e])),
+                scores=_FrozenDict(zip(sel_names[s:e], score_list[s:e])),
             )
-            for s, e in zip(bounds[:-1], bounds[1:])
+            for s, e in spans
         ]
 
     @classmethod
-    def _decode_rows(cls, selected, replicas, counted, names) -> list[ScheduleResult]:
-        """Vectorized decode of dense [n, C] planes."""
+    def _decode_rows(cls, selected, replicas, counted, names, scores=None) -> list[ScheduleResult]:
+        """Vectorized decode of dense [n, C] planes (scores too if given)."""
         rows, cols = np.nonzero(selected)
         return cls._build_results(
-            selected.shape[0], rows, cols, replicas[rows, cols], counted[rows, cols], names
+            selected.shape[0], rows, cols, replicas[rows, cols], counted[rows, cols], names,
+            scores[rows, cols] if scores is not None else None,
         )
 
     @classmethod
-    def _decode_packed_rows(cls, packed, names) -> list[ScheduleResult]:
+    def _decode_packed_rows(cls, packed, names, scores: bool = False) -> list[ScheduleResult]:
         """Decode packed [n, K] rows (slots score-ordered, PACK_FILL
-        padded).  Dict content equals the dense decode; insertion order
-        is score order, which no consumer observes.  Overflow rows
-        (nsel > K) decode truncated here and are replaced by the caller."""
+        padded), with the slots' scores if ``scores``.  Dict content
+        equals the dense decode; insertion order is score order, which no
+        consumer observes.  Overflow rows (nsel > K) decode truncated
+        here and are replaced by the caller."""
         idx = packed.idx
         rows, slots = np.nonzero(idx >= 0)
         return cls._build_results(
             idx.shape[0], rows, idx[rows, slots],
             packed.rep[rows, slots], packed.cnt[rows, slots], names,
+            packed.sco[rows, slots] if scores else None,
         )

@@ -82,7 +82,7 @@ def first_chunk_syncs(units, clusters, windowed: bool, mode="warn") -> dict:
     c_bucket, eff_chunk, ladder = engine._tick_geometry(len(view.clusters))
     vocab = engine._vocab_for(view, engine._topo_fingerprint(view))
     chunk = units[:eff_chunk]
-    inputs, status, entry, fmt = engine._featurize_chunk(0, chunk, clusters, view, vocab)
+    inputs, status, entry, fmt = engine._featurize_chunk(0, chunk, clusters, view, None, vocab)
     b_pad = engine._bucket_rows(len(chunk), ladder, eff_chunk, len(units) > eff_chunk)
     pack_k = engine._pack_k(inputs, c_bucket)
     timings = dict.fromkeys(("featurize", "device"), 0.0)

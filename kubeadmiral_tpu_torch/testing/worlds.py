@@ -12,12 +12,14 @@ A copy of ``bench.py``'s ``build_world`` for configs 3 and 5
 
 ``churn`` and ``drift`` are copies of ``bench.py``'s steady-state tick
 workloads: about 1 % of the objects changed since the last tick, and
-one cluster's free capacity halved.
+one cluster's free capacity halved.  ``webhook`` is a seeded stand-in
+for out-of-process webhook plugins (``schedule(webhook_eval=)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
 
@@ -198,3 +200,37 @@ def drift_wide(clusters, count=None):
         )
     return out
 
+
+# Webhook scores past the featurizer's int32 clamp (+-2**30).
+WEBHOOK_HUGE = 1 << 32
+
+
+def webhook(seed: int = 0, reject: float = 0.25, silent_every: int = 50,
+            huge_every: int = 64):
+    """A deterministic ``webhook_eval(unit, clusters) -> (ok_row,
+    score_row) | None``: each row's answer is drawn from
+    ``numpy.random.default_rng((seed, crc32(unit.key)))``, so it depends
+    on the seed and the unit's key only.  A row gets no answer (None: no
+    webhook planes for it) with probability 1 / ``silent_every``; else a
+    cluster is rejected with probability ``reject``, nine rows in ten
+    get a score in [-50, 150] per cluster (the rest 0), and a row gets
+    scores of +-WEBHOOK_HUGE on four clusters with probability
+    1 / ``huge_every``: past the clamp, so its totals leave the narrow
+    solve's 32-bit key range, and where a maxClusters cut engages the
+    row fails the certificate."""
+
+    def webhook_eval(unit, clusters):
+        rng = np.random.default_rng((seed, zlib.crc32(unit.key.encode())))
+        if rng.random() < 1 / silent_every:
+            return None
+        c = len(clusters)
+        ok = rng.random(c) >= reject
+        scores = np.zeros(c, np.int64)
+        if rng.random() < 0.9:
+            scores = rng.integers(-50, 151, c)
+        if rng.random() < 1 / huge_every:
+            cols = rng.integers(0, c, 4)
+            scores[cols] = np.where(np.arange(4) % 2 == 0, WEBHOOK_HUGE, -WEBHOOK_HUGE)
+        return ok, scores
+
+    return webhook_eval

@@ -2,7 +2,8 @@
 the whole dense tick on CUDA against the CPU, and the engine on CUDA
 against the CPU engine (cold, warm and drift ticks, with their
 counters; the pipelined window on the card against the CPU engine's
-sequential dispatch) — tolerance 0 (integer math) — and the window's
+sequential dispatch; score-carrying and webhook ticks) — tolerance 0
+(integer math) — and the window's
 dispatch of a chunk making no host synchronisation.
 
 Every test here needs a CUDA card and skips without one.  The file
@@ -37,6 +38,7 @@ from kubeadmiral_tpu_torch.testing.worlds import (
     drift,
     drift_wide,
     drift_zero,
+    webhook,
 )
 
 pytestmark = pytest.mark.cuda
@@ -226,6 +228,41 @@ def test_c3_cold_tick_in_the_window_matches_cpu_at_depth_1(cuda, monkeypatch):
     narrow = [c for c in calls if c[0] == "narrow"]
     assert chunks == 6 and len(narrow) == chunks + gpu.planner_reruns
     assert launched == len(calls)
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_scores_and_webhook_ticks_on_card_match_cpu(cuda, config, monkeypatch):
+    """A want_scores cold tick, a webhook tick with scores (dense planes,
+    certificate fallbacks from huge webhook scores) and a plain tick
+    after it, on the card and on the CPU: equal results and score
+    dicts, equal narrow, cache and fetch counters; the kernel launches
+    once per tick dispatch, and the plain tick launches nothing."""
+    units, clusters, _ = build_world(700, 600, config, seed=7)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    hook = webhook(seed=7, huge_every=16)
+    for kind, batch, kw in (
+        ("scores", units, {"want_scores": True}),
+        ("webhook", units[:500], {"want_scores": True, "webhook_eval": hook}),
+        ("plain", units, {}),
+    ):
+        with recorded_dispatches() as calls:
+            launches = phase1.launches
+            got = gpu.schedule(batch, clusters, **kw)
+            launched = phase1.launches - launches
+        want = cpu.schedule(batch, clusters, **kw)
+        assert [(r.clusters, r.scores) for r in got] == [
+            (r.clusters, r.scores) for r in want
+        ], kind
+        for name in ("cache_stats", "fetch_stats", "narrow_stats"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+        assert launched == len(calls), kind
+        if kind == "webhook":
+            assert any(c[0] == "dense" for c in calls)  # certificate fallbacks
+        if kind == "plain":
+            assert launched == 0
+        else:
+            assert any(r.scores for r in got) and launched > 0, kind
 
 
 @pytest.mark.parametrize("config", ["3", "5"])
