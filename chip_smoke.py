@@ -43,7 +43,8 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    and equal to 7's placements (a ``turns c5 depth`` line: wall ms,
    stages, launches, peak memory, dispatch syncs, fetch bytes per tick);
    then cold ticks at depth 16 with the planner's round budget
-   (``PLANNER_ROUNDS``) at 1, 2, 4, 4, 2, 1, each checked as in 7 and
+   (``PLANNER_ROUNDS``) at 1, 2, 2, 1 (c5 cut to its first
+   C5_BUDGET_OBJECTS objects), each checked as in 7 and
    equal to 7's placements (a ``turns c5 planner rounds`` line: wall,
    device and device + fetch ms, re-dispatches, syncs); the ``syncs``
    line: the synchronising operations of one chunk's dispatch
@@ -94,7 +95,28 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    kernel against its twin, timed with its bound, on the first webhook
    chunk's inputs.  Each window drain logs its chunks, memory and the
    pinned host bytes held;
-10. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
+10. the persistence phase: right after the c5 warm phase, the converged
+   engine's ``snapshot_state()`` (timed; plane and host bytes beside
+   ``resident_state_bytes()`` and ``memory_allocated``) and a
+   ``pickle.dumps`` / ``loads`` in memory (timed; the c5 image is too
+   large to fsync here) and ``recorder_probe`` (the flight recorder's
+   cost for a c5 cold tick's rows: record, export, pickle, evict; the
+   process-wide recorder every engine here feeds is cleared before each
+   warm and surface phase); after the surface phases, the kill matrix's
+   snapshot-write round on the card (``kill_round``: the restart
+   driver's reference, a victim SIGKILLed with its tick-3 snapshot half
+   written and a successor, each a subprocess on ``--device cuda`` at
+   10,000 x 500; the successor loads and equals the reference's
+   placements and reason counts; their wall ms and the snapshot files'
+   bytes), then fresh c5 engines staged with the snapshot
+   (``resume_phase``): a fresh resume that launches and dispatches
+   nothing and replays every chunk as ``noop``, equal to a fresh
+   engine's cold tick, and a stale resume (cluster 0's available
+   halved) through the drift gate, equal to a fresh engine's cold tick
+   on that world; each with the restore's featurize / upload / decode
+   split.  The c5 cold tick's fetch bytes must equal
+   C5_COLD_FETCH_BYTES (the flight recorder reads nothing);
+11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Any failed check exits nonzero without the final line.  Without CUDA it
@@ -126,6 +148,7 @@ CONV_OPS_PER_S = 67e12 / 16
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
 C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
 C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
+C5_BUDGET_OBJECTS = 50000  # c5 depth of the planner-round budget turns
 FALLBACK_OBJECTS = 4096    # depth of the forced-fallback run (one chunk)
 FALLBACK_NARROW_M = 8      # M = 32 over maxClusters <= 19: many rows fail the cert
 
@@ -804,7 +827,7 @@ def turns_depth(cfg: str, units, clusters, got) -> dict:
 
 
 # The window's planner round budget in turns (fresh engines, depth 16).
-TURN_BUDGETS = (1, 2, 4, 4, 2, 1)
+TURN_BUDGETS = (1, 2, 2, 1)
 
 
 def turns_budget(cfg: str, units, clusters, got) -> dict:
@@ -892,7 +915,9 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
     independent) and its other rows must be the previous tick's result
     objects.  A drift tick and a tick back are checked by ``drift_tick``.
     Returns (ticks by label, the first churn tick's slab inputs on the
-    host)."""
+    host, the resume world: the last churn tick's units with a fresh
+    engine's cold ticks over them on the first clusters ("cold") and on
+    the first drift ("drift"))."""
     import torch
 
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
@@ -926,22 +951,7 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
         per-object upload; every row equal to ``want``; every row whose
         placement moved among the changed rows."""
         got, tick, _ = counted_tick(engine, batch, cl)
-        gate = tick["drift_stats"]
-        recompute = gate.get("recompute", 0)
-        slabs = -(-recompute // engine._slab_cut(recompute, eff, ladder)) if recompute else 0
-        dispatches = (
-            slabs + gate.get("fallback", 0) + chunks - gate.get("gated", 0)
-            + tick["planner_reruns"]
-        )
-        narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
-        fallback = dense if narrow else 0
-        if (narrow or dense) != dispatches or tick["phase1_launches"] != dispatches + fallback:
-            raise AssertionError(
-                f"c{cfg} {label}: {tick['phase1_launches']} launches, {narrow} narrow + "
-                f"{dense} dense dispatches for {slabs} slabs + {gate.get('fallback', 0)} "
-                f"mass-change chunks + {chunks - gate.get('gated', 0)} ungated chunks "
-                f"+ {tick['planner_reruns']} planner re-dispatches: {tick}"
-            )
+        slabs, fallback = check_drift_launches(f"c{cfg} {label}", engine, tick, chunks)
         if tick["cache"] != {"hit": chunks} or tick["upload_bytes"]["object"]:
             raise AssertionError(f"c{cfg} {label}: not a hit on device-resident inputs: {tick}")
         assert_results_equal(f"c{cfg} {label} vs fresh engine", got, want)
@@ -1002,17 +1012,44 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
             slab = captured
         prev_units, prev = batch, got
     # One fresh cold tick on the first clusters serves every tick back.
-    back_want = None
+    back_want, drift_want = None, None
     for name in WARM_DRIFTS[cfg]:
         drifted = shapes[name](clusters)
-        prev = drift_tick(name, prev_units, drifted, prev, fresh(name, prev_units, drifted))
+        want = fresh(name, prev_units, drifted)
+        drift_want = drift_want or want
+        prev = drift_tick(name, prev_units, drifted, prev, want)
         if back_want is None:
             back_want = fresh("back", prev_units, clusters)
         back = "back" if name == "drift" else f"back from {name}"
         prev = drift_tick(back, prev_units, clusters, prev, back_want)
     del engine
     torch.cuda.empty_cache()
-    return ticks, slab
+    return ticks, slab, {"units": prev_units, "cold": back_want, "drift": drift_want}
+
+
+def check_drift_launches(label: str, engine, tick: dict, chunks: int) -> tuple[int, int]:
+    """A tick through the drift gate launches the kernel once per
+    recompute slab, mass-change chunk, chunk the gate did not take and
+    planner re-dispatch, plus one per certificate fallback.  Returns
+    (recompute slabs, fallback dispatches)."""
+    gate = tick["drift_stats"]
+    _, eff, ladder = engine._tick_geometry(tick["clusters"])
+    recompute = gate.get("recompute", 0)
+    slabs = -(-recompute // engine._slab_cut(recompute, eff, ladder)) if recompute else 0
+    dispatches = (
+        slabs + gate.get("fallback", 0) + chunks - gate.get("gated", 0)
+        + tick["planner_reruns"]
+    )
+    narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+    fallback = dense if narrow else 0
+    if (narrow or dense) != dispatches or tick["phase1_launches"] != dispatches + fallback:
+        raise AssertionError(
+            f"{label}: {tick['phase1_launches']} launches, {narrow} narrow + "
+            f"{dense} dense dispatches for {slabs} slabs + {gate.get('fallback', 0)} "
+            f"mass-change chunks + {chunks - gate.get('gated', 0)} ungated chunks "
+            f"+ {tick['planner_reruns']} planner re-dispatches: {tick}"
+        )
+    return slabs, fallback
 
 
 def assert_results_equal(label: str, got, want, scores: bool = False) -> None:
@@ -1220,6 +1257,216 @@ def surface_phase(cfg: str, units, clusters, plain_cold: dict) -> dict:
     return {"ticks": ticks, "webhook_chunk": row}
 
 
+# Cold c5 fetch bytes of the windowed cold tick (PERF.md section 5): the
+# flight recorder is fed from the wire already read, so they stay.
+C5_COLD_FETCH_BYTES = 1_111_048_960
+# The kill round's world (testing/restart_driver.py) at config 3's shape.
+KILL_ROUND_SHAPE = (10_000, 500)
+SNAPSHOT_PLANES = ("sel", "rep", "cnt", "sco", "feas", "rsn")
+
+
+def recorder_probe(units, results, names) -> dict:
+    """The flight recorder's host cost for one c5 cold tick: recording
+    its rows in 4,096-row calls (as the drains do) into a fresh recorder
+    that keeps one tick, exporting the ring (what a SnapshotManager
+    persists) and pickling the export, then recording a 1,000-row tick,
+    which evicts the cold tick's records (their placement maps are the
+    recorder's own copies here, so the eviction frees them, as it frees
+    a discarded engine's)."""
+    import pickle
+
+    from kubeadmiral_tpu_torch.ops import reasons as RSN
+    from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder
+
+    n = len(units)
+    keys = [u.key for u in units]
+    placements = [dict(r.clusters) for r in results]
+    counts = np.zeros((n, RSN.NUM_REASON_BITS), np.int32)
+    feasible = np.zeros(n, np.int32)
+    topk_i, topk_s = [np.zeros(0, np.int32)] * n, [np.zeros(0, np.int64)] * n
+
+    def tick(rows: int, placements) -> float:
+        t0 = time.perf_counter()
+        rec.begin_tick(rows, len(names))
+        for s in range(0, rows, 4096):
+            part = slice(s, min(rows, s + 4096))
+            rec.record_rows(
+                keys[part], placements[part], None, None, names, program="probe",
+                reason_counts=counts[part], feasible_n=feasible[part],
+                topk_idx=topk_i[part], topk_scores=topk_s[part],
+            )
+        rec.end_tick()
+        return (time.perf_counter() - t0) * 1e3
+
+    rec = FlightRecorder(max_ticks=1)
+    gc.collect()
+    record_ms = tick(n, placements)
+    recorded_bytes = rec.stats()["bytes"]
+    t0 = time.perf_counter()
+    state = rec.export_state()
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    exported = len(pickle.dumps(state, protocol=4))
+    pickle_ms = (time.perf_counter() - t0) * 1e3
+    later = [dict(p) for p in placements[:1000]]
+    del state, placements
+    evict_ms = tick(1000, later)
+    return {
+        "rows": n, "record_ms": record_ms, "recorder_bytes": recorded_bytes,
+        "export_ms": export_ms, "export_pickle_ms": pickle_ms,
+        "export_pickle_bytes": exported, "evict_and_record_1000_ms": evict_ms,
+    }
+
+
+def capture_snapshot(engine, chunks: int, resume: dict, names):
+    """The warm c5 engine's ``snapshot_state()``, timed, with its plane
+    and host bytes beside ``resident_state_bytes()`` and
+    ``torch.cuda.memory_allocated()``; then ``pickle.dumps`` / ``loads``
+    in memory, timed (the image is too large to fsync within the
+    script's time); then ``recorder_probe`` over the resume world's cold
+    tick.  Returns (the unpickled payload, the numbers)."""
+    import pickle
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = engine.snapshot_state()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    if snap is None or len(snap["chunks"]) != chunks:
+        raise AssertionError(f"c5 snapshot: {None if snap is None else len(snap['chunks'])} chunks, not {chunks}")
+    planes = sum(cs[k].nbytes for cs in snap["chunks"].values() for k in SNAPSHOT_PLANES)
+    host = planes + sum(a.nbytes for a in snap["view"].values())
+    t0 = time.perf_counter()
+    blob = pickle.dumps(snap, protocol=4)
+    dumps_ms = (time.perf_counter() - t0) * 1e3
+    pickled = len(blob)
+    del snap
+    t0 = time.perf_counter()
+    snap = pickle.loads(blob)
+    loads_ms = (time.perf_counter() - t0) * 1e3
+    del blob
+    row = {
+        "chunks": len(snap["chunks"]), "rows": snap["rows"],
+        "snapshot_state_ms": capture_ms, "plane_bytes": planes, "host_bytes": host,
+        "pickle_bytes": pickled, "pickle_dumps_ms": dumps_ms, "pickle_loads_ms": loads_ms,
+        "resident_state_bytes": engine.resident_state_bytes(),
+        "memory_allocated": torch.cuda.memory_allocated(),
+        "flight_recorder": recorder_probe(resume["units"], resume["cold"], names),
+    }
+    log(f"persist c5 capture: {json.dumps(row)}")
+    return snap, row
+
+
+def resume_phase(snap, resume: dict, clusters, chunks: int) -> dict:
+    """Fresh engines staged with the c5 snapshot.  The fresh resume (the
+    same world, a fresh list) must launch nothing, dispatch nothing,
+    replay every chunk with ``noop`` and equal a fresh engine's cold
+    tick; the stale resume (cluster 0's available halved) must load
+    stale, ride the drift gate (launches as a drift tick's) and equal a
+    fresh engine's cold tick on that world.  Each tick's line carries
+    its wall ms, stages, the restore's featurize / upload / decode
+    split, ``resident_state_bytes()`` and ``memory_allocated``."""
+    import torch
+
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.worlds import drift
+
+    out = {}
+    for label, cl, want in (
+        ("fresh resume", clusters, resume["cold"]),
+        ("stale resume", drift(clusters), resume["drift"]),
+    ):
+        engine = SchedulerEngine()
+        engine.stage_restore(snap, assume_fresh=label == "fresh resume")
+        got, tick, _ = counted_tick(engine, list(resume["units"]), cl)
+        info = engine.restore_info
+        tick.update(
+            restore_info=info, dispatches_total=engine.dispatches_total,
+            resident_state_bytes=engine.resident_state_bytes(),
+        )
+        if info["result"] != "loaded" or info["chunks"] != chunks:
+            raise AssertionError(f"c5 {label}: restore {info}")
+        if label == "fresh resume":
+            launched = tick["phase1_launches"] + tick["narrow_dispatches"] + tick["dense_dispatches"]
+            if not info["fresh"] or launched or engine.dispatches_total:
+                raise AssertionError(f"c5 {label}: launched on a fresh resume: {tick}")
+            if tick["fetch_paths"] != {"noop": chunks}:
+                raise AssertionError(f"c5 {label}: fetch paths {tick['fetch_paths']}")
+        else:
+            if info["fresh"] or not tick["drift_stats"].get("gated"):
+                raise AssertionError(f"c5 {label}: did not ride the drift gate: {tick}")
+            check_drift_launches(f"c5 {label}", engine, tick, chunks)
+        assert_results_equal(f"c5 {label} vs fresh engine", got, want)
+        log(f"persist c5 {label}: {json.dumps(tick)}")
+        out[label] = tick
+        del engine, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def kill_round() -> dict:
+    """The kill matrix's snapshot-write round on the card at
+    KILL_ROUND_SHAPE: testing/restart_driver.py as three subprocesses
+    on ``--device cuda`` (a reference, a victim that SIGKILLs itself
+    with tick 3's snapshot half written, a successor), in a scratch
+    directory of the checkout removed afterwards.  The successor must
+    load tick 2's snapshot and equal the reference's placements and
+    flight-recorder reason counts, with nothing quarantined.  Returns the
+    processes' wall ms, the snapshot files' bytes and the successor's
+    restore, fetch paths and launches."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    n, c = KILL_ROUND_SHAPE
+    work = tempfile.mkdtemp(prefix="_persist_", dir=root)
+    walls = {}
+
+    def run(mode: str, sub: str, *args) -> None:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubeadmiral_tpu_torch.testing.restart_driver", mode,
+             "--dir", os.path.join(work, sub), "--device", "cuda",
+             "--objects", str(n), "--clusters", str(c), *args],
+            cwd=root, capture_output=True, text=True, timeout=600,
+        )
+        walls[mode] = (time.perf_counter() - t0) * 1e3
+        want_rc = -9 if mode == "victim" else 0
+        if proc.returncode != want_rc:
+            raise AssertionError(
+                f"kill round {mode}: exit {proc.returncode}, not {want_rc}\n"
+                f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}"
+            )
+
+    try:
+        run("reference", "reference")
+        run("victim", "kill", "--kill-phase", "snapshot-write")
+        kill = Path(work, "kill")
+        if not (kill / "tick2.done").exists() or (kill / "tick3.done").exists():
+            raise AssertionError("kill round: the victim did not die in tick 3")
+        files = {f.name: f.stat().st_size for f in (kill / "snapshots").iterdir()}
+        run("successor", "kill")
+        ref = json.loads(Path(work, "reference", "reference.json").read_text())
+        succ = json.loads((kill / "successor.json").read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if succ["restore_info"]["result"] != "loaded" or succ["quarantined"]:
+        raise AssertionError(f"kill round: restore {succ['restore_info']}, quarantined {succ['quarantined']}")
+    if succ["placements"] != ref["placements"]:
+        raise AssertionError("kill round: successor placements differ from the reference's")
+    if succ["reason_counts"] != ref["reason_counts"] or len(ref["reason_counts"]) != n:
+        raise AssertionError("kill round: successor reason counts differ from the reference's")
+    row = {
+        "objects": n, "clusters": c, "wall_ms": walls, "snapshot_files": files,
+        "restore_info": succ["restore_info"], "fetch_paths": succ["fetch_paths"],
+        "successor_launches": succ["launches"], "counters": succ["counters"],
+    }
+    log(f"persist c3 kill round: {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1228,6 +1475,7 @@ def main() -> int:
         return 2
     from kubeadmiral_tpu_torch.convert import to_device
     from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+    from kubeadmiral_tpu_torch.runtime import flightrec
     from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.problems import (
@@ -1315,6 +1563,10 @@ def main() -> int:
             raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
         got = tick.pop("results")
         ticks[cfg] = tick
+        if cfg == "5" and tick["fetch_bytes"] != C5_COLD_FETCH_BYTES:
+            raise AssertionError(
+                f"c5 cold fetch bytes {tick['fetch_bytes']}, not {C5_COLD_FETCH_BYTES}"
+            )
         check = units if cfg == "3" else units[:C5_CHECK_ROWS]
         t1 = time.perf_counter()
         want = SchedulerEngine(device="cpu").schedule(check, clusters)
@@ -1329,7 +1581,8 @@ def main() -> int:
         depth_turns[cfg] = turns_depth(cfg, units, clusters, got)
         log(f"phase turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        turns_budget(cfg, units, clusters, got)
+        depth = len(units) if cfg == "3" else C5_BUDGET_OBJECTS
+        turns_budget(cfg, units[:depth], clusters, got[:depth])
         log(f"phase budget-turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
         # The dense tick through the engine: M patched to the cluster
@@ -1359,8 +1612,21 @@ def main() -> int:
         # The steady-state ticks on the cold tick's engine, then the
         # kernel at the sub-batch slab shape the first churn tick ran.
         t0 = time.perf_counter()
-        warm[cfg], slab = warm_phase(cfg, units, clusters, engine, dict(tick), got)
-        del engine, got
+        # Every engine here feeds the process-wide flight recorder; a
+        # phase starts from an empty ring, so its ticks evict only their
+        # own records, as a deployment's one engine would (the cost of
+        # evicting a cold tick's records: recorder_probe).
+        flightrec.get_default().clear()
+        warm[cfg], slab, resume = warm_phase(cfg, units, clusters, engine, dict(tick), got)
+        if cfg == "5":
+            # The persistence phase resumes from this converged engine.
+            t1 = time.perf_counter()
+            snap5, capture5 = capture_snapshot(
+                engine, tick["chunks"], resume, [c.name for c in clusters]
+            )
+            resume5 = resume
+            log(f"phase persist-capture-c5: {time.perf_counter() - t1:.2f} s")
+        del engine, got, resume
         slab = type(slab)(*(x.cuda() for x in slab))
         slab_rows[cfg] = check_phase1(f"c{cfg}-slab", slab, timed=True)
         del slab
@@ -1369,8 +1635,19 @@ def main() -> int:
 
         # Scores, follower unions and webhook ticks on a fresh engine.
         t0 = time.perf_counter()
+        flightrec.get_default().clear()
         surface[cfg] = surface_phase(cfg, units, clusters, ticks[cfg])
         log(f"phase surface-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
+    # Durable state: the kill round on the card at c3's shape, then c5
+    # engines resumed from the warm phase's snapshot.
+    t0 = time.perf_counter()
+    kill = kill_round()
+    log(f"phase persist-kill-c3: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    resumed = resume_phase(snap5, resume5, worlds["5"][1], ticks["5"]["chunks"])
+    del snap5, resume5
+    log(f"phase persist-resume-c5: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
     kernels = {
@@ -1481,6 +1758,15 @@ def main() -> int:
                     }
                     for cfg in ("5", "3")
                 },
+                # The persistence phase: launches of the resumed ticks
+                # (a fresh resume launches nothing) and of the kill
+                # round's successor tick (its churned rows' slabs).
+                "launches_persistence": {
+                    "c5 fresh resume": resumed["fresh resume"]["phase1_launches"],
+                    "c5 stale resume": resumed["stale resume"]["phase1_launches"],
+                    "c3 kill round successor": kill["successor_launches"],
+                },
+                "snapshot_c5": capture5,
                 "card": card,
             }
         ]

@@ -52,14 +52,28 @@ same wire and cached beside the placements; a tick that wants scores
 takes no drift gate); ``follower_index`` (the follower union of
 ``ops/follower.py`` over the returned rows, recomputed for the followers
 of ``last_changed``); ``dirty_rows``; and it counts its ticks
-(``tick_seq``, ``last_tick_id``).  Snapshots are not ported.  One tick
-runs at a time on an engine (a lock).  The device is ``"cuda"`` unless
-the caller asks for the CPU; without CUDA the default raises instead of
-carrying on on the CPU.
+(``tick_seq``, ``last_tick_id``).  One tick runs at a time on an engine
+(a lock).  The device is ``"cuda"`` unless the caller asks for the CPU;
+without CUDA the default raises instead of carrying on on the CPU.
+
+Durable state and telemetry, as in the JAX engine: ``snapshot_state``
+captures the converged chunks' planes, row signatures and pack-K hints
+(one batched read per chunk); ``stage_restore`` stages such an image,
+consumed by the next tick before the no-op gate, which verifies every
+row's signature and the cluster tensors (equal: the tick replays with
+no launch; drifted: the drift gate; churned rows: the sub-batch);
+``post_tick`` is called after each tick under the tick lock (the
+snapshot manager's hook, ``runtime/snapshot.py``).  Each tick reports
+into ``metrics`` (``runtime/metrics.py``; the JAX engine's series
+except ``engine_xla_compiles_total`` and
+``engine_persistent_cache_total``, which have no XLA behind them) and
+feeds the flight recorder (``runtime/flightrec.py``) from the wire
+arrays its drains already read.  ``prewarm`` builds the kernel.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -70,6 +84,7 @@ import torch
 
 from kubeadmiral_tpu_torch.convert import tensor
 from kubeadmiral_tpu_torch.models import types as T
+from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
 from kubeadmiral_tpu_torch.ops.pipeline import (
     DRIFT_RECOMPUTE,
     DRIFT_WCHECK,
@@ -88,6 +103,8 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     unpack_wire,
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
+from kubeadmiral_tpu_torch.runtime import flightrec as flightrec_mod
+from kubeadmiral_tpu_torch.runtime.metrics import Metrics, null_metrics
 from kubeadmiral_tpu_torch.scheduler import compact as Cmp
 from kubeadmiral_tpu_torch.scheduler.compact import (
     CompactInputs,
@@ -149,6 +166,34 @@ PLANNER_ROUNDS = 1
 # Bits of the per-row diff mask against the previous tick's planes.
 _DIFF_PLACEMENT = 1
 _DIFF_SCORES = 2
+
+log = logging.getLogger("kubeadmiral.engine")
+
+# The snapshot payload's format (the JAX engine's version: the payloads
+# have the same keys and dtypes).
+SNAPSHOT_STATE_VERSION = 1
+
+# Placeholder members of a restored chunk's ``units`` list: never a live
+# unit object, so the cache's identity check falls through to the
+# signature comparison for every row of a restored chunk.
+_RESTORE_SENTINEL = object()
+
+
+class _SnapshotView:
+    """The cluster-tensor face of a ClusterView rebuilt from a snapshot:
+    a restored chunk whose relisted cluster tensors differ holds one as
+    ``prev_view``, and the drift machinery reads only ``names`` and the
+    four resource planes (``_drift_delta``, ``_wcheck_cpu_device``), so
+    a stale snapshot resumes through the drift gate."""
+
+    __slots__ = ("names", "alloc", "used", "cpu_alloc", "cpu_avail")
+
+    def __init__(self, names, alloc, used, cpu_alloc, cpu_avail):
+        self.names = list(names)
+        self.alloc = np.asarray(alloc)
+        self.used = np.asarray(used)
+        self.cpu_alloc = np.asarray(cpu_alloc)
+        self.cpu_avail = np.asarray(cpu_avail)
 
 
 class _FrozenDict(dict):
@@ -405,6 +450,9 @@ class _CachedChunk:
     # yet, use the static maxClusters bound) and its shrink hysteresis.
     pack_k_hint: int = 0
     pack_shrink_votes: int = 0
+    # Restored from a snapshot and not yet ticked: the next cache check
+    # verifies every row's signature, whatever dirty-row hint it gets.
+    restored: bool = False
 
 
 @dataclass
@@ -450,9 +498,14 @@ class SchedulerEngine:
     a 4096 x 5120 cell budget, M >= 128, K >= 16 and 16 GiB.
 
     ``schedule`` treats the unit list and the units as immutable: derive
-    a changed batch as a fresh list with fresh unit objects."""
+    a changed batch as a fresh list with fresh unit objects.
 
-    def __init__(self, device="cuda"):
+    ``metrics`` is the registry each tick reports into (None: a private
+    one); ``flight_recorder`` is the decision recorder the drains feed
+    ("default": the process-wide one, None: no recording)."""
+
+    def __init__(self, device="cuda", metrics: Optional[Metrics] = None,
+                 flight_recorder="default"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -550,6 +603,74 @@ class SchedulerEngine:
         # count: the port has no device profiler to issue other ids).
         self.tick_seq = 0
         self.last_tick_id = 0
+        # Telemetry registry (runtime/metrics.py): per-tick stage
+        # histograms and path counters, emitted from the host counters
+        # above after each tick.
+        self.metrics = metrics or null_metrics()
+        # Rows featurized per path ("full": whole chunks, "delta":
+        # patched rows), and stale device-input rows repaired per phase
+        # ("churn": eagerly in the tick that made them stale, "drift":
+        # by a drift gate first, "dispatch": at a full dispatch).
+        self.featurize_rows = {"full": 0, "delta": 0}
+        self.stale_repair_rows = {"churn": 0, "drift": 0, "dispatch": 0}
+        # Device programs queued (ticks, slabs, re-dispatches, dense
+        # re-solves, gates, weight checks, survivor groups), and the
+        # (fmt, B, C) shapes the tick dispatches have run at.
+        self.dispatches_total = 0
+        self.program_shapes: set[tuple] = set()
+        # Decision flight recorder (runtime/flightrec.py), armed per
+        # tick in _tick_rec.
+        self.flightrec = (
+            flightrec_mod.get_default()
+            if flight_recorder == "default"
+            else flight_recorder
+        )
+        self._tick_rec = None
+        # A staged snapshot (stage_restore), consumed by the next tick;
+        # restore_info says what that consumption decided.
+        self._pending_restore: Optional[tuple] = None
+        self.restore_info: Optional[dict] = None
+        # Called with the engine after every tick, under the tick lock
+        # (the snapshot manager's capture hook).
+        self.post_tick = None
+
+    @property
+    def chunk_size(self) -> int:
+        """Rows per chunk at most (MEGACHUNK_ROWS), which the controller
+        manager reads to size its prewarm."""
+        return MEGACHUNK_ROWS
+
+    def prewarm(
+        self,
+        n_objects: int,
+        n_clusters: int,
+        scalar_resources: Sequence[str] = (),
+        key_len: int = 32,
+        policy_entries: int = 1,
+        webhooks: bool = False,
+        wait: bool = False,
+    ) -> threading.Thread:
+        """Build the phase-1 kernel in a background thread, so the first
+        tick does not wait for nvcc; the JAX engine's signature (its
+        arguments pick XLA program shapes, which the port does not
+        compile).  Uploads nothing; on the CPU the thread does nothing.
+        A build failure is logged here, and the first tick's build then
+        raises."""
+        del n_objects, n_clusters, scalar_resources, key_len, policy_entries, webhooks
+
+        def run():
+            if self.device.type != "cuda":
+                return
+            try:
+                phase1_mod._library()
+            except Exception:
+                log.warning("engine prewarm failed", exc_info=True)
+
+        thread = threading.Thread(target=run, daemon=True, name="engine-prewarm")
+        thread.start()
+        if wait:
+            thread.join()
+        return thread
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -751,6 +872,7 @@ class SchedulerEngine:
         try:
             vocab = CompactVocab(view)
         except VocabOverflow:
+            self.metrics.counter("engine_vocab_overflow_total", scope="topology")
             vocab = None
         while len(self._vocabs) >= 4:
             self._vocabs.pop(next(iter(self._vocabs)))
@@ -770,7 +892,7 @@ class SchedulerEngine:
             try:
                 return featurize_compact(chunk, view, vocab), "compact"
             except VocabOverflow:
-                pass
+                self.metrics.counter("engine_vocab_overflow_total", scope="chunk")
         return featurize(chunk, clusters, view=view).inputs, "dense"
 
     def _featurize_rows(self, units, clusters, view, vocab, cached):
@@ -784,6 +906,7 @@ class SchedulerEngine:
         try:
             sub = featurize_compact(units, view, vocab)
         except VocabOverflow:
+            self.metrics.counter("engine_vocab_overflow_total", scope="patch")
             return None
         p_cached = np.asarray(cached.inputs.sparse_idx).shape[1]
         l_cached = np.asarray(cached.inputs.key_bytes).shape[1]
@@ -804,9 +927,12 @@ class SchedulerEngine:
         webhook planes are this tick's results, so the chunk is
         featurized dense and no cache entry is read or written).
         ``dirty`` (local rows) asserts every other row is the identical
-        object of the previous call, so only those rows are checked."""
+        object of the previous call, so only those rows are checked (not
+        on a restored chunk: every row is verified against its snapshot
+        signature)."""
         if webhook_eval is not None:
             fb = featurize(chunk, clusters, view=view, webhook_eval=webhook_eval)
+            self.featurize_rows["full"] += len(chunk)
             return fb.inputs, "nocache", None, "dense"
         topo_fp = self._topo_fingerprint(view)
         cached = self._chunk_cache.get(idx)
@@ -821,7 +947,11 @@ class SchedulerEngine:
         ):
             # Identical objects are identical rows (units are immutable),
             # so only replaced objects are signature-checked.
-            rows_to_check = range(len(chunk)) if dirty is None else dirty
+            if dirty is None or cached.restored:
+                rows_to_check = range(len(chunk))
+                cached.restored = False
+            else:
+                rows_to_check = dirty
             changed = [
                 i
                 for i in rows_to_check
@@ -854,10 +984,12 @@ class SchedulerEngine:
                     cached.units = list(chunk)
                     cached.last_patch = (changed, sub)
                     self.cache_stats["patch"] += 1
+                    self.featurize_rows["delta"] += len(changed)
                     return refreshed, "patch", cached, cached.fmt
 
         inputs, fmt = self._featurize_full(chunk, clusters, view, vocab)
         self.cache_stats["miss"] += 1
+        self.featurize_rows["full"] += len(chunk)
         if cached is not None:
             self._cache_used -= cached.nbytes
             del self._chunk_cache[idx]
@@ -1008,13 +1140,17 @@ class SchedulerEngine:
             }
         )
 
-    def _repair_stale_inputs(self, entry, fmt: str, c_bucket: int) -> None:
+    def _repair_stale_inputs(
+        self, entry, fmt: str, c_bucket: int, phase: str = "dispatch"
+    ) -> None:
         """Scatter the stale rows' host inputs into the entry's device
         per-object tensors (aligned to their padded widths): a row
-        upload, never a whole chunk."""
+        upload, never a whole chunk.  ``phase`` is the stale_repair_rows
+        key the rows count under."""
         stale = entry.stale_rows
         if not stale or entry.device_per_object is None:
             return
+        self.stale_repair_rows[phase] += len(stale)
         piece = self._slice_rows(entry, stale)
         if fmt == "compact":
             _b, _c, p_pad, l_pad = entry.padded_shape
@@ -1085,17 +1221,410 @@ class SchedulerEngine:
         outside it is the identical unit object of its previous call over
         this list, so the cache check visits only those rows.  Ticks from
         several threads run one at a time; each with units advances
-        ``tick_seq``."""
+        ``tick_seq``, reports into ``metrics`` and then calls
+        ``post_tick``."""
         if not units:
             self.last_changed = []
             return []
         with self._schedule_lock:
+            before = self._tick_counters()
+            # Arm the flight recorder: the drains record the rows they
+            # decode; no-op and skip paths record nothing, so the
+            # previous records stay current.
+            rec = self.flightrec if (self.flightrec is not None and self.flightrec.enabled) else None
+            self._tick_rec = rec
+            if rec is not None:
+                rec.begin_tick(len(units), len(clusters))
             self.tick_seq += 1
             self.last_tick_id = self.tick_seq
-            return self._schedule(
-                units, clusters, view, webhook_eval, want_scores, follower_index,
-                dirty_rows,
+            t_start = time.perf_counter()
+            try:
+                results = self._schedule(
+                    units, clusters, view, webhook_eval, want_scores, follower_index,
+                    dirty_rows,
+                )
+            finally:
+                if rec is not None:
+                    rec.end_tick()
+            self._emit_tick_metrics(len(units), time.perf_counter() - t_start, before)
+            if self.post_tick is not None:
+                # A persistence failure logs; it never fails the tick.
+                try:
+                    self.post_tick(self)
+                except Exception:
+                    log.warning("post-tick hook failed", exc_info=True)
+            return results
+
+    # -- telemetry ---------------------------------------------------------
+    def _tick_counters(self) -> dict:
+        """The host counters a tick's metrics are deltas of."""
+        return {
+            "cache": dict(self.cache_stats),
+            "fetch": dict(self.fetch_stats),
+            "bytes": self.fetch_bytes_total,
+            "overflow": self.overflow_rows_total,
+            "upload": dict(self.upload_bytes),
+            "drift": dict(self.drift_stats),
+            "narrow": dict(self.narrow_stats),
+            "featurize": dict(self.featurize_rows),
+            "stale": dict(self.stale_repair_rows),
+        }
+
+    def _emit_tick_metrics(self, n_units: int, wall: float, before: dict) -> None:
+        """Per-tick telemetry, the JAX engine's series: stage-latency
+        histograms, cache/fetch/drift/narrow path counters as deltas of
+        the host counters over this call, and shape-count and recorder
+        gauges.  Every value is a host counter: nothing waits on the
+        card."""
+        m = self.metrics
+        m.counter("engine_ticks_total")
+        m.store("engine_tick_objects", n_units)
+        m.histogram("engine_tick_seconds", wall)
+        for stage, secs in self.timings.items():
+            m.histogram("engine_tick_stage_seconds", secs, stage=stage)
+
+        def deltas(name, now, then, label, keys=None):
+            for key in keys or now:
+                delta = now[key] - then.get(key, 0)
+                if delta:
+                    m.counter(name, delta, **{label: key})
+
+        deltas("engine_chunk_cache_total", self.cache_stats, before["cache"], "result")
+        deltas("engine_fetch_total", self.fetch_stats, before["fetch"], "path")
+        bytes_delta = self.fetch_bytes_total - before["bytes"]
+        if bytes_delta:
+            m.counter("engine_fetch_bytes_total", bytes_delta, format="packed")
+        overflow_delta = self.overflow_rows_total - before["overflow"]
+        if overflow_delta:
+            m.counter("engine_fetch_overflow_rows_total", overflow_delta)
+        deltas("engine_upload_bytes_total", self.upload_bytes, before["upload"], "plane")
+        deltas(
+            "engine_drift_rows_total", self.drift_stats, before["drift"], "kind",
+            keys=(
+                "skip", "wcheck", "wcheck_changed", "recompute", "resolve",
+                "resolve_fallback", "replan", "replan_fallback",
+                "score_only", "score_only_fallback",
+                "unified", "unified_fallback",
+            ),
+        )
+        deltas("engine_stale_rows_total", self.stale_repair_rows, before["stale"], "phase")
+        deltas("engine_featurize_rows_total", self.featurize_rows, before["featurize"], "path")
+        for key, path in (("rows", "narrow"), ("fallback", "fallback")):
+            delta = self.narrow_stats[key] - before["narrow"].get(key, 0)
+            if delta:
+                m.counter("engine_narrow_rows_total", delta, path=path)
+        m.store("engine_program_shapes", len(self.program_shapes))
+        if self._tick_rec is not None:
+            st = self._tick_rec.stats()
+            m.store("flightrec_records", st["records"])
+            m.store("flightrec_bytes", st["bytes"])
+            m.store("flightrec_ring_ticks", st["ring_ticks"])
+
+    def _count_dispatch(self, fmt: str, b_pad: int, c_bucket: int) -> None:
+        """Program-shape accounting for one tick dispatch: a shape's
+        first dispatch is the shape cache's "miss", every later one a
+        "hit" (the JAX engine's compile-cache series; a program shape is
+        the (fmt, B, C) a dispatch runs at)."""
+        shape_key = (fmt, b_pad, c_bucket)
+        shape = f"{fmt}:{b_pad}x{c_bucket}"
+        self.metrics.counter(
+            "engine_compile_cache_total",
+            result="hit" if shape_key in self.program_shapes else "miss",
+            shape=shape,
+        )
+        self.metrics.counter("engine_dispatches_total", shape=shape)
+        self.dispatches_total += 1
+        self.program_shapes.add(shape_key)
+
+    # -- durable state: snapshots (runtime/snapshot.py) ----------------------
+    def _snapshot_config(self) -> dict:
+        """The engine-shape fingerprint a snapshot must match to be
+        restorable, under the JAX engine's keys: the port's geometry
+        constants (MEGACHUNK_ROWS stands for both chunk_size and
+        megachunk_rows), one device, i32 scores and the packed wire.  A
+        mismatch rejects the snapshot: restore never reinterprets
+        planes."""
+        return {
+            "version": SNAPSHOT_STATE_VERSION,
+            "chunk_size": MEGACHUNK_ROWS,
+            "cell_budget": CELL_BUDGET,
+            "megachunk_rows": MEGACHUNK_ROWS,
+            "min_bucket": MIN_ROW_BUCKET,
+            "min_cluster_bucket": MIN_CLUSTER_BUCKET,
+            "canonical_c": CANONICAL_C,
+            "fetch_format": "packed",
+            "narrow": True,
+            "narrow_m": NARROW_M,
+            "mesh": None,
+            "score_f16": False,
+        }
+
+    @staticmethod
+    def _planes_to_host(planes) -> list:
+        """Host copies of several device planes in ONE device->host read:
+        their bytes joined on the device, read, and split back into
+        arrays of their dtypes and shapes."""
+        flat = torch.cat([p.contiguous().reshape(-1).view(torch.uint8) for p in planes])
+        host = flat.cpu().numpy()
+        out, start = [], 0
+        for p in planes:
+            nbytes = p.numel() * p.element_size()
+            dtype = torch.empty(0, dtype=p.dtype).numpy().dtype
+            out.append(host[start : start + nbytes].view(dtype).reshape(tuple(p.shape)))
+            start += nbytes
+        return out
+
+    def snapshot_state(self) -> Optional[dict]:
+        """Host-side image of the engine's resumable working set: per
+        converged chunk the prev output planes (placements, scores,
+        feasibility, reasons), row signatures and pack-K hints, plus the
+        cluster tensors they were computed against; the JAX engine's
+        payload, key for key and dtype for dtype.  None when there is
+        nothing coherent to persist.  Callers serialise ticks around
+        this (the snapshot manager's hook runs under the tick lock)."""
+        entries = sorted(self._chunk_cache.items())
+        view = next((e.prev_view for _i, e in entries if e.prev_view is not None), None)
+        if view is None or getattr(view, "names", None) is None:
+            return None
+        chunks: dict[int, dict] = {}
+        rows = 0
+        for idx, e in entries:
+            if (
+                e.prev_view is not view
+                or e.prev_out is None
+                or e.prev_feas is None
+                or e.prev_reasons is None
+                or e.prev_results is None
+                or len(e.prev_results) != len(e.units)
+                or e.stale_out_rows  # device planes disagree with decodes
+            ):
+                continue
+            sel, rep, cnt, sco, feas, rsn = self._planes_to_host(
+                e.prev_out + (e.prev_feas, e.prev_reasons)
             )
+            chunks[idx] = {
+                "n": len(e.units),
+                "fmt": e.fmt,
+                "sigs": list(e.sigs),
+                "has_scores": e.prev_has_scores,
+                "pack_k_hint": e.pack_k_hint,
+                "pack_shrink_votes": e.pack_shrink_votes,
+                "sel": sel,
+                "rep": rep,
+                "cnt": cnt,
+                "sco": sco,
+                "feas": feas,
+                "rsn": rsn,
+            }
+            rows += len(e.units)
+        if not chunks:
+            return None
+        return {
+            "version": SNAPSHOT_STATE_VERSION,
+            "config": self._snapshot_config(),
+            "tick": self.tick_seq,
+            "names": list(view.names),
+            "topo_fp": None if isinstance(view, _SnapshotView) else self._topo_fingerprint(view),
+            "view": {
+                k: np.asarray(getattr(view, k)).copy()
+                for k in ("alloc", "used", "cpu_alloc", "cpu_avail")
+            },
+            "rows": rows,
+            "chunks": chunks,
+        }
+
+    def resident_state_bytes(self) -> dict:
+        """The chunk cache's device bytes by plane family (the JAX
+        engine's families; the port keeps no tie-break plane, so that
+        family is 0), also stored as ``engine_resident_bytes`` gauges."""
+        fams = {"prev_planes": 0, "per_object": 0, "tiebreak": 0, "vectors": 0}
+        for e in self._chunk_cache.values():
+            planes = (e.prev_out or ()) + (e.prev_feas, e.prev_reasons)
+            fams["prev_planes"] += sum(p.nbytes for p in planes if p is not None)
+            if e.device_per_object is not None:
+                fams["per_object"] += sum(t.nbytes for t in e.device_per_object.values())
+            if e.prev_nfeas is not None:
+                fams["vectors"] += e.prev_nfeas.nbytes
+        total = sum(fams.values())
+        for family, v in fams.items():
+            self.metrics.store("engine_resident_bytes", v, family=family)
+        self.metrics.store("engine_resident_bytes_per_device", total)
+        return {
+            "by_family": fams,
+            "total": total,
+            "device_count": 1,
+            "per_device": total,
+            "score_dtype": "i32",
+            "chunks": len(self._chunk_cache),
+        }
+
+    def stage_restore(self, payload: Optional[dict], assume_fresh: bool = False) -> None:
+        """Stage a snapshot payload for the next tick, whose units and
+        clusters the restore verifies it against.  ``assume_fresh`` says
+        the caller's resourceVersion watermarks matched the relist —
+        telemetry only: freshness is proven in the engine by equal
+        cluster tensors and the per-row signature walk, so a wrong
+        watermark can cost a re-solve, never a wrong placement."""
+        # Under the tick lock: a tick running on another thread must not
+        # consume a torn pair.
+        with self._schedule_lock:
+            self._pending_restore = (
+                None if payload is None else (payload, bool(assume_fresh))
+            )
+
+    def _consume_restore(self, units, clusters, view: ClusterView) -> None:
+        """Consume the staged payload into ``restore_info`` (the JAX
+        engine's keys, plus ``seconds``: the restore's featurize, upload
+        and decode wall time)."""
+        payload, assume_fresh = self._pending_restore
+        self._pending_restore = None
+        info = {
+            "result": "rejected", "fresh": False, "chunks": 0, "rows": 0,
+            "watermarks_matched": assume_fresh,
+            "seconds": {"featurize": 0.0, "upload": 0.0, "decode": 0.0},
+        }
+        self.restore_info = info
+        try:
+            self._restore_impl(payload, units, clusters, view, info)
+        except Exception:
+            log.warning("snapshot restore failed; falling back cold", exc_info=True)
+            info["result"] = "rejected"
+        result = info["result"]
+        if result == "loaded":
+            result = "loaded_fresh" if info["fresh"] else "loaded_stale"
+        self.metrics.counter("engine_snapshot_total", result=result)
+        log.info(
+            "snapshot restore: %s chunks=%d rows=%d fresh=%s",
+            result, info["chunks"], info["rows"], info["fresh"],
+        )
+
+    def _restore_impl(self, payload, units, clusters, view, info) -> None:
+        """Rebuild the chunk cache from a payload: each chunk whose row
+        count, padded shape and format match is featurized from the
+        relisted units (signatures from the snapshot, so the tick
+        verifies every row), its per-object inputs and planes uploaded
+        and its results decoded.  Nothing is launched: a fresh resume's
+        tick replays with no dispatch."""
+        if payload.get("version") != SNAPSHOT_STATE_VERSION:
+            return
+        if payload.get("config") != self._snapshot_config():
+            return
+        topo_fp = self._topo_fingerprint(view)
+        if payload.get("topo_fp") != topo_fp:
+            return  # labels, taints or API resources moved: rows invalid
+        if payload.get("names") != list(view.names):
+            return
+        snap_view = payload["view"]
+        if np.asarray(snap_view["alloc"]).shape != np.asarray(view.alloc).shape:
+            return
+        # Freshness by content: equal cluster tensors (plus the tick's
+        # signature walk) mean the snapshot world is the relisted one;
+        # anything else resumes as a capacity drift from the snapshot's.
+        fresh = all(
+            np.array_equal(np.asarray(snap_view[k]), np.asarray(getattr(view, k)))
+            for k in ("alloc", "used", "cpu_alloc", "cpu_avail")
+        )
+        old_view = view if fresh else _SnapshotView(
+            payload["names"], snap_view["alloc"], snap_view["used"],
+            snap_view["cpu_alloc"], snap_view["cpu_avail"],
+        )
+        c_bucket, eff_chunk, ladder = self._tick_geometry(len(view.clusters))
+        multi_chunk = len(units) > eff_chunk
+        vocab = self._vocab_for(view, topo_fp)
+        snap_chunks = payload.get("chunks") or {}
+        restored = rows = 0
+        secs = info["seconds"]
+        for chunk_idx, start in enumerate(range(0, len(units), eff_chunk)):
+            cs = snap_chunks.get(chunk_idx)
+            chunk = units[start : start + eff_chunk]
+            n = len(chunk)
+            if cs is None or cs["n"] != n:
+                continue
+            b_pad = self._bucket_rows(n, ladder, eff_chunk, multi_chunk)
+            if tuple(cs["sel"].shape) != (b_pad, c_bucket):
+                continue
+            t0 = time.perf_counter()
+            inputs, fmt = self._featurize_full(chunk, clusters, view, vocab)
+            self.featurize_rows["full"] += n
+            secs["featurize"] += time.perf_counter() - t0
+            if fmt != cs["fmt"]:
+                continue
+            host_bytes = sum(
+                np.asarray(getattr(inputs, name)).nbytes
+                for name in self._per_object_fields(fmt)
+            )
+            c = np.asarray(inputs.cluster_valid).shape[0]
+            nbytes = (
+                host_bytes * 3
+                + _pow2_bucket(n, MIN_ROW_BUCKET, 1 << 30)
+                * _cluster_bucket(c, MIN_CLUSTER_BUCKET)
+                * 15
+            )
+            if self._cache_used + nbytes > CACHE_BYTES:
+                continue
+            entry = _CachedChunk(
+                sigs=list(cs["sigs"]),
+                units=[_RESTORE_SENTINEL] * n,
+                inputs=inputs,
+                fmt=fmt,
+                topo_fp=topo_fp,
+                nbytes=nbytes,
+                vocab_uid=vocab.uid if (fmt == "compact" and vocab) else 0,
+                restored=True,
+            )
+            # Device residency, the cold upload paid here instead of in
+            # the first tick: the per-object inputs (the drift gate's and
+            # slabs' substrate) and the prev planes.
+            t0 = time.perf_counter()
+            padded = self._pad_for_dispatch(inputs, fmt, b_pad, c_bucket)
+            entry.device_per_object = self._upload_per_object(padded, fmt)
+            entry.padded_shape = (b_pad, c_bucket)
+            if fmt == "compact":
+                entry.padded_shape += (
+                    np.asarray(padded.sparse_idx).shape[1],
+                    np.asarray(padded.key_bytes).shape[1],
+                )
+
+            def put(name, dtype):
+                return tensor(np.ascontiguousarray(cs[name], dtype=dtype), self.device)
+
+            entry.prev_out = (
+                put("sel", np.int8), put("rep", np.int32),
+                put("cnt", np.int8), put("sco", np.int32),
+            )
+            entry.prev_feas = put("feas", np.int8)
+            entry.prev_reasons = put("rsn", np.int32)
+            # The feasible counts are derived on the host, not stored:
+            # the snapshot's format stays the JAX engine's and nothing is
+            # launched.
+            entry.prev_nfeas = tensor(
+                (np.asarray(cs["feas"]) != 0).sum(axis=1).astype(np.int32), self.device
+            )
+            t1 = time.perf_counter()
+            secs["upload"] += t1 - t0
+            entry.prev_results = self._decode_rows(
+                np.asarray(cs["sel"])[:n], np.asarray(cs["rep"])[:n],
+                np.asarray(cs["cnt"])[:n], view.names,
+                scores=np.asarray(cs["sco"])[:n] if cs["has_scores"] else None,
+            )
+            secs["decode"] += time.perf_counter() - t1
+            entry.prev_has_scores = bool(cs["has_scores"])
+            entry.prev_view = old_view
+            entry.pack_k_hint = int(cs.get("pack_k_hint", 0))
+            entry.pack_shrink_votes = int(cs.get("pack_shrink_votes", 0))
+            existing = self._chunk_cache.pop(chunk_idx, None)
+            if existing is not None:
+                self._cache_used -= existing.nbytes
+            self._chunk_cache[chunk_idx] = entry
+            self._cache_used += nbytes
+            restored += 1
+            rows += n
+        info.update(
+            result="loaded" if restored else "rejected",
+            fresh=fresh and bool(restored),
+            chunks=restored,
+            rows=rows,
+        )
 
     def _schedule(
         self, units, clusters, view, webhook_eval, want_scores, follower_index,
@@ -1111,6 +1640,12 @@ class SchedulerEngine:
         self.timings = timings
         if view is None:
             view = self._cached_view(units, clusters)
+        if self._pending_restore is not None:
+            # A staged snapshot is consumed here, where the relisted
+            # units and clusters it is verified against exist; restored
+            # chunks then ride the cache's paths below (the snapshot only
+            # seeds prev state, never outputs).
+            self._consume_restore(units, clusters, view)
         # Whole-batch no-op gate: the same list (or a fresh list of the
         # same objects, compared by id; the gate keeps them alive, so an
         # id match is identity) against the same view, with the same
@@ -1360,6 +1895,7 @@ class SchedulerEngine:
             entry, padded, status, fmt, vocab, c_bucket,
             self._cluster_planes_device(view, c_bucket),
         )
+        self._count_dispatch(fmt, b_pad, c_bucket)
         out, cert = self._tick(device_in, fmt, m, key_max, budget)
         timings["device"] += time.perf_counter() - t1
         return _InFlight(
@@ -1432,6 +1968,7 @@ class SchedulerEngine:
             if (flag & 2).any():
                 t0 = time.perf_counter()
                 self.planner_reruns += 1
+                self.dispatches_total += 1
                 it.out, it.cert = self._tick(it.device_in, it.fmt, it.m, it.key_max)
                 timings["device"] += time.perf_counter() - t0
                 if it.cert is None:
@@ -1642,7 +2179,7 @@ class SchedulerEngine:
         if entry.stale_rows:
             # Backstop: rows patched since the last upload whose eager
             # repair could not run.
-            self._repair_stale_inputs(entry, fmt, c_bucket)
+            self._repair_stale_inputs(entry, fmt, c_bucket, phase="drift")
         slices = (
             info["alloc_old_d"], info["used_old_d"],
             info["alloc_new_d"], info["used_new_d"],
@@ -1657,6 +2194,7 @@ class SchedulerEngine:
             tensor(self._fin_rows(entry, b_pad), dev),
             self._ensure_nfeas(entry),
         )
+        self.dispatches_total += 1
         if fmt == "compact":
             mask, new_cols = drift_gate_compact(
                 entry.device_per_object, self._tables_device(vocab, c_bucket),
@@ -1727,6 +2265,7 @@ class SchedulerEngine:
             )
             self.survivor_stats["groups"] += 1
             self.survivor_stats["padded_rows"] += g
+            self.dispatches_total += 1
             jobs.append({"pi": pi, "entry": entry, "rows": seg, "out": out,
                          "cert": cert, "wire": wire, "pack_k": pack_k})
         return jobs
@@ -1789,6 +2328,7 @@ class SchedulerEngine:
             for r, res in zip(res_rows, results):
                 merged[r] = res
             entry.prev_results = merged
+            self._record_packed(entry, res_rows, results, packed, view, f"{entry.fmt}:unified")
             if not self._repair_entry_rows(entry, out, ok_pos, res_rows):
                 entry.stale_out_rows = sorted(set(entry.stale_out_rows or ()) | set(res_rows))
             plan_resolved.setdefault(job["pi"], []).extend(res_rows)
@@ -1808,6 +2348,7 @@ class SchedulerEngine:
         resolved rows (delta), sends its remaining rows to the sub-batch
         slabs, or, when more than half its rows move, takes the full
         dispatch."""
+        self.metrics.store("engine_gate_inflight", len(items))
         jobs: list[dict] = []
         plans: list[list] = []  # [slot, entry, n, recompute rows, fmt, b_pad, pack_k]
         wcheck_jobs: list[tuple] = []  # (plan index, rows, device flags)
@@ -1846,6 +2387,7 @@ class SchedulerEngine:
                 for seg, g in self._survivor_groups(wrows.tolist()):
                     ridx = np.zeros(g, np.int64)
                     ridx[: len(seg)] = seg
+                    self.dispatches_total += 1
                     flags = drift_wcheck(
                         entry.prev_feas, self._index(ridx),
                         oldc["cpu_alloc"], oldc["cpu_avail"],
@@ -1921,6 +2463,7 @@ class SchedulerEngine:
                 pending_sub.append((slot, entry, rows, self._slice_rows(entry, rows), False))
                 chunk_changed[slot] = sorted(rec | set(resolved))
         timings["featurize"] += time.perf_counter() - t0
+        self.metrics.store("engine_gate_inflight", 0)
 
         window: list[_InFlight] = []
         for slot, entry, n, fmt, b_pad, pack_k in fallback:
@@ -1949,6 +2492,7 @@ class SchedulerEngine:
             return out, None
         t0 = time.perf_counter()
         self.narrow_stats["fallback"] += int(rows.size)
+        self.dispatches_total += 1
         idx = self._index(rows)
         sub = device_in._replace(
             **{name: getattr(device_in, name)[idx] for name in self._per_object_fields(fmt)}
@@ -2080,6 +2624,7 @@ class SchedulerEngine:
                 timings["featurize"] += t1 - t0
                 per_object_dev = self._upload_per_object(padded, fmt)
             device_in = self._assemble(per_object_dev, fmt, vocab, c_bucket, cluster_dev)
+            self._count_dispatch(fmt, b_pad, c_bucket)
             out, cert = self._tick(device_in, fmt, m, key_max)
             self._sync()
             timings["device"] += time.perf_counter() - t1
@@ -2095,11 +2640,17 @@ class SchedulerEngine:
 
         decoded: list[ScheduleResult] = []
         nsel_all = []
+        rec = self._tick_rec
+        rec_parts = []  # per slab: the recorder's fields off its wire
         for n, out in slabs:
             t2 = time.perf_counter()
             planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
             packed = unpack_wire(self._read_np(pack_wire(*(p[:n] for p in planes), pack_k)), pack_k)
             nsel_all.append(packed.nsel)
+            if rec is not None:
+                rec_parts.append(
+                    (packed.rsum, packed.nfeas, *self._packed_record_fields(packed, rec.topk))
+                )
             over_pos = np.nonzero(packed.nsel > pack_k)[0]
             over_dense = (
                 self._fetch_overflow(out, over_pos, want_scores, timings)
@@ -2115,16 +2666,30 @@ class SchedulerEngine:
 
         t3 = time.perf_counter()
         nsel_all = np.concatenate(nsel_all)
+        if rec_parts:
+            rec_counts = np.concatenate([p[0] for p in rec_parts])
+            rec_feas = np.concatenate([p[1] for p in rec_parts])
+            rec_ti = [t for p in rec_parts for t in p[2]]
+            rec_ts = [t for p in rec_parts for t in p[3]]
         offset = 0
         eager_repairs = []
         for slot, entry, changed_rows, _sub, inputs_stale in pending:
             merged = list(entry.prev_results)
+            span = slice(offset, offset + len(changed_rows))
             for j, row in enumerate(changed_rows):
                 res = decoded[offset + j]
                 if want_scores and not entry.prev_has_scores:
                     res = ScheduleResult(res.clusters)
                 merged[row] = res
-            self._observe_nsel(entry, nsel_all[offset : offset + len(changed_rows)], c_bucket)
+            if rec_parts:
+                rec.record_rows(
+                    [entry.units[r].key for r in changed_rows],
+                    [res.clusters for res in decoded[span]],
+                    None, None, view.names, program=f"{fmt}:sub",
+                    reason_counts=rec_counts[span], feasible_n=rec_feas[span],
+                    topk_idx=rec_ti[span], topk_scores=rec_ts[span],
+                )
+            self._observe_nsel(entry, nsel_all[span], c_bucket)
             entry.prev_results = merged
             entry.prev_view = view
             if inputs_stale:
@@ -2146,7 +2711,7 @@ class SchedulerEngine:
         timings["decode"] += time.perf_counter() - t3
         t4 = time.perf_counter()
         for entry in eager_repairs:
-            self._repair_stale_inputs(entry, fmt, c_bucket)
+            self._repair_stale_inputs(entry, fmt, c_bucket, phase="churn")
         timings["featurize"] += time.perf_counter() - t4
 
     def _gather_device_rows(self, pending, fmt: str) -> dict:
@@ -2282,6 +2847,7 @@ class SchedulerEngine:
         merged = list(entry.prev_results)
         for row, res in zip(idx_rows, results):
             merged[row] = res
+        self._record_packed(entry, idx_rows, results, packed, view, self._program(entry, out))
         self._store_prev(entry, out)
         entry.prev_results = merged
         entry.prev_view = view
@@ -2300,11 +2866,53 @@ class SchedulerEngine:
             packed, over_pos, over_dense, view.names, want_scores
         )
         if entry is not None:
+            self._record_packed(
+                entry, range(len(results)), results, packed, view, self._program(entry, out)
+            )
             self._store_prev(entry, out)
             entry.prev_results = results
             entry.prev_has_scores = want_scores
             entry.prev_view = view
         return results
+
+    # -- flight recorder feed ----------------------------------------------
+    @staticmethod
+    def _program(entry, out) -> str:
+        """A record's program fingerprint: the chunk's format and the
+        dispatch's padded shape."""
+        return f"{entry.fmt}:{out.selected.shape[0]}x{out.selected.shape[1]}"
+
+    @staticmethod
+    def _packed_record_fields(packed: PackedRows, topk: int):
+        """Per-row recorder top-k: the wire's slots are ordered (score
+        desc, index asc) over the selected clusters, so the first slots
+        are the top-k, for overflow rows too."""
+        idx = np.asarray(packed.idx)[:, :topk]
+        sco = np.asarray(packed.sco)[:, :topk]
+        valid = idx >= 0
+        splits = np.cumsum(valid.sum(axis=1))[:-1]
+        return (
+            np.split(idx[valid].astype(np.int32), splits),
+            np.split(sco[valid].astype(np.int64), splits),
+        )
+
+    def _record_packed(self, entry, rows, results, packed: PackedRows, view, program: str):
+        """Feed the flight recorder the decoded rows (LOCAL chunk rows;
+        ``entry.units`` maps them to keys) from the wire already read:
+        the reason-summary counts and feasible counts ride it, so no
+        plane is read for the recorder."""
+        rec = self._tick_rec
+        if rec is None:
+            return
+        topk_i, topk_s = self._packed_record_fields(packed, rec.topk)
+        rec.record_rows(
+            [entry.units[r].key for r in rows],
+            [res.clusters for res in results],
+            None, None, view.names, program=program,
+            reason_counts=np.asarray(packed.rsum),
+            feasible_n=np.asarray(packed.nfeas),
+            topk_idx=topk_i, topk_scores=topk_s,
+        )
 
     def _fetch_overflow(self, out, rows: np.ndarray, with_scores: bool, timings):
         """Re-fetch of K-overflow rows (the packed wire's escape hatch):

@@ -3,8 +3,10 @@ the whole dense tick on CUDA against the CPU, and the engine on CUDA
 against the CPU engine (cold, warm and drift ticks, with their
 counters; the pipelined window on the card against the CPU engine's
 sequential dispatch; score-carrying and webhook ticks) — tolerance 0
-(integer math) — and the window's
-dispatch of a chunk making no host synchronisation.
+(integer math) — the window's dispatch of a chunk making no host
+synchronisation, and durable state on the card: a fresh resume from a
+snapshot launching nothing, a stale one through the drift gate, and a
+kill-matrix round (``testing/restart_driver.py`` on ``--device cuda``).
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -13,7 +15,12 @@ without them (the repo's conftest imports JAX; skip it there):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import math
+import os
+import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -276,3 +283,60 @@ def test_window_dispatch_makes_no_host_sync(cuda, config):
     assert first_chunk_syncs(units, clusters, windowed=True, mode="error")["sites"] == []
     sites = first_chunk_syncs(units, clusters, windowed=False)["sites"]
     assert sites and all("ops/planner.py" in site for site in sites), sites
+
+
+def test_resume_from_snapshot_on_card(cuda, monkeypatch):
+    """A cold tick on the card, its snapshot through pickle, then fresh
+    engines on the card staged with it: the fresh resume's tick launches
+    nothing and dispatches nothing, with the cold tick's results; a
+    stale resume (cluster 0's available halved) rides the drift gate
+    and equals a fresh engine's cold tick on that world."""
+    units, clusters, _ = build_world(700, 600, "3", seed=8)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    cold = SchedulerEngine()
+    want = cold.schedule(units, clusters)
+    snap = pickle.loads(pickle.dumps(cold.snapshot_state()))
+    assert len(snap["chunks"]) > 1
+    fresh = SchedulerEngine()
+    fresh.stage_restore(snap, assume_fresh=True)
+    launches = phase1.launches
+    got = fresh.schedule(list(units), clusters)
+    assert phase1.launches == launches and fresh.dispatches_total == 0
+    assert fresh.restore_info["result"] == "loaded" and fresh.restore_info["fresh"]
+    assert fresh.fetch_stats["noop"] == len(snap["chunks"])
+    assert [r.clusters for r in got] == [r.clusters for r in want]
+    drifted = drift(clusters)
+    stale = SchedulerEngine()
+    stale.stage_restore(snap)
+    got = stale.schedule(units, drifted)
+    assert stale.restore_info["result"] == "loaded" and not stale.restore_info["fresh"]
+    assert stale.drift_stats["gated"] >= 1
+    want = SchedulerEngine().schedule(units, drifted)
+    assert [r.clusters for r in got] == [r.clusters for r in want]
+
+
+def test_kill_round_on_card(cuda, tmp_path):
+    """The snapshot-write round of the kill matrix with every process on
+    the card: the successor loads and converges to the reference's
+    placements and flight-recorder reason counts."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(mode, workdir, *args):
+        return subprocess.run(
+            [sys.executable, "-m", "kubeadmiral_tpu_torch.testing.restart_driver",
+             mode, "--dir", str(tmp_path / workdir), "--device", "cuda",
+             "--objects", "600", "--clusters", "300", *args],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+            capture_output=True, text=True, timeout=600,
+        )
+
+    assert run("reference", "reference").returncode == 0
+    assert run("victim", "kill", "--kill-phase", "snapshot-write").returncode == -9
+    proc = run("successor", "kill")
+    assert proc.returncode == 0, proc.stderr
+    ref = json.load(open(tmp_path / "reference" / "reference.json"))
+    succ = json.load(open(tmp_path / "kill" / "successor.json"))
+    assert succ["restore_info"]["result"] == "loaded"
+    assert succ["placements"] == ref["placements"]
+    assert succ["reason_counts"] == ref["reason_counts"]
+    assert succ["quarantined"] == []
