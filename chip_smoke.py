@@ -116,6 +116,25 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    on that world; each with the restore's featurize / upload / decode
    split.  The c5 cold tick's fetch bytes must equal
    C5_COLD_FETCH_BYTES (the flight recorder reads nothing);
+10b. the control phase (``control_phase``): the scheduling half of the
+   control plane (``testing/cpworld.py``, ``bench_e2e.py``'s world at
+   CONTROL_SHAPE = 10,000 Deployments x 500 member clusters) — a
+   ``ClusterFleet`` with the cluster, federate and scheduler
+   controllers, the scheduler's default engine on the card — through a
+   join, a cold, a 1 % churn, a no-op resync and a topology round (one
+   more member), each checked (joins; every object placed, its replicas
+   summing to ``spec.replicas``; churn moving only the churned objects;
+   the resync reaching no engine, 0 launches; no controller panic,
+   ``persist_panic`` included); per round the launch count is set to 0
+   just before and read just after, with the dispatch shapes; the cold
+   round launches at least once per chunk its ticks fill and dispatches
+   a full 4,096-row chunk; the kernel against its twin on the cold
+   round's first chunk and the churn round's dispatch; then the same
+   rounds over ``SchedulerEngine(device="cpu")`` in the same
+   controllers, every round's store equal to the card's object for
+   object (wall-clock fields masked); a ``control <round>`` line per
+   round (walls by controller, engine ticks, launches, fetch bytes,
+   objects placed, the store's object count);
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -1467,6 +1486,120 @@ def kill_round() -> dict:
     return row
 
 
+CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64)
+
+
+def control_phase() -> dict:
+    """The scheduling half of the control plane on the card
+    (``testing/cpworld.py``): a ``ClusterFleet`` with the cluster,
+    federate and scheduler controllers, the scheduler's default engine
+    (the card's), through the join, cold, churn, no-op resync and
+    topology rounds at CONTROL_SHAPE, each checked there (joins, every
+    object placed with its replicas summing to ``spec.replicas``, churn
+    moving only the churned objects, the no-op resync reaching no
+    engine, no controller panic).  Per round the phase-1 launch count is
+    set to 0 just before and read just after, beside the dispatches'
+    shapes; the cold round must launch at least once per chunk its ticks
+    fill and dispatch at least one full 4,096-row chunk.  The kernel is
+    held against its plain twin on the cold round's first chunk and the
+    churn round's dispatch.  Then the same rounds with
+    ``SchedulerEngine(device="cpu")`` in the same controllers: every
+    round's store (host and members) equals the card's object for
+    object, wall-clock fields masked.  Prints a ``control <round>`` line
+    per round."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1
+    from kubeadmiral_tpu_torch.runtime import flightrec
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing import cpworld
+    from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
+
+    objects, clusters = CONTROL_SHAPE
+    flightrec.get_default().clear()
+    plane = cpworld.ControlPlane()  # SchedulerController(engine=None): the card's engine
+    if plane.engine.device.type != "cuda":
+        raise AssertionError(f"control: the default engine runs on {plane.engine.device}")
+    chunk = plane.engine.chunk_size
+    stack = contextlib.ExitStack()
+    recording = {}
+    counted, first_inputs = {}, {}
+
+    def on_round(name: str) -> None:
+        keep = [] if name in ("cold", "churn") else None
+        recording[name] = (stack.enter_context(recorded_dispatches(keep=keep)), keep)
+        phase1.launches = 0
+
+    def after_round(name: str, report: dict) -> None:
+        counted[name] = phase1.launches
+        stack.close()
+        shapes, keep = recording.pop(name)
+        report["dispatch_shapes"] = sorted({tuple(c) for c in shapes})
+        report["dispatches"] = len(shapes)
+        if keep:
+            first_inputs[name] = keep[0]
+
+    t0 = time.perf_counter()
+    reports = cpworld.run_rounds(plane, objects, clusters, on_round, after_round)
+    card_s = time.perf_counter() - t0
+    for name, report in reports.items():
+        if counted[name] != report["phase1_launches"]:
+            raise AssertionError(
+                f"control {name}: {counted[name]} launches counted, "
+                f"{report['phase1_launches']} in its engine ticks"
+            )
+    cold = reports["cold"]
+    fills = sum(-(-t["units"] // chunk) for t in cold["ticks"])
+    if cold["phase1_launches"] < fills:
+        raise AssertionError(f"control cold: {cold['phase1_launches']} launches, {fills} chunks filled")
+    if not any(rows == chunk for _, rows, _ in cold["dispatch_shapes"]):
+        raise AssertionError(f"control cold: no full {chunk}-row chunk in {cold['dispatch_shapes']}")
+    kernel = {
+        "cold_chunk": check_phase1("control-cold-chunk", first_inputs["cold"], timed=True),
+        "churn": check_phase1("control-churn", first_inputs["churn"], timed=True),
+    }
+    del first_inputs
+    panics = plane.panics()
+    engine_ticks = plane.engine.tick_seq
+    del plane
+    torch.cuda.empty_cache()
+
+    # The CPU twin: the same rounds, the same controllers, the CPU engine.
+    t0 = time.perf_counter()
+    twin = cpworld.ControlPlane(
+        engine=SchedulerEngine(device="cpu", flight_recorder=flightrec.FlightRecorder())
+    )
+    twin_reports = cpworld.run_rounds(twin, objects, clusters)
+    twin_s = time.perf_counter() - t0
+    for name in cpworld.ROUNDS:
+        diff = cpworld.digest_diff(reports[name]["digests"], twin_reports[name]["digests"])
+        if diff:
+            raise AssertionError(f"control {name}: card store differs from the CPU engine's: {diff}")
+
+    out = {}
+    for name in cpworld.ROUNDS:
+        report = reports[name]
+        row = {k: v for k, v in report.items() if k not in ("digests", "ticks")}
+        row["ticks"] = [
+            {k: t[k] for k in ("units", "clusters", "wall_ms", "phase1_launches",
+                                "fetch_bytes", "fetch_paths", "stages_ms")}
+            for t in report["ticks"]
+        ]
+        row["twin_wall_s"] = twin_reports[name]["wall_s"]
+        row["twin_walls_s"] = twin_reports[name]["walls_s"]
+        row["store_equal"] = True
+        log(f"control {name}: {json.dumps(row)}")
+        out[name] = row
+    summary = {
+        "objects": objects, "clusters": clusters, "card_s": card_s, "twin_s": twin_s,
+        "engine_ticks": engine_ticks, "panics": panics,
+        "kernel": {k: {kk: v[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                   for k, v in kernel.items()},
+    }
+    log(f"control summary: {json.dumps(summary)}")
+    return {"rounds": out, "summary": summary, "kernel": kernel}
+
+
 def main() -> int:
     import torch
 
@@ -1649,6 +1782,13 @@ def main() -> int:
     del snap5, resume5
     log(f"phase persist-resume-c5: {time.perf_counter() - t0:.2f} s")
 
+    # The scheduling half of the control plane over the card's engine.
+    t0 = time.perf_counter()
+    del worlds, units, clusters
+    gc.collect()
+    control = control_phase()
+    log(f"phase control: {time.perf_counter() - t0:.2f} s")
+
     c5, c3 = rows["5"], rows["3"]
     kernels = {
         "kernels": [
@@ -1671,7 +1811,8 @@ def main() -> int:
                 "max_abs_err": max(
                     r["max_abs_err"]
                     for r in (c5, c3, slab_rows["5"], slab_rows["3"],
-                              surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"])
+                              surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
+                              control["kernel"]["cold_chunk"], control["kernel"]["churn"])
                 ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -1767,6 +1908,16 @@ def main() -> int:
                     "c3 kill round successor": kill["successor_launches"],
                 },
                 "snapshot_c5": capture5,
+                # The control plane's rounds (cluster, federate and
+                # scheduler controllers over the card's engine): launches
+                # per round, and the kernel at the churn round's shape.
+                "launches_control": {
+                    name: row["phase1_launches"] for name, row in control["rounds"].items()
+                },
+                "control_churn": {
+                    key: control["kernel"]["churn"][key]
+                    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                },
                 "card": card,
             }
         ]

@@ -39,7 +39,7 @@ The JAX module's knobs are arguments here with its defaults: the
 directory (no default: snapshots are opt-in), ``every`` (1) and ``keep``
 (2); the port reads no environment variable.  ``breakers`` is an
 optional duck-typed registry (``export_state`` / ``restore_state``); the
-port has none yet.
+port's (``transport/breaker.py``) has no durable state yet.
 """
 
 from __future__ import annotations

@@ -1,14 +1,22 @@
-"""FNV-1 hashing compatible with the reference control plane's choices.
+"""FNV hashing compatible with the reference control plane's choices.
 
-The replica planner tie-breaks equal-weight clusters by ``fnv.New32()``
-(FNV-1, 32-bit) over ``clusterName + replicaSetKey`` (reference:
-pkg/controllers/util/planner/planner.go:184-198), so the exact bit
-patterns matter for parity.  Pure-Python/numpy implementations.
+The reference uses Go's ``hash/fnv`` in two places that shape scheduling
+semantics, so the exact bit patterns matter for parity:
+
+* the replica planner tie-breaks equal-weight clusters by ``fnv.New32()``
+  (FNV-1, 32-bit) over ``clusterName + replicaSetKey``
+  (reference: pkg/controllers/util/planner/planner.go:184-198), and
+* scheduling-trigger dedupe hashes a canonical JSON encoding with
+  ``fnv.New32a()`` (reference:
+  pkg/controllers/scheduler/schedulingtriggers.go:106-148).
+
+Pure-Python/numpy implementations.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+import json
+from typing import Any, Iterable
 
 import numpy as np
 
@@ -20,6 +28,14 @@ def fnv32(data: bytes) -> int:
     h = 2166136261
     for b in data:
         h = ((h * 16777619) & 0xFFFFFFFF) ^ b
+    return h
+
+
+def fnv32a(data: bytes) -> int:
+    """FNV-1a 32-bit (xor, then multiply) — matches Go's ``fnv.New32a()``."""
+    h = 2166136261
+    for b in data:
+        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
     return h
 
 
@@ -53,3 +69,27 @@ def fnv32_extend(state: int | np.ndarray, data: bytes) -> int | np.ndarray:
 def uint32_to_sortable_int32(h: np.ndarray) -> np.ndarray:
     """Map uint32 to int32 preserving unsigned order (for int32 sorts)."""
     return (h.astype(np.int64) - 2**31).astype(np.int32)
+
+
+def stable_json_hash(value: Any) -> int:
+    """FNV-1a over a canonical (sorted-key, compact) JSON encoding.
+
+    The trigger-hash analogue: the reference marshals a sorted struct to
+    JSON and hashes it so that reconciles with unchanged inputs can be
+    skipped (schedulingtriggers.go:106-148). Python dicts are sorted and
+    sets canonicalized so the encoding never depends on iteration order
+    or PYTHONHASHSEED; other non-JSON types raise rather than hash
+    unstably.
+    """
+
+    def canonical(v: Any) -> Any:
+        # json.dumps only consults this hook for non-JSON types; nested
+        # non-JSON elements inside the returned value are routed back here.
+        if isinstance(v, (set, frozenset)):
+            return sorted(v, key=lambda x: json.dumps(x, sort_keys=True, default=canonical))
+        if isinstance(v, tuple):
+            return list(v)
+        raise TypeError(f"unhashable trigger value of type {type(v).__name__}")
+
+    enc = json.dumps(value, sort_keys=True, separators=(",", ":"), default=canonical)
+    return fnv32a(enc.encode())

@@ -340,3 +340,24 @@ def test_kill_round_on_card(cuda, tmp_path):
     assert succ["placements"] == ref["placements"]
     assert succ["reason_counts"] == ref["reason_counts"]
     assert succ["quarantined"] == []
+
+
+def test_control_plane_on_card_matches_cpu(cuda):
+    """The cluster, federate and scheduler controllers over the card's
+    engine (the scheduler's default) through the five rounds of
+    ``testing/cpworld.py`` at 200 Deployments x 16 clusters: every
+    round's store equals the same rounds' over the CPU engine, object
+    for object (wall-clock fields masked), and the cold round's ticks
+    launch the kernel."""
+    from kubeadmiral_tpu_torch.testing import cpworld
+
+    card = cpworld.ControlPlane()
+    assert card.engine.device.type == "cuda"
+    got = cpworld.run_rounds(card, objects=200, clusters=16)
+    want = cpworld.run_rounds(
+        cpworld.ControlPlane(engine=SchedulerEngine(device="cpu")), objects=200, clusters=16
+    )
+    for name in cpworld.ROUNDS:
+        assert cpworld.digest_diff(got[name]["digests"], want[name]["digests"]) == [], name
+    assert got["cold"]["phase1_launches"] >= 1
+    assert got["noop"]["phase1_launches"] == 0
