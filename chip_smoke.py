@@ -103,12 +103,14 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    cost for a c5 cold tick's rows: record, export, pickle, evict; the
    process-wide recorder every engine here feeds is cleared before each
    warm and surface phase); after the surface phases, the kill matrix's
-   snapshot-write round on the card (``kill_round``: the restart
-   driver's reference, a victim SIGKILLed with its tick-3 snapshot half
-   written and a successor, each a subprocess on ``--device cuda`` at
-   10,000 x 500; the successor loads and equals the reference's
-   placements and reason counts; their wall ms and the snapshot files'
-   bytes), then fresh c5 engines staged with the snapshot
+   snapshot-write and dispatch-flush rounds on the card (``kill_round``:
+   the restart driver's reference, a victim SIGKILLed with its tick-3
+   snapshot half written and its successor, a victim SIGKILLed halfway
+   through the member flush after tick 3 and its successor, each a
+   subprocess on ``--device cuda`` at 10,000 x 500; each successor loads
+   and equals the reference's placements and reason counts, and the
+   breaker its victim opened on ``m-001`` is still open; their wall ms
+   and the snapshot files' bytes), then fresh c5 engines staged with the snapshot
    (``resume_phase``): a fresh resume that launches and dispatches
    nothing and replays every chunk as ``noop``, equal to a fresh
    engine's cold tick, and a stale resume (cluster 0's available
@@ -116,25 +118,40 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    on that world; each with the restore's featurize / upload / decode
    split.  The c5 cold tick's fetch bytes must equal
    C5_COLD_FETCH_BYTES (the flight recorder reads nothing);
-10b. the control phase (``control_phase``): the scheduling half of the
-   control plane (``testing/cpworld.py``, ``bench_e2e.py``'s world at
+10a. the stream phase (``stream_phase``), c3 then c5, each on a fresh
+   engine: the streaming front end (``scheduler/streaming.py``) fed
+   ``bench.py --scenario churn_rate``'s event mix in 1,024-event slabs
+   (a cold flush, the bench's warm-up, STREAM_FLUSHES event flushes
+   with capacity drifts); every flush after the first passes the
+   engine its dirty rows, launches once per dispatch, and the stream
+   grows its placeholder block by one chunk; the results equal a fresh
+   engine's stop-the-world tick at the checked flushes; the kernel
+   against its twin on a flush's slab; ``stream c3 ...`` lines and a
+   summary (rows re-decided per second, event -> visible latency);
+10b. the control phase (``control_phase``): the control plane
+   (``testing/cpworld.py``, ``bench_e2e.py``'s world at
    CONTROL_SHAPE = 10,000 Deployments x 500 member clusters) — a
-   ``ClusterFleet`` with the cluster, federate and scheduler
+   ``ClusterFleet`` with the cluster, federate, scheduler and sync
    controllers, the scheduler's default engine on the card — through a
    join, a cold, a 1 % churn, a no-op resync and a topology round (one
    more member), each checked (joins; every object placed, its replicas
-   summing to ``spec.replicas``; churn moving only the churned objects;
-   the resync reaching no engine, 0 launches; no controller panic,
-   ``persist_panic`` included); per round the launch count is set to 0
+   summing to ``spec.replicas``; every placed pair a member Deployment
+   with its replicas and an ``OK`` status, and nothing else on the
+   members; churn moving and rewriting only the churned objects;
+   the resync reaching no engine, 0 launches, no member write; no
+   controller panic, ``persist_panic`` included, no shed or retry; the
+   sync stage launching nothing); per round the launch count is set to 0
    just before and read just after, with the dispatch shapes; the cold
    round launches at least once per chunk its ticks fill and dispatches
    a full 4,096-row chunk; the kernel against its twin on the cold
    round's first chunk and the churn round's dispatch; then the same
    rounds over ``SchedulerEngine(device="cpu")`` in the same
    controllers, every round's store equal to the card's object for
-   object (wall-clock fields masked); a ``control <round>`` line per
-   round (walls by controller, engine ticks, launches, fetch bytes,
-   objects placed, the store's object count);
+   object, host and members (wall-clock fields masked); a
+   ``control <round>`` line per round (walls by controller, engine
+   ticks, launches, fetch bytes, objects placed, the store's object
+   count, member objects, member writes and ops by verb, dispatch
+   batches, sheds and retries);
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -145,6 +162,7 @@ exits 2 before doing anything.  Usage: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -631,8 +649,11 @@ def pinned_bytes():
     return {k: v for k, v in stats().items() if "bytes" in k}
 
 
-def counted_tick(engine, units, clusters, capture: bool = False, **kw):
-    """engine.schedule(units, clusters, **kw) with every tick dispatch recorded
+def counted_tick(engine, units, clusters, capture: bool = False, call=None,
+                 collect: bool = True, **kw):
+    """engine.schedule(units, clusters, **kw) — or ``call()``, a caller of
+    the engine such as a stream's flush, with ``units`` the world it
+    ticks — with every tick dispatch recorded
     as (kind, rows, clusters), kind "narrow" or "dense" (on a narrow
     path the dense ones are certificate fallbacks), the phase-1 launch
     count set to 0 just before the call and read just after, and the
@@ -642,8 +663,11 @@ def counted_tick(engine, units, clusters, capture: bool = False, **kw):
     after the timed call so that ``memory_allocated`` counts the
     engine's tensors only.  Garbage is collected before the clock starts,
     so that the script's own garbage (a fresh reference engine's results)
-    is not collected inside the timed tick; the collector's own time
-    inside the tick is reported (``gc_ms``, collections by generation).
+    is not collected inside the timed tick (unless ``collect`` is off: a
+    stream collects before offering a slab's events, so that the
+    collection does not sit between the events and their flush); the
+    collector's own time inside the tick is reported (``gc_ms``,
+    collections by generation).
     The peak of ``memory_allocated`` is reset before the call; the
     synchronising operations made inside the chunk dispatches are
     counted (``dispatch_syncs``, testing/syncs.py); each window drain
@@ -673,7 +697,10 @@ def counted_tick(engine, units, clusters, capture: bool = False, **kw):
             })
         return real_drain(items, *args)
 
-    gc.collect()
+    t_gc = time.perf_counter()
+    if collect:
+        gc.collect()
+    gc_collect_ms = (time.perf_counter() - t_gc) * 1e3
     torch.cuda.reset_peak_memory_stats()
     engine._drain_window = drain
     try:
@@ -681,7 +708,7 @@ def counted_tick(engine, units, clusters, capture: bool = False, **kw):
                 counted_dispatch_syncs(engine) as syncs, gc_time() as collector:
             phase1.launches = 0
             t0 = time.perf_counter()
-            results = engine.schedule(units, clusters, **kw)
+            results = call() if call is not None else engine.schedule(units, clusters, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = phase1.launches
@@ -695,10 +722,10 @@ def counted_tick(engine, units, clusters, capture: bool = False, **kw):
 
     narrow = [c for c in calls if c[0] == "narrow"]
     tick = {
-        "objects": len(units),
+        "objects": len(results),
         "clusters": len(clusters),
         "tick_ms": wall * 1e3,
-        "objects_per_s": len(units) / wall,
+        "objects_per_s": len(results) / wall,
         "phase1_launches": launches,
         "narrow_dispatches": len(narrow),
         "dense_dispatches": len(calls) - len(narrow),
@@ -715,6 +742,7 @@ def counted_tick(engine, units, clusters, capture: bool = False, **kw):
         "stage_s": dict(engine.timings),
         "gc_ms": collector["ms"],
         "gc_collections": collector["collections"],
+        "gc_collect_ms": gc_collect_ms,
         "pipeline_depth": engine.pipeline_depth,
         "planner_reruns": engine.planner_reruns - reruns0,
         "dispatch_syncs": len(syncs),
@@ -1425,15 +1453,20 @@ def resume_phase(snap, resume: dict, clusters, chunks: int) -> dict:
 
 
 def kill_round() -> dict:
-    """The kill matrix's snapshot-write round on the card at
-    KILL_ROUND_SHAPE: testing/restart_driver.py as three subprocesses
-    on ``--device cuda`` (a reference, a victim that SIGKILLs itself
-    with tick 3's snapshot half written, a successor), in a scratch
-    directory of the checkout removed afterwards.  The successor must
-    load tick 2's snapshot and equal the reference's placements and
-    flight-recorder reason counts, with nothing quarantined.  Returns the
-    processes' wall ms, the snapshot files' bytes and the successor's
-    restore, fetch paths and launches."""
+    """The kill matrix's snapshot-write and dispatch-flush rounds on the
+    card at KILL_ROUND_SHAPE: testing/restart_driver.py as subprocesses
+    on ``--device cuda`` (a reference; a victim that SIGKILLs itself
+    with tick 3's snapshot half written and its successor; a victim
+    that reaches tick 3's end and dies halfway through the member flush
+    of its placements, and its successor), in a scratch directory of the
+    checkout removed afterwards, the breakers' cool-down at 300 s (as
+    tests/test_restart.py sets it).  Each successor must load a snapshot
+    (tick 2's, tick 3's) and equal the reference's placements and
+    flight-recorder reason counts, with nothing quarantined, and the
+    breaker the victim opened on ``m-001`` before tick 3 must still be
+    open and admit nothing.  Returns the processes' wall ms, the
+    snapshot files' bytes and the successors' restores, fetch paths and
+    launches."""
     import os
     import tempfile
     from pathlib import Path
@@ -1448,10 +1481,10 @@ def kill_round() -> dict:
         proc = subprocess.run(
             [sys.executable, "-m", "kubeadmiral_tpu_torch.testing.restart_driver", mode,
              "--dir", os.path.join(work, sub), "--device", "cuda",
-             "--objects", str(n), "--clusters", str(c), *args],
+             "--objects", str(n), "--clusters", str(c), "--breaker-open-s", "300", *args],
             cwd=root, capture_output=True, text=True, timeout=600,
         )
-        walls[mode] = (time.perf_counter() - t0) * 1e3
+        walls[f"{sub} {mode}"] = (time.perf_counter() - t0) * 1e3
         want_rc = -9 if mode == "victim" else 0
         if proc.returncode != want_rc:
             raise AssertionError(
@@ -1467,37 +1500,228 @@ def kill_round() -> dict:
             raise AssertionError("kill round: the victim did not die in tick 3")
         files = {f.name: f.stat().st_size for f in (kill / "snapshots").iterdir()}
         run("successor", "kill")
+        run("victim", "flush", "--kill-phase", "dispatch-flush")
+        flushed = Path(work, "flush")
+        if not (flushed / "tick3.done").exists():
+            raise AssertionError("kill round: the dispatch-flush victim did not finish tick 3")
+        run("successor", "flush")
         ref = json.loads(Path(work, "reference", "reference.json").read_text())
-        succ = json.loads((kill / "successor.json").read_text())
+        succs = {
+            "snapshot-write": json.loads((kill / "successor.json").read_text()),
+            "dispatch-flush": json.loads((flushed / "successor.json").read_text()),
+        }
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if succ["restore_info"]["result"] != "loaded" or succ["quarantined"]:
-        raise AssertionError(f"kill round: restore {succ['restore_info']}, quarantined {succ['quarantined']}")
-    if succ["placements"] != ref["placements"]:
-        raise AssertionError("kill round: successor placements differ from the reference's")
-    if succ["reason_counts"] != ref["reason_counts"] or len(ref["reason_counts"]) != n:
-        raise AssertionError("kill round: successor reason counts differ from the reference's")
+    for phase, succ in succs.items():
+        if succ["restore_info"]["result"] != "loaded" or succ["quarantined"]:
+            raise AssertionError(
+                f"kill round {phase}: restore {succ['restore_info']}, "
+                f"quarantined {succ['quarantined']}"
+            )
+        if succ["placements"] != ref["placements"]:
+            raise AssertionError(f"kill round {phase}: successor placements differ from the reference's")
+        if succ["reason_counts"] != ref["reason_counts"] or len(ref["reason_counts"]) != n:
+            raise AssertionError(f"kill round {phase}: successor reason counts differ from the reference's")
+        if succ["breaker_m001"] != "open" or succ["breaker_allows_m001"] is not False:
+            raise AssertionError(
+                f"kill round {phase}: m-001's breaker {succ['breaker_m001']}, "
+                f"admits {succ['breaker_allows_m001']}"
+            )
+    succ, flush_succ = succs["snapshot-write"], succs["dispatch-flush"]
     row = {
         "objects": n, "clusters": c, "wall_ms": walls, "snapshot_files": files,
         "restore_info": succ["restore_info"], "fetch_paths": succ["fetch_paths"],
         "successor_launches": succ["launches"], "counters": succ["counters"],
+        "dispatch_flush": {
+            "restore_info": flush_succ["restore_info"], "fetch_paths": flush_succ["fetch_paths"],
+            "successor_launches": flush_succ["launches"],
+            "breaker_m001": flush_succ["breaker_m001"],
+        },
     }
     log(f"persist c3 kill round: {json.dumps(row)}")
     return row
+
+
+# The stream phase (bench.py --scenario churn_rate): event-log flushes
+# per world, and the event flushes before which a capacity drift is
+# queued (one every 10 flushes; c5 runs one).  c3 checks its flushes
+# against a stop-the-world tick after the cold, warm-up and drift
+# flushes and every STREAM_CHECK_EVERY-th; c5 after its last flush only
+# (a fresh c5 cold tick takes 14-18 s).
+STREAM_FLUSHES = {"3": 20, "5": 5}
+STREAM_DRIFTS = {"3": (10, 20), "5": (3,)}
+STREAM_CHECK_EVERY = 5
+
+
+def stream_phase(cfg: str, units, clusters) -> dict:
+    """The streaming front end on the card: a ``StreamingScheduler``
+    over a fresh default engine (the card's), fed ``bench.py``'s churn
+    mix (``testing/worlds.py``: a quarter arrivals, the rest 1..8 more
+    replicas on a random object, numpy seed 0) in slabs of the row
+    watermark (``streaming.SLAB_ROWS`` events, then ``pump()``).  A cold
+    flush, the bench's warm-up (1 % updates, then cluster 1's available
+    x 0.9), then STREAM_FLUSHES[cfg] event flushes, a random member's
+    available x 0.9 queued before each of STREAM_DRIFTS[cfg] (the drift
+    event and SLAB_ROWS - 1 events make one slab).
+
+    Every flush after the first hands the engine the dirty-row hint;
+    each flush's launches equal its dispatches (slabs and chunk
+    dispatches, narrow, plus dense certificate fallbacks); the placeholder
+    block is one engine chunk and grows at least once; the stream's
+    results equal a fresh card engine's cold tick over ``stream.units``
+    (placeholders dropped) and ``stream.clusters`` after the last flush,
+    and at c3 also after the cold, warm-up and drift flushes and every
+    STREAM_CHECK_EVERY-th.  The kernel is held against its twin on the
+    slab of the second event flush (a churn flush: the first one grows
+    the world and dispatches whole chunks).  Prints a ``stream c<cfg>``
+    line per flush (``helper_ms`` with this script's check) and a
+    summary: rows re-decided per second over the event flushes' offer
+    and flush walls, and the event -> visible latency p50/p99."""
+    import torch
+
+    from kubeadmiral_tpu_torch.runtime import flightrec
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.scheduler.streaming import StreamingScheduler, is_placeholder
+    from kubeadmiral_tpu_torch.testing.worlds import capacity_drift, stream_event
+
+    flightrec.get_default().clear()
+    engine = SchedulerEngine()
+    stream = StreamingScheduler(engine, clusters, units)
+    if stream.grow_block != engine.chunk_size:
+        raise AssertionError(f"c{cfg} stream: grow block {stream.grow_block}, not one chunk")
+    hints = []
+    schedule = engine.schedule
+
+    def spy(u, c, **kw):
+        hints.append(kw.get("dirty_rows"))
+        return schedule(u, c, **kw)
+
+    engine.schedule = spy
+    rng = np.random.default_rng(0)
+    flushes, seq, slab = {}, 0, None
+
+    def flush(label: str, pump: bool = False, capture: bool = False, check: bool = False,
+              offer_ms: float = 0.0):
+        nonlocal slab
+        t_helper = time.perf_counter()
+        rows0, world0 = stream.rows_flushed, len(stream.units)
+        triggers0 = dict(stream.flush_stats)
+        results, tick, captured = counted_tick(
+            engine, None, stream.clusters, capture=capture,
+            call=stream.pump if pump else stream.flush, collect=not pump,
+        )
+        if results is None:
+            raise AssertionError(f"c{cfg} stream {label}: pump() did not flush")
+        narrow, dense = tick["narrow_dispatches"], tick["dense_dispatches"]
+        if tick["phase1_launches"] != narrow + dense:
+            raise AssertionError(
+                f"c{cfg} stream {label}: {tick['phase1_launches']} launches for {narrow} "
+                f"slab and chunk dispatches + {dense} fallback dispatches"
+            )
+        grew = len(stream.units) - world0
+        if grew % stream.grow_block:
+            raise AssertionError(f"c{cfg} stream {label}: grew {grew} rows")
+        tick.update(
+            rows=stream.rows_flushed - rows0,
+            trigger=[k for k, v in stream.flush_stats.items() if v != triggers0.get(k, 0)],
+            slab_dispatches=narrow if narrow else dense,
+            fallback_dispatches=dense if narrow else 0,
+            grew=grew,
+            world_rows=len(stream.units),
+            dirty_rows=None if hints[-1] is None else len(hints[-1]),
+        )
+        if check:
+            world = stream.units  # a copy of the unit list: take it once
+            live = [i for i, u in enumerate(world) if not is_placeholder(u)]
+            want, fresh, _ = counted_tick(SchedulerEngine(), [world[i] for i in live], stream.clusters)
+            tick["fresh"] = {
+                k: fresh[k] for k in ("objects", "tick_ms", "phase1_launches", "cache", "stage_s",
+                                      "gc_ms", "gc_collections", "gc_collect_ms", "fetch_bytes")
+            }
+            assert_results_equal(f"c{cfg} stream {label} vs stop-the-world",
+                                 [results[i] for i in live], want)
+            del want
+            torch.cuda.empty_cache()
+        if capture and captured is not None and slab is None:
+            slab = captured
+        tick.update(offer_ms=offer_ms, helper_ms=(time.perf_counter() - t_helper) * 1e3)
+        log(f"stream c{cfg} {label}: {json.dumps(tick)}")
+        flushes[label] = tick
+        return tick
+
+    full = cfg == "3"
+    flush("cold", check=full)
+    for i in rng.integers(0, len(units), max(1, len(units) // 100)):
+        su = units[int(i)]
+        stream.offer(dataclasses.replace(su, desired_replicas=(su.desired_replicas or 1) + 1))
+    flush("warm-up churn", check=full)
+    base = stream.clusters[1]
+    stream.update_cluster(dataclasses.replace(
+        base, available={k: max(0, int(v * 0.9)) for k, v in base.available.items()}
+    ))
+    flush("warm-up drift", check=full)
+
+    lat0 = len(stream.latencies)
+    t_log = time.perf_counter()
+    n = STREAM_FLUSHES[cfg]
+    for k in range(1, n + 1):
+        drifted = k in STREAM_DRIFTS[cfg]
+        gc.collect()
+        t_offer = time.perf_counter()
+        if drifted:
+            stream.update_cluster(capacity_drift(rng, stream.clusters))
+        for _ in range(stream.slab_rows - drifted):
+            stream.offer(stream_event(rng, units, seq))
+            seq += 1
+        check = k == n or (full and (drifted or k % STREAM_CHECK_EVERY == 0))
+        flush(f"flush {k}{' drift' if drifted else ''}", pump=True, capture=k == 2, check=check,
+              offer_ms=(time.perf_counter() - t_offer) * 1e3)
+    log_s = time.perf_counter() - t_log
+
+    if any(h is None for h in hints[1:]):
+        raise AssertionError(f"c{cfg} stream: a flush after the first had no dirty-row hint")
+    if not any(t["grew"] == stream.grow_block for t in flushes.values()):
+        raise AssertionError(f"c{cfg} stream: the placeholder block never grew by one chunk")
+    lat = np.asarray(list(stream.latencies)[lat0:], float) * 1e3
+    event_ticks = [t for label, t in flushes.items() if label.startswith("flush")]
+    stream_s = sum(t["offer_ms"] + t["tick_ms"] for t in event_ticks) / 1e3
+    summary = {
+        "objects": len(units), "clusters": len(clusters), "world_rows": len(stream.units),
+        "grow_block": stream.grow_block, "slab_rows": stream.slab_rows,
+        "flushes": stream.flushes, "flush_stats": dict(stream.flush_stats),
+        "events_total": dict(stream.events_total), "rows_flushed": stream.rows_flushed,
+        # The bench's loop without this script's checks: offering the
+        # events and flushing them.
+        "event_log_s": log_s, "stream_s": stream_s,
+        "rows_per_s": sum(t["rows"] for t in event_ticks) / stream_s,
+        "world_rows_per_s": sum(t["objects"] for t in event_ticks) / stream_s,
+        "flush_ms": [t["tick_ms"] for t in event_ticks],
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p99": float(np.percentile(lat, 99)),
+        "launches": {label: t["phase1_launches"] for label, t in flushes.items()},
+        "memory_allocated": torch.cuda.memory_allocated(),
+    }
+    log(f"stream c{cfg} summary: {json.dumps(summary)}")
+    kernel = check_phase1(f"c{cfg}-stream-slab", type(slab)(*(x.cuda() for x in slab)), timed=True)
+    del engine, stream
+    torch.cuda.empty_cache()
+    return {"flushes": flushes, "summary": summary, "kernel": kernel}
 
 
 CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64)
 
 
 def control_phase() -> dict:
-    """The scheduling half of the control plane on the card
-    (``testing/cpworld.py``): a ``ClusterFleet`` with the cluster,
-    federate and scheduler controllers, the scheduler's default engine
-    (the card's), through the join, cold, churn, no-op resync and
-    topology rounds at CONTROL_SHAPE, each checked there (joins, every
-    object placed with its replicas summing to ``spec.replicas``, churn
-    moving only the churned objects, the no-op resync reaching no
-    engine, no controller panic).  Per round the phase-1 launch count is
+    """The control plane on the card (``testing/cpworld.py``): a
+    ``ClusterFleet`` with the cluster, federate, scheduler and sync
+    controllers, the scheduler's default engine (the card's), through
+    the join, cold, churn, no-op resync and topology rounds at
+    CONTROL_SHAPE, each checked there (joins, every object placed with
+    its replicas summing to ``spec.replicas``, every placed pair's
+    member Deployment with an ``OK`` status, churn moving and rewriting
+    only the churned objects, the no-op resync reaching no engine and
+    writing no member, no controller panic, shed or retry).  The sync
+    controller's steps must launch nothing.  Per round the phase-1 launch count is
     set to 0 just before and read just after, beside the dispatches'
     shapes; the cold round must launch at least once per chunk its ticks
     fill and dispatch at least one full 4,096-row chunk.  The kernel is
@@ -1521,6 +1745,19 @@ def control_phase() -> dict:
     if plane.engine.device.type != "cuda":
         raise AssertionError(f"control: the default engine runs on {plane.engine.device}")
     chunk = plane.engine.chunk_size
+    # The sync stage's launches: the kernel count across the sync
+    # controller's steps (it runs no engine: 0).
+    sync_launches = [0]
+    sync_step = plane.sync.worker.step
+
+    def counted_sync_step():
+        before = phase1.launches
+        try:
+            return sync_step()
+        finally:
+            sync_launches[0] += phase1.launches - before
+
+    plane.sync.worker.step = counted_sync_step
     stack = contextlib.ExitStack()
     recording = {}
     counted, first_inputs = {}, {}
@@ -1561,6 +1798,8 @@ def control_phase() -> dict:
     del first_inputs
     panics = plane.panics()
     engine_ticks = plane.engine.tick_seq
+    if sync_launches[0]:
+        raise AssertionError(f"control: the sync stage launched the kernel {sync_launches[0]} times")
     del plane
     torch.cuda.empty_cache()
 
@@ -1592,12 +1831,12 @@ def control_phase() -> dict:
         out[name] = row
     summary = {
         "objects": objects, "clusters": clusters, "card_s": card_s, "twin_s": twin_s,
-        "engine_ticks": engine_ticks, "panics": panics,
+        "engine_ticks": engine_ticks, "panics": panics, "sync_launches": sync_launches[0],
         "kernel": {k: {kk: v[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                    for k, v in kernel.items()},
     }
     log(f"control summary: {json.dumps(summary)}")
-    return {"rounds": out, "summary": summary, "kernel": kernel}
+    return {"rounds": out, "summary": summary, "kernel": kernel, "sync_launches": sync_launches[0]}
 
 
 def main() -> int:
@@ -1782,7 +2021,16 @@ def main() -> int:
     del snap5, resume5
     log(f"phase persist-resume-c5: {time.perf_counter() - t0:.2f} s")
 
-    # The scheduling half of the control plane over the card's engine.
+    # The streaming front end over fresh card engines, c3 then c5.
+    streams = {}
+    for cfg in ("3", "5"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        streams[cfg] = stream_phase(cfg, *worlds[cfg][:2])
+        log(f"phase stream-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
+    # The control plane (scheduling and member sync) over the card's engine.
     t0 = time.perf_counter()
     del worlds, units, clusters
     gc.collect()
@@ -1812,7 +2060,8 @@ def main() -> int:
                     r["max_abs_err"]
                     for r in (c5, c3, slab_rows["5"], slab_rows["3"],
                               surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
-                              control["kernel"]["cold_chunk"], control["kernel"]["churn"])
+                              control["kernel"]["cold_chunk"], control["kernel"]["churn"],
+                              streams["5"]["kernel"], streams["3"]["kernel"])
                 ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -1906,6 +2155,7 @@ def main() -> int:
                     "c5 fresh resume": resumed["fresh resume"]["phase1_launches"],
                     "c5 stale resume": resumed["stale resume"]["phase1_launches"],
                     "c3 kill round successor": kill["successor_launches"],
+                    "c3 dispatch-flush successor": kill["dispatch_flush"]["successor_launches"],
                 },
                 "snapshot_c5": capture5,
                 # The control plane's rounds (cluster, federate and
@@ -1917,6 +2167,22 @@ def main() -> int:
                 "control_churn": {
                     key: control["kernel"]["churn"][key]
                     for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                },
+                # The sync stage of the control rounds launches nothing.
+                "launches_sync": control["sync_launches"],
+                # The stream phase: launches per flush (cold, warm-up,
+                # event-log flushes), and the kernel at the second event
+                # flush's slab.
+                **{
+                    f"launches_stream_c{cfg}": streams[cfg]["summary"]["launches"]
+                    for cfg in ("3", "5")
+                },
+                **{
+                    f"stream_slab_c{cfg}": {
+                        key: streams[cfg]["kernel"][key]
+                        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                    }
+                    for cfg in ("3", "5")
                 },
                 "card": card,
             }

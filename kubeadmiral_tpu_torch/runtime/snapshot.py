@@ -38,8 +38,8 @@ falls back to cold for the affected chunks.  Every outcome lands in
 The JAX module's knobs are arguments here with its defaults: the
 directory (no default: snapshots are opt-in), ``every`` (1) and ``keep``
 (2); the port reads no environment variable.  ``breakers`` is an
-optional duck-typed registry (``export_state`` / ``restore_state``); the
-port's (``transport/breaker.py``) has no durable state yet.
+optional registry with ``export_state`` / ``restore_state``
+(``transport/breaker.py``'s ``BreakerRegistry``).
 """
 
 from __future__ import annotations

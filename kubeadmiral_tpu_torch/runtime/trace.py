@@ -1,16 +1,17 @@
 """Lightweight span tracer for the reconcile path.
 
-The part of ``kubeadmiral_tpu/runtime/trace.py`` that the worker and the
-scheduler controller call: a context-manager span API with a
-thread-local stack (so child spans record their parent and share its
-trace id) and a bounded ring of completed spans.  Overhead per span is
-two ``perf_counter`` calls and a deque append, so it stays on.
+The part of ``kubeadmiral_tpu/runtime/trace.py`` that the worker, the
+controllers, the streaming front end and the member dispatch call: a
+context-manager span API with a thread-local stack (so child spans
+record their parent and share its trace id), explicitly parented spans
+for work handed to another thread (``Tracer.span_from``) and a bounded
+ring of completed spans.  Overhead per span is two ``perf_counter``
+calls and a deque append, so it stays on.
 
-Left out until the HTTP transport and the member half are ported, since
-nothing on the scheduling path reaches them: the W3C traceparent
-propagation (``current_traceparent``, ``Tracer.server_span``,
-``Tracer.span_from``) and the Chrome trace-event export served at
-``GET /debug/trace``.  The JAX module's ``KT_TRACE_SAMPLE_N`` is
+Left out until the HTTP transport is ported, since nothing in process
+reaches them: the W3C traceparent propagation
+(``current_traceparent``, ``Tracer.server_span``) and the Chrome
+trace-event export served at ``GET /debug/trace``.  The JAX module's ``KT_TRACE_SAMPLE_N`` is
 SAMPLE_N here, with its default.
 """
 
@@ -76,14 +77,8 @@ class Tracer:
             stack = self._local.stack = []
         return stack
 
-    @contextmanager
-    def span(self, name: str, **args):
+    def _span_gen(self, name, trace_id, parent_id, args):
         stack = self._stack()
-        if stack:
-            trace_id, parent_id = stack[-1].trace_id, stack[-1].span_id
-        else:
-            # A fresh 128-bit trace id per root span, lowercase hex.
-            trace_id, parent_id = os.urandom(16).hex(), None
         sp = Span(name, self._id_base | next(self._ids), parent_id, trace_id, args)
         stack.append(sp)
         try:
@@ -92,6 +87,28 @@ class Tracer:
             sp.end = time.perf_counter() - _EPOCH
             stack.pop()
             self._ring.append(sp)
+
+    @contextmanager
+    def span(self, name: str, **args):
+        stack = self._stack()
+        if stack:
+            trace_id, parent_id = stack[-1].trace_id, stack[-1].span_id
+        else:
+            # A fresh 128-bit trace id per root span, lowercase hex.
+            trace_id, parent_id = os.urandom(16).hex(), None
+        yield from self._span_gen(name, trace_id, parent_id, args)
+
+    @contextmanager
+    def span_from(self, name: str, parent: Optional[Span], **args):
+        """A span explicitly parented on ``parent`` — for work handed to
+        another thread (pool-submitted dispatch chunks), where the
+        submitting thread's stack is invisible to the worker.  A None
+        parent falls back to :meth:`span` semantics."""
+        if parent is None:
+            with self.span(name, **args) as sp:
+                yield sp
+            return
+        yield from self._span_gen(name, parent.trace_id, parent.span_id, args)
 
     def current(self) -> Optional[Span]:
         stack = self._stack()

@@ -1,4 +1,4 @@
-"""The scheduling half of the control plane at benchmark scale.
+"""The control plane at benchmark scale: scheduling and member sync.
 
 A port-owned copy of the world of ``bench_e2e.py:521-690``, the run that
 BASELINE.md lists as "bench_e2e.py at config-#3 scale": member clusters
@@ -7,30 +7,38 @@ BASELINE.md lists as "bench_e2e.py at config-#3 scale": member clusters
 mode; Deployments ``web-00000…`` with ``(i % 20) + 1`` replicas of 50m
 cpu; the ``deployments.apps`` FederatedTypeConfig with the scheduler as
 its only pipeline member.  The OverridePolicy, its label on the
-Deployments and the override, sync and status stages of the bench are
-left out: their controllers are not part of this copy.
+Deployments and the override and status stages of the bench are left
+out: their controllers are not part of this copy.
 
-:class:`ControlPlane` holds a :class:`ClusterFleet` and the three
-controllers (cluster, federate, scheduler) over the given engine, and
-settles them as the bench's ``StageTimer`` does, timing each controller.
+:class:`ControlPlane` holds a :class:`ClusterFleet` and four controllers
+(cluster, federate, scheduler, sync) over the given engine, and settles
+them as the bench's ``StageTimer`` does, timing each controller.  The
+sync controller writes each placed object to its member clusters
+inline (an in-process fleet), in submission order.
 :func:`run_rounds` drives five rounds and checks each:
 
 1. ``join`` — the cluster controller settles the members' joins; every
    FederatedCluster is Joined and Ready with allocatable and available;
-2. ``cold`` — the Deployments are created and the federate and scheduler
-   controllers settle; every FederatedObject is placed and its replica
-   overrides sum to its ``spec.replicas``;
+   no member holds a Deployment;
+2. ``cold`` — the Deployments are created and the federate, scheduler
+   and sync controllers settle; every FederatedObject is placed and its
+   replica overrides sum to its ``spec.replicas``; every placed
+   (object, cluster) pair has one member Deployment with that cluster's
+   replicas and an ``OK`` propagation status, and the members hold
+   nothing else (:func:`check_members`);
 3. ``churn`` — ``spec.replicas`` of every hundredth Deployment changes;
-   only those objects' placements change;
+   only those objects' placements and member objects change;
 4. ``noop`` — every object is re-enqueued to the scheduler with nothing
    changed; the trigger-hash skip holds all of them back from the
-   engine (no tick, no launch);
+   engine (no tick, no launch), and no member is written;
 5. ``topology`` — one more member joins, which changes the scheduler's
-   cluster signature; every object is rescheduled and still sums.
+   cluster signature; every object is rescheduled and still sums, and
+   only the objects whose placement moved change on the members.
 
 Each round reports its walls by controller, the engine ticks with their
 phase-1 launches, fetch bytes and fetch paths, the objects placed, the
-store's object count, the controllers' panic counters and the store's
+store's object count, the member objects, writes and dispatch
+accounting (:meth:`ControlPlane.member_counts`), and the store's
 per-object digests (:func:`store_digests`; wall-clock fields masked),
 which let two runs — the card's engine and the CPU engine — be held
 equal object for object.
@@ -55,6 +63,7 @@ from kubeadmiral_tpu_torch.federation.clusterctl import (
 )
 from kubeadmiral_tpu_torch.federation.federate import FederateController
 from kubeadmiral_tpu_torch.federation.schedulerctl import SchedulerController
+from kubeadmiral_tpu_torch.federation.sync import SyncController
 from kubeadmiral_tpu_torch.models.ftc import default_ftcs
 from kubeadmiral_tpu_torch.models.policy import PROPAGATION_POLICIES
 from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
@@ -151,30 +160,41 @@ def masked(resource: str, obj: dict) -> dict:
     return {k: v for k, v in obj.items() if k not in fields}
 
 
-def store_digests(fleet: ClusterFleet) -> dict:
+def _digest(resource: str, obj: dict) -> str:
+    return hashlib.blake2b(
+        json.dumps(masked(resource, obj), sort_keys=True).encode(), digest_size=12
+    ).hexdigest()
+
+
+def store_digests(fleet: ClusterFleet, cache: Optional[dict] = None) -> dict:
     """``{"host"|member: {"rv": n, "objects": {resource: {key: digest}}}}``
     over the whole fleet, each object's canonical JSON digested with
-    its wall-clock fields masked."""
+    its wall-clock fields masked.  The stores' version nodes are read in
+    place (they are immutable); with ``cache`` (a dict kept across calls
+    on one fleet) an object whose resourceVersion is unchanged since an
+    earlier call keeps its digest: every write bumps it."""
 
-    def one(kube) -> dict:
-        dump = kube.dump()
-        return {
-            "rv": dump["rv"],
-            "objects": {
-                resource: {
-                    key: hashlib.blake2b(
-                        json.dumps(masked(resource, obj), sort_keys=True).encode(),
-                        digest_size=12,
-                    ).hexdigest()
-                    for key, obj in objs.items()
-                }
-                for resource, objs in dump["objects"].items()
-            },
-        }
+    def one(name: str, kube) -> dict:
+        with kube._lock:
+            rv = kube._rv
+            nodes = {resource: dict(objs) for resource, objs in kube._objects.items()}
+        out = {}
+        for resource, objs in nodes.items():
+            digests = out[resource] = {}
+            for key, obj in objs.items():
+                version = obj.get("metadata", {}).get("resourceVersion")
+                tag = (name, resource, key, version)
+                digest = None if cache is None or version is None else cache.get(tag)
+                if digest is None:
+                    digest = _digest(resource, obj)
+                    if cache is not None and version is not None:
+                        cache[tag] = digest
+                digests[key] = digest
+        return {"rv": rv, "objects": out}
 
-    out = {"host": one(fleet.host)}
+    out = {"host": one("host", fleet.host)}
     for name, member in fleet.members.items():
-        out[name] = one(member)
+        out[name] = one(name, member)
     return out
 
 
@@ -235,8 +255,9 @@ class StageTimer:
 
 
 class ControlPlane:
-    """A fleet and the cluster, federate and scheduler controllers over
-    ``engine`` (``None``: the scheduler's default engine, on the card)."""
+    """A fleet and the cluster, federate, scheduler and sync controllers
+    over ``engine`` (``None``: the scheduler's default engine, on the
+    card)."""
 
     def __init__(self, engine=None):
         self.fleet = ClusterFleet()
@@ -250,11 +271,16 @@ class ControlPlane:
         self.scheduler = SchedulerController(
             self.host, self.ftc, engine=engine, metrics=self.metrics
         )
+        self.sync = SyncController(self.fleet, self.ftc, metrics=self.metrics)
         self.engine = self.scheduler.engine
         self.timer = StageTimer(
             [("cluster", self.clusterctl), ("federate", self.federate),
-             ("schedule", self.scheduler)]
+             ("schedule", self.scheduler), ("sync", self.sync)]
         )
+        # Member ops by verb, through the members' bulk write path.
+        self.member_ops: dict[str, int] = {}
+        # Store digests by (store, resource, key, resourceVersion).
+        self.digest_cache: dict = {}
         self.ticks: list[dict] = []
         self._schedule = self.engine.schedule
         self.engine.schedule = self._recorded_schedule
@@ -286,6 +312,15 @@ class ControlPlane:
     def add_cluster(self, j: int) -> None:
         member = self.fleet.add_member(cluster_name(j))
         member.create(NODES, member_node(j))
+        batch = member.batch
+
+        def counted_batch(ops):
+            for op in ops:
+                verb = op.get("verb", "?")
+                self.member_ops[verb] = self.member_ops.get(verb, 0) + 1
+            return batch(ops)
+
+        member.batch = counted_batch
         self.host.create(FEDERATED_CLUSTERS, federated_cluster(j))
 
     def create_objects(self, ids) -> None:
@@ -322,6 +357,35 @@ class ControlPlane:
             out[C.meta(fed).get("namespace", "") + "/" + fed["metadata"]["name"]] = reps
         return out
 
+    def member_objects(self) -> dict[str, dict[str, dict]]:
+        """Member -> {key: Deployment} as the members hold them."""
+        resource = self.ftc.source.resource
+        return {
+            name: {
+                C.meta(obj).get("namespace", "") + "/" + obj["metadata"]["name"]: obj
+                for obj in member.list_view(resource)
+            }
+            for name, member in self.fleet.members.items()
+        }
+
+    def member_counts(self) -> dict:
+        """Cumulative member-side counts: Deployments held, store writes
+        (resourceVersion steps), ops by verb, bulk requests, and the
+        breakers' sheds and retries."""
+        resource = self.ftc.source.resource
+        members = self.fleet.members.values()
+        snap = self.sync.breakers.snapshot()
+        return {
+            "member_objects": sum(len(m.keys(resource)) for m in members),
+            "member_rv": sum(m._rv for m in members),
+            "member_ops": dict(sorted(self.member_ops.items())),
+            "dispatch_batches": sum(
+                sum(e.get("batch", {}).get("requests", {}).values()) for e in snap.values()
+            ),
+            "sheds": self.sync.breakers.shed_total(),
+            "retries": sum(e["dispatch_retries"] for e in snap.values()),
+        }
+
     def panics(self) -> dict[str, float]:
         """The controllers' panic and error counters (all must stay 0)."""
         name = self.ftc.name
@@ -333,6 +397,10 @@ class ControlPlane:
                 f"scheduler-{name}.unit_errors",
                 f"federate-{name}.panic",
                 "cluster-controller.panic",
+                f"sync-{name}.panic",
+                f"sync-{name}.plan_panic",
+                f"sync-{name}.finish_panic",
+                f"sync-{name}.host_write_panic",
             )
         }
 
@@ -351,6 +419,51 @@ def check_sums(plane: ControlPlane, expected: dict[str, int]) -> int:
         if None in reps.values() or sum(reps.values()) != want:
             raise AssertionError(f"{key}: replicas {reps} do not sum to {want}")
     return sum(1 for reps in placed.values() if reps)
+
+
+def check_members(plane: ControlPlane) -> int:
+    """Every placed (object, cluster) pair has one member Deployment with
+    that cluster's replicas and an ``OK`` propagation status, and the
+    members hold no other Deployment; returns the pairs."""
+    placed = plane.placements()
+    held = plane.member_objects()
+    statuses = {
+        C.meta(fed).get("namespace", "") + "/" + fed["metadata"]["name"]: {
+            c["cluster"]: c["status"] for c in (fed.get("status") or {}).get("clusters", ())
+        }
+        for fed in plane.host.list_view(plane.ftc.federated.resource)
+    }
+    pairs = 0
+    for key, reps in placed.items():
+        status = statuses.get(key, {})
+        if set(status) != set(reps) or any(v != "OK" for v in status.values()):
+            raise AssertionError(f"{key}: propagation status {status} for placement {reps}")
+        for cluster, n in reps.items():
+            obj = held.get(cluster, {}).get(key)
+            if obj is None:
+                raise AssertionError(f"{key}: no member object in {cluster}")
+            if obj["spec"]["replicas"] != n:
+                raise AssertionError(
+                    f"{key}: {obj['spec']['replicas']} replicas in {cluster}, {n} placed"
+                )
+        pairs += len(reps)
+    total = sum(len(objs) for objs in held.values())
+    if total != pairs:
+        raise AssertionError(f"{total} member objects for {pairs} placed pairs")
+    return pairs
+
+
+def member_changes(before: dict, after: dict, resource: str) -> set[str]:
+    """Object keys whose member objects (of ``resource``) differ between
+    two :func:`store_digests`: written, created or deleted anywhere."""
+    changed = set()
+    for kube in set(before) | set(after):
+        if kube == "host":
+            continue
+        a = before.get(kube, {}).get("objects", {}).get(resource, {})
+        b = after.get(kube, {}).get("objects", {}).get(resource, {})
+        changed.update(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    return changed
 
 
 def check_joined(plane: ControlPlane, n: int) -> None:
@@ -381,17 +494,20 @@ def run_rounds(
     before its checks."""
     expected = {f"default/web-{i:05d}": replicas_of(i) for i in range(objects)}
     reports: dict[str, dict] = {}
+    resource = plane.ftc.source.resource
 
     def round_(name: str, act: Callable[[], None]) -> dict:
         if on_round is not None:
             on_round(name)
         ticks0, seq0 = len(plane.ticks), plane.engine.tick_seq
+        counts0 = plane.member_counts()
         t0 = time.perf_counter()
         act()
         walls = plane.settle()
         wall = time.perf_counter() - t0
         ticks = plane.ticks[ticks0:]
-        digests = store_digests(plane.fleet)
+        digests = store_digests(plane.fleet, plane.digest_cache)
+        counts = plane.member_counts()
         reports[name] = report = {
             "wall_s": wall,
             "walls_s": walls,
@@ -400,6 +516,16 @@ def run_rounds(
             "phase1_launches": sum(t["phase1_launches"] for t in ticks),
             "fetch_bytes": sum(t["fetch_bytes"] for t in ticks),
             "store_objects": sum(len(o) for o in digests["host"]["objects"].values()),
+            "member_objects": counts["member_objects"],
+            "member_writes": counts["member_rv"] - counts0["member_rv"],
+            "member_ops": {
+                verb: n - counts0["member_ops"].get(verb, 0)
+                for verb, n in counts["member_ops"].items()
+                if n - counts0["member_ops"].get(verb, 0)
+            },
+            "dispatch_batches": counts["dispatch_batches"] - counts0["dispatch_batches"],
+            "sheds": counts["sheds"],
+            "retries": counts["retries"],
             "digests": digests,
         }
         if after_round is not None:
@@ -408,14 +534,17 @@ def run_rounds(
 
     # 1. join
     plane.host.create(PROPAGATION_POLICIES, propagation_policy())
-    round_("join", lambda: [plane.add_cluster(j) for j in range(clusters)])
+    report = round_("join", lambda: [plane.add_cluster(j) for j in range(clusters)])
     check_joined(plane, clusters)
+    if report["member_objects"]:
+        raise AssertionError(f"join: {report['member_objects']} member objects")
 
     # 2. cold
     report = round_("cold", lambda: plane.create_objects(range(objects)))
     report["placed"] = check_sums(plane, expected)
     if report["engine_ticks"] < 1:
         raise AssertionError("cold: the scheduler ran no engine tick")
+    report["pairs"] = check_members(plane)
     before = plane.placements()
 
     # 3. churn: every CHURN_EVERY-th Deployment gets 5 more replicas.
@@ -432,6 +561,11 @@ def run_rounds(
     if not moved:
         raise AssertionError("churn moved no object")
     report["churned"], report["moved"] = len(churned), len(moved)
+    report["pairs"] = check_members(plane)
+    written = member_changes(reports["cold"]["digests"], report["digests"], resource)
+    if not written or not written <= keys:
+        raise AssertionError(f"churn changed member objects of {sorted(written - keys)[:5]}")
+    report["members_changed"] = len(written)
     before = after
 
     # 4. noop: everything re-enqueued, nothing changed.
@@ -444,6 +578,10 @@ def run_rounds(
         )
     if plane.placements() != before:
         raise AssertionError("noop: placements changed")
+    if report["member_writes"] or member_changes(
+        reports["churn"]["digests"], report["digests"], resource
+    ):
+        raise AssertionError(f"noop: {report['member_writes']} member writes")
 
     # 5. topology: one more member joins.
     report = round_("topology", lambda: plane.add_cluster(clusters))
@@ -452,9 +590,18 @@ def run_rounds(
     if report["engine_ticks"] < 1:
         raise AssertionError("topology: the scheduler ran no engine tick")
     after = plane.placements()
-    report["moved"] = sum(1 for k in after if after[k] != before.get(k))
+    moved = {k for k in after if after[k] != before.get(k)}
+    report["moved"] = len(moved)
+    report["pairs"] = check_members(plane)
+    written = member_changes(reports["noop"]["digests"], report["digests"], resource)
+    if not written <= moved:
+        raise AssertionError(f"topology changed member objects of {sorted(written - moved)[:5]}")
+    report["members_changed"] = len(written)
 
     panics = plane.panics()
     if any(panics.values()):
         raise AssertionError(f"controller panics: {panics}")
+    last = reports["topology"]
+    if last["sheds"] or last["retries"]:
+        raise AssertionError(f"dispatch: {last['sheds']} sheds, {last['retries']} retries")
     return reports

@@ -6,19 +6,25 @@ world, three processes, each a ``SchedulerEngine`` with a
 flight recorder:
 
 * ``victim`` — runs tick 1 (cold) and tick 2 (churn) with per-tick
-  durable snapshots, then starts tick 3 and SIGKILLs itself at the
-  requested phase (``--kill-phase``): ``featurize``, ``dispatch`` (a
-  tick queued on the device, its results never read), ``fetch`` (at
-  the first device->host read), ``snapshot-write`` (the payload half
-  written and fsynced, the temp file torn), ``snapshot-rename`` (the
-  payload complete, the rename not performed).  The kill is installed
-  by wrapping the engine's or the store's method, so the cut is
+  durable snapshots, opens member ``m-001``'s circuit breaker and
+  re-persists (the breaker registry rides in the snapshot), then starts
+  tick 3 and SIGKILLs itself at the requested phase (``--kill-phase``):
+  ``featurize``, ``dispatch`` (a tick queued on the device, its results
+  never read), ``fetch`` (at the first device->host read),
+  ``snapshot-write`` (the payload half written and fsynced, the temp
+  file torn), ``snapshot-rename`` (the payload complete, the rename not
+  performed), ``dispatch-flush`` (tick 3 and its snapshot complete,
+  killed halfway through the member flush of its placements:
+  :func:`flush_placements`).  The kill is installed by wrapping the
+  engine's, the store's or the member client's method, so the cut is
   deterministic.
 * ``successor`` — a fresh process over the same directory: restores the
-  newest valid snapshot, rebuilds the final (tick 3) world from the
-  shared seed, runs one tick and writes an artifact with its placements,
-  flight-recorder reason counts, restore outcome, fetch paths, the
-  quarantined files and the tick's kernel launches.
+  newest valid snapshot (the breakers with it), rebuilds the final
+  (tick 3) world from the shared seed, runs one tick and writes an
+  artifact with its placements, flight-recorder reason counts, restore
+  outcome, fetch paths, the quarantined files, the tick's kernel
+  launches, and ``m-001``'s breaker state and whether it admits a
+  write.
 * ``reference`` — a fresh process without snapshots that runs ticks 1..3
   uninterrupted and writes the same artifact.
 
@@ -27,7 +33,10 @@ reference's, whatever phase the victim died in.  Artifacts are JSON in
 ``--dir``.  Run as
 ``python -m kubeadmiral_tpu_torch.testing.restart_driver MODE --dir D
 [--device cuda|cpu] [--objects N] [--clusters C] [--kill-phase P]
-[--artifact NAME]``.
+[--artifact NAME] [--breaker-open-s S]``; ``--breaker-open-s`` is the
+breakers' cool-down (the JAX driver's ``KT_BREAKER_OPEN_S``, default
+5 s): a harness sets it past the victim-to-successor gap so that the
+pre-crash open breaker is still open when the successor asks.
 """
 
 from __future__ import annotations
@@ -47,9 +56,16 @@ from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics
 from kubeadmiral_tpu_torch.runtime.snapshot import SnapshotManager, SnapshotStore
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+from kubeadmiral_tpu_torch.transport.breaker import (
+    OPEN_SECONDS,
+    BreakerConfig,
+    BreakerRegistry,
+)
 
 SEED = 20260804
-PHASES = ("featurize", "dispatch", "fetch", "snapshot-write", "snapshot-rename")
+PHASES = (
+    "featurize", "dispatch", "fetch", "snapshot-write", "snapshot-rename", "dispatch-flush",
+)
 
 
 def build_world(n: int, c: int):
@@ -110,16 +126,21 @@ def world_at(tick: int, n: int, c: int):
     return units, clusters
 
 
-def make_stack(workdir: str, device: str, persist: bool = True):
-    """(engine, metrics, store, manager); without ``persist`` the store
-    and manager are None."""
+def make_stack(workdir: str, device: str, persist: bool = True,
+               breaker_open_s: float = OPEN_SECONDS):
+    """(engine, metrics, breakers, store, manager); without ``persist``
+    the store and manager are None."""
     metrics = Metrics()
     recorder = FlightRecorder()
     engine = SchedulerEngine(device=device, metrics=metrics, flight_recorder=recorder)
+    breakers = BreakerRegistry(
+        metrics=metrics, config=BreakerConfig(open_seconds=breaker_open_s)
+    )
     if not persist:
-        return engine, metrics, None, None
+        return engine, metrics, breakers, None, None
     store = SnapshotStore(os.path.join(workdir, "snapshots"), metrics=metrics)
-    return engine, metrics, store, SnapshotManager(engine, store, every=1)
+    mgr = SnapshotManager(engine, store, every=1, breakers=breakers)
+    return engine, metrics, breakers, store, mgr
 
 
 def artifact(engine, metrics, results, units, extra: dict) -> dict:
@@ -176,8 +197,56 @@ def install_kill(engine, store, phase: str) -> None:
         store._write_payload = torn_write
     elif phase == "snapshot-rename":
         store._publish = _die
+    elif phase == "dispatch-flush":
+        pass  # installed at the member client of flush_placements
     else:
         raise SystemExit(f"unknown kill phase {phase!r}")
+
+
+class _KillingKube:
+    """A member client that SIGKILLs the process once ``after`` ops of
+    its bulk requests have been seen (``kill``), else passes them on."""
+
+    def __init__(self, inner, after: int, kill: bool):
+        self._inner = inner
+        self._after = after
+        self._kill = kill
+        self._seen = 0
+
+    def batch(self, ops):
+        self._seen += len(ops)
+        if self._kill and self._seen >= self._after:
+            _die()
+        return self._inner.batch(ops)
+
+
+def flush_placements(results, units, kill: bool) -> None:
+    """A member-flush stand-in: stage one write per scheduled object
+    into a ``BatchSink`` over an in-process member and flush; with
+    ``kill`` the member client SIGKILLs the process mid-batch (the
+    ``dispatch-flush`` phase)."""
+    from kubeadmiral_tpu_torch.federation.dispatch import BatchSink
+    from kubeadmiral_tpu_torch.testing.fakekube import FakeKube
+
+    client = _KillingKube(FakeKube("member-durable"), after=max(1, len(units) // 2), kill=kill)
+    sink = BatchSink(lambda _c: client)
+    for u, r in zip(units, results):
+        if not r.clusters:
+            continue
+        sink.submit(
+            "m-000",
+            {
+                "verb": "create",
+                "resource": "v1/configmaps",
+                "object": {
+                    "apiVersion": "v1", "kind": "ConfigMap",
+                    "metadata": {"namespace": u.namespace, "name": u.name},
+                    "data": {k: str(v) for k, v in sorted(r.clusters.items())},
+                },
+            },
+            lambda _res: None,
+        )
+    sink.flush()
 
 
 def _write(workdir: str, name: str, doc: dict) -> None:
@@ -194,11 +263,13 @@ def main(argv=None) -> int:
     ap.add_argument("--clusters", type=int, default=10)
     ap.add_argument("--kill-phase", default="", choices=("",) + PHASES)
     ap.add_argument("--artifact", default="successor.json")
+    ap.add_argument("--breaker-open-s", type=float, default=OPEN_SECONDS)
     args = ap.parse_args(argv)
     workdir, n, c = args.dir, args.objects, args.clusters
     os.makedirs(workdir, exist_ok=True)
-    engine, metrics, store, mgr = make_stack(
-        workdir, args.device, persist=args.mode != "reference"
+    engine, metrics, breakers, store, mgr = make_stack(
+        workdir, args.device, persist=args.mode != "reference",
+        breaker_open_s=args.breaker_open_s,
     )
 
     if args.mode == "victim":
@@ -208,11 +279,16 @@ def main(argv=None) -> int:
         units = churn(units, 1)
         engine.schedule(units, clusters)
         open(os.path.join(workdir, "tick2.done"), "w").write("1")
+        # A breaker opened pre-crash: the successor must keep skipping
+        # this member instead of probing it fresh.
+        breakers.for_member("m-001").record_failure(timeout=True)
+        mgr.snapshot()  # re-persist with the open breaker riding along
         if args.kill_phase:
             install_kill(engine, store, args.kill_phase)
         units = churn(units, 2)
-        engine.schedule(units, clusters)
+        results = engine.schedule(units, clusters)
         open(os.path.join(workdir, "tick3.done"), "w").write("1")
+        flush_placements(results, units, kill=args.kill_phase == "dispatch-flush")
         # Reaching here means the kill never fired: a harness treats a
         # 0 exit from a victim as a matrix failure.
         return 0
@@ -229,6 +305,8 @@ def main(argv=None) -> int:
                 "restore_info": engine.restore_info,
                 "fetch_paths": dict(engine.fetch_stats),
                 "launches": phase1_mod.phase1.launches - launches0,
+                "breaker_m001": breakers.for_member("m-001").state,
+                "breaker_allows_m001": breakers.allow("m-001", consume_probe=False),
                 "quarantined": sorted(
                     f for f in os.listdir(os.path.join(workdir, "snapshots"))
                     if f.endswith(".quarantined")

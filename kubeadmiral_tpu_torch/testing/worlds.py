@@ -14,6 +14,13 @@ A copy of ``bench.py``'s ``build_world`` for configs 3 and 5
 workloads: about 1 % of the objects changed since the last tick, and
 one cluster's free capacity halved.  ``webhook`` is a seeded stand-in
 for out-of-process webhook plugins (``schedule(webhook_eval=)``).
+
+``unit_arrival``, ``stream_event`` and ``capacity_drift`` are copies of
+the event mix of ``bench.py``'s ``--scenario churn_rate`` (its
+``T_unit_arrival`` and ``make_event``, the bench's ``BENCH_CHURN_*``
+defaults as arguments): a quarter of the events are arriving objects,
+the rest add 1..8 replicas to a random object of the world, and a
+capacity drift scales one random member's free capacity by 0.9.
 """
 
 from __future__ import annotations
@@ -234,3 +241,44 @@ def webhook(seed: int = 0, reject: float = 0.25, silent_every: int = 50,
         return ok, scores
 
     return webhook_eval
+
+
+def unit_arrival(rng, seq: int) -> SchedulingUnit:
+    """A fresh arriving object (a streaming scheduler places it in a
+    placeholder slot): ``bench.py``'s ``T_unit_arrival``."""
+    divide = seq % 3 != 0
+    return SchedulingUnit(
+        gvk="apps/v1/Deployment",
+        namespace=f"arrivals-{seq % 13}",
+        name=f"arrival-{seq:07d}",
+        scheduling_mode=MODE_DIVIDE if divide else "Duplicate",
+        desired_replicas=int(rng.integers(1, 50)) if divide else None,
+        resource_request=parse_resources(
+            {
+                "cpu": f"{int(rng.integers(0, 8)) * 250}m",
+                "memory": f"{int(rng.integers(0, 16)) * 256}Mi",
+            }
+        ),
+        max_clusters=int(rng.integers(1, 20)) if seq % 5 == 0 else None,
+    )
+
+
+def stream_event(rng, units, seq: int, arrivals: float = 0.25) -> SchedulingUnit:
+    """One event of the churn log (``bench.py``'s ``make_event``): with
+    probability ``arrivals`` a new object, else a copy of a random
+    object of ``units`` with 1..8 more desired replicas."""
+    if rng.random() < arrivals:
+        return unit_arrival(rng, seq)
+    su = units[int(rng.integers(0, len(units)))]
+    return dataclasses.replace(
+        su, desired_replicas=(su.desired_replicas or 1) + int(rng.integers(1, 9))
+    )
+
+
+def capacity_drift(rng, clusters, scale: float = 0.9) -> ClusterState:
+    """A random member with its available resources scaled by
+    ``scale`` (a streaming scheduler's ``update_cluster`` event)."""
+    base = clusters[int(rng.integers(0, len(clusters)))]
+    return dataclasses.replace(
+        base, available={k: max(0, int(v * scale)) for k, v in base.available.items()}
+    )

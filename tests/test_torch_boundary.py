@@ -7,7 +7,8 @@
   control plane's copies, and no port file reads an environment
   variable.
 * ``SchedulerEngine()`` (default device "cuda") raises without CUDA,
-  and so does ``SchedulerController(host, ftc)``, which builds it.
+  and so does ``SchedulerController(host, ftc)``, which builds it, and
+  a ``StreamingScheduler`` over it: nothing catches the error.
 * ``phase1`` on CPU tensors runs the plain version and never touches
   the kernel build; its launch counter stays 0.
 """
@@ -91,6 +92,16 @@ def test_scan_covers_control_plane():
         "kubeadmiral_tpu_torch/scheduler/webhook.py",
         "kubeadmiral_tpu_torch/utils/unstructured.py",
         "kubeadmiral_tpu_torch/utils/jsonpatch.py",
+        "kubeadmiral_tpu_torch/scheduler/streaming.py",
+        "kubeadmiral_tpu_torch/federation/retain.py",
+        "kubeadmiral_tpu_torch/federation/rollout.py",
+        "kubeadmiral_tpu_torch/federation/resource.py",
+        "kubeadmiral_tpu_torch/federation/history.py",
+        "kubeadmiral_tpu_torch/federation/version.py",
+        "kubeadmiral_tpu_torch/federation/dispatch.py",
+        "kubeadmiral_tpu_torch/federation/sync.py",
+        "kubeadmiral_tpu_torch/testing/membersim.py",
+        "kubeadmiral_tpu_torch/testing/worlds.py",
     ):
         assert rel in PORT_FILES, rel
 
@@ -148,6 +159,22 @@ def test_scheduler_controller_default_engine_raises_without_cuda():
         SchedulerController(FakeKube(), deployment_ftc())
     ctl = SchedulerController(FakeKube(), deployment_ftc(), engine=SchedulerEngine(device="cpu"))
     assert ctl.engine.device.type == "cpu"
+
+
+def test_streaming_scheduler_default_engine_raises_without_cuda():
+    """A ``StreamingScheduler`` over the port's default engine runs on
+    the card: without CUDA building that engine raises, and the stream
+    over a CPU engine flushes on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default engine is valid here")
+    from kubeadmiral_tpu_torch.scheduler.streaming import StreamingScheduler
+    from kubeadmiral_tpu_torch.testing.worlds import build_world
+
+    units, clusters, _ = build_world(40, 6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingScheduler(SchedulerEngine(), clusters, units)
+    stream = StreamingScheduler(SchedulerEngine(device="cpu"), clusters, units)
+    assert len(stream.flush()) == len(units)
 
 
 def test_kernel_wrapper_checks_each_plane():

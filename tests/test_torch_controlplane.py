@@ -2,8 +2,9 @@
 
 A ``Pair`` builds the same fleet twice: the JAX package's
 ``ClusterFleet`` with its cluster, federate and scheduler controllers
-over a JAX ``SchedulerEngine``, and the port's copies of the same
-modules over the port's ``SchedulerEngine(device="cpu")``.  Every case
+over a JAX ``SchedulerEngine`` (and, for the end-to-end slice's cases,
+its sync controller), and the port's copies of the same modules over
+the port's ``SchedulerEngine(device="cpu")``.  Every case
 feeds both the same objects in the same order; after each settle the
 two fleets' stores (host and members) are equal object for object —
 placements, overrides, trigger-hash and pending-controllers
@@ -15,14 +16,16 @@ clock on both sides, so no heartbeat or backoff falls due mid-case.
 The default SLO recorders hold the same provenance tokens, stage marks
 and event counters.
 
-The cases are the scheduling cases of ``tests/test_e2e_slice.py``
-(divided replicas, source feedback, source update, source delete,
-scaling), ``tests/test_profile.py`` (the taint filter, a disabled
+The cases are the cases of ``tests/test_e2e_slice.py`` with the sync
+controller writing to the members, whose stores are compared too
+(propagation with divided replicas, source feedback, source update,
+the deletion cascade, scaling, a policy change, a cluster join, and the
+migration off a NoExecute-tainted cluster), ``tests/test_profile.py`` (the taint filter, a disabled
 plugin, a profile update rescheduling, the max-cluster cap) and
 ``tests/test_webhook.py`` (its fake ``HTTPClient``: a filter, the batch
-protocol, a select, an unsupported payload version), plus a policy
-change, a cluster join and a cluster taint; each runs with both engines
-at the pipeline depth 16 (the default of both) and at depth 1.
+protocol, a select, an unsupported payload version); each runs with
+both engines at the pipeline depth 16 (the default of both) and at
+depth 1.
 """
 
 import dataclasses
@@ -79,7 +82,7 @@ def first_difference(a, b, path="") -> str:
 class Side:
     """One package's fleet and controllers of the scheduling half."""
 
-    def __init__(self, root: str, engine, pipeline=SCHEDULER_ONLY):
+    def __init__(self, root: str, engine, pipeline=SCHEDULER_ONLY, with_sync=False):
         def m(name):
             return importlib.import_module(f"{root}.{name}")
 
@@ -104,6 +107,10 @@ class Side:
         )
         self.scheduler = None
         self.client = None
+        self.sync = (
+            m("federation.sync").SyncController(self.fleet, self.ftc, clock=clock)
+            if with_sync else None
+        )
 
     def start_scheduler(self, client=None) -> None:
         self.client = client
@@ -112,7 +119,9 @@ class Side:
         )
 
     def controllers(self):
-        return tuple(c for c in (self.clusterctl, self.federate, self.scheduler) if c)
+        return tuple(
+            c for c in (self.clusterctl, self.federate, self.scheduler, self.sync) if c
+        )
 
     def settle(self, rounds=20) -> None:
         for _ in range(rounds):
@@ -140,6 +149,19 @@ class Side:
     def placement(self, name="web"):
         fed = self.host.get(self.ftc.federated.resource, f"default/{name}")
         return self.C.get_placement(fed, self.C.SCHEDULER)
+
+    def member_replicas(self, name="web") -> dict:
+        """Cluster -> spec.replicas of the member objects sync wrote."""
+        out = {}
+        for cluster, member in sorted(self.fleet.members.items()):
+            obj = member.try_get(self.ftc.source.resource, f"default/{name}")
+            if obj is not None:
+                out[cluster] = obj["spec"]["replicas"]
+        return out
+
+    def statuses(self, name="web") -> dict:
+        fed = self.host.get(self.ftc.federated.resource, f"default/{name}")
+        return {c["cluster"]: c["status"] for c in fed["status"]["clusters"]}
 
     def replicas(self, name="web") -> dict:
         fed = self.host.get(self.ftc.federated.resource, f"default/{name}")
@@ -249,7 +271,7 @@ def depth(request):
 
 @pytest.fixture
 def slice_pair(monkeypatch, depth):
-    pair = Pair(monkeypatch, depth)
+    pair = Pair(monkeypatch, depth, with_sync=True)
     pair.each(lambda s: s.start_scheduler())
     for name, cpu in (("c1", "64"), ("c2", "32"), ("c3", "32")):
         pair.each(lambda s: s.add_cluster(name, cpu))
@@ -264,6 +286,10 @@ class TestE2ESliceScheduling:
         slice_pair.settle()
         assert slice_pair.same(lambda s: s.placement()) == {"c1", "c2", "c3"}
         assert sum(slice_pair.same(lambda s: s.replicas()).values()) == 9
+        assert slice_pair.same(lambda s: s.member_replicas()) == slice_pair.same(
+            lambda s: s.replicas()
+        )
+        assert slice_pair.same(lambda s: s.statuses()) == {c: "OK" for c in ("c1", "c2", "c3")}
 
     def test_source_feedback_annotation(self, slice_pair):
         slice_pair.create(source, make_deployment())
@@ -286,6 +312,7 @@ class TestE2ESliceScheduling:
         slice_pair.update(source, "default/web", bump)
         slice_pair.settle()
         assert sum(slice_pair.same(lambda s: s.replicas()).values()) == 15
+        assert sum(slice_pair.same(lambda s: s.member_replicas()).values()) == 15
 
     def test_source_delete_removes_federated_object(self, slice_pair):
         slice_pair.create(source, make_deployment())
@@ -294,6 +321,7 @@ class TestE2ESliceScheduling:
         slice_pair.settle(rounds=40)
         assert slice_pair.same(lambda s: s.host.try_get(fed_resource(s), "default/web")) is None
         assert slice_pair.same(lambda s: s.host.try_get(source(s), "default/web")) is None
+        assert slice_pair.same(lambda s: s.member_replicas()) == {}
 
     def test_scaling_up_and_down(self, slice_pair):
         for i in range(4):
@@ -306,6 +334,7 @@ class TestE2ESliceScheduling:
             slice_pair.update(source, "default/web-2", scale)
             slice_pair.settle()
             assert sum(slice_pair.same(lambda s: s.replicas("web-2")).values()) == replicas
+            assert sum(slice_pair.same(lambda s: s.member_replicas("web-2")).values()) == replicas
 
     def test_policy_change_reschedules(self, slice_pair):
         for i in range(3):
@@ -354,6 +383,8 @@ class TestE2ESliceScheduling:
         slice_pair.settle()
         assert slice_pair.same(lambda s: s.placement("web-0")) == {"c2", "c3"}
         assert sum(slice_pair.same(lambda s: s.replicas("web-0")).values()) == 9
+        # The migration off c1: its member object is deleted.
+        assert set(slice_pair.same(lambda s: s.member_replicas("web-0"))) == {"c2", "c3"}
 
 
 # -- tests/test_profile.py's wiring cases ------------------------------------
@@ -591,3 +622,45 @@ def test_trace_spans_carry_the_same_tick_ids(monkeypatch):
     got, want = ticks(port_trace), ticks(jax_trace)
     assert got == want and len(got) == 6
     assert [t for name, t, _ in got if name == "scheduler.persist"] == [1, 2, 3]
+
+
+def test_store_digests_read_in_place_equal_a_dump():
+    """``cpworld.store_digests`` reads the stores' version nodes in place
+    and reuses a digest while an object's resourceVersion holds: after
+    every round of a small world it equals digests of a full ``dump()``,
+    with and without its cache."""
+    import hashlib
+
+    from kubeadmiral_tpu_torch.testing import cpworld
+
+    def from_dump(fleet):
+        dump = fleet.dump()
+        out = {}
+        for name, kube in [("host", dump["host"]), *dump["members"].items()]:
+            out[name] = {
+                "rv": kube["rv"],
+                "objects": {
+                    resource: {
+                        key: hashlib.blake2b(
+                            json.dumps(cpworld.masked(resource, obj), sort_keys=True).encode(),
+                            digest_size=12,
+                        ).hexdigest()
+                        for key, obj in objs.items()
+                    }
+                    for resource, objs in kube["objects"].items()
+                },
+            }
+        return out
+
+    plane = cpworld.ControlPlane(engine=SchedulerEngine(device="cpu"))
+    seen = []
+
+    def check(name, report):
+        want = from_dump(plane.fleet)
+        assert report["digests"] == want, name
+        assert cpworld.store_digests(plane.fleet) == want, name
+        seen.append(name)
+
+    cpworld.run_rounds(plane, objects=60, clusters=6, after_round=check)
+    assert seen == list(cpworld.ROUNDS)
+    assert plane.digest_cache

@@ -6,7 +6,10 @@ sequential dispatch; score-carrying and webhook ticks) — tolerance 0
 (integer math) — the window's dispatch of a chunk making no host
 synchronisation, and durable state on the card: a fresh resume from a
 snapshot launching nothing, a stale one through the drift gate, and a
-kill-matrix round (``testing/restart_driver.py`` on ``--device cuda``).
+kill-matrix round (``testing/restart_driver.py`` on ``--device cuda``);
+the control plane with sync writing to the members, and the streaming
+front end's flushes (the dirty-row hint on the card), each equal to
+the CPU engine's.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -343,12 +346,12 @@ def test_kill_round_on_card(cuda, tmp_path):
 
 
 def test_control_plane_on_card_matches_cpu(cuda):
-    """The cluster, federate and scheduler controllers over the card's
-    engine (the scheduler's default) through the five rounds of
+    """The cluster, federate, scheduler and sync controllers over the
+    card's engine (the scheduler's default) through the five rounds of
     ``testing/cpworld.py`` at 200 Deployments x 16 clusters: every
-    round's store equals the same rounds' over the CPU engine, object
-    for object (wall-clock fields masked), and the cold round's ticks
-    launch the kernel."""
+    round's host and member stores equal the same rounds' over the CPU
+    engine, object for object (wall-clock fields masked), and the cold
+    round's ticks launch the kernel."""
     from kubeadmiral_tpu_torch.testing import cpworld
 
     card = cpworld.ControlPlane()
@@ -361,3 +364,50 @@ def test_control_plane_on_card_matches_cpu(cuda):
         assert cpworld.digest_diff(got[name]["digests"], want[name]["digests"]) == [], name
     assert got["cold"]["phase1_launches"] >= 1
     assert got["noop"]["phase1_launches"] == 0
+    assert got["cold"]["pairs"] == want["cold"]["pairs"] == got["cold"]["member_objects"] > 0
+    assert got["noop"]["member_writes"] == 0
+
+
+def test_stream_on_card_matches_cpu(cuda):
+    """The streaming front end over the card's engine (the default) and
+    over the CPU engine, fed one seeded event log (``testing/worlds.py``:
+    arrivals, updates, a capacity drift) at 200 x 16 in 10 flushes of
+    24 events: every flush's results are equal, every flush after the
+    first hands the card's engine the dirty-row hint, and the churn
+    flushes launch the kernel."""
+    from kubeadmiral_tpu_torch.scheduler.streaming import StreamingScheduler
+    from kubeadmiral_tpu_torch.testing.worlds import capacity_drift, stream_event
+
+    units, clusters, _ = build_world(200, 16, config="3", seed=0)
+    card = StreamingScheduler(SchedulerEngine(), clusters, units, slab_rows=24)
+    host = StreamingScheduler(SchedulerEngine(device="cpu"), clusters, units, slab_rows=24)
+    assert card.engine.device.type == "cuda"
+    hints = []
+    schedule = card.engine.schedule
+
+    def spy(u, c, **kw):
+        hints.append(kw.get("dirty_rows"))
+        return schedule(u, c, **kw)
+
+    card.engine.schedule = spy
+    rng = np.random.default_rng(0)
+    launches = []
+    for flush in range(10):
+        if flush:
+            events = [stream_event(rng, units, 24 * flush + k) for k in range(24)]
+            for s in (card, host):
+                for ev in events:
+                    s.offer(ev)
+            if flush % 5 == 0:
+                drifted = capacity_drift(rng, card.clusters)
+                for s in (card, host):
+                    s.update_cluster(drifted)
+        phase1.launches = 0
+        got = card.pump() if flush else card.flush()
+        launches.append(phase1.launches)
+        want = host.pump() if flush else host.flush()
+        assert got is not None and want is not None
+        assert [r.clusters for r in got] == [r.clusters for r in want]
+    assert hints[0] is None and all(h is not None for h in hints[1:])
+    assert launches[0] >= 1 and all(n >= 1 for n in launches[1:]), launches
+    assert len(card.units) > len(units)  # the arrivals grew the placeholder block
