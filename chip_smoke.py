@@ -130,28 +130,41 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    summary (rows re-decided per second, event -> visible latency);
 10b. the control phase (``control_phase``): the control plane
    (``testing/cpworld.py``, ``bench_e2e.py``'s world at
-   CONTROL_SHAPE = 10,000 Deployments x 500 member clusters) — a
-   ``ClusterFleet`` with the cluster, federate, scheduler and sync
-   controllers, the scheduler's default engine on the card — through a
-   join, a cold, a 1 % churn, a no-op resync and a topology round (one
-   more member), each checked (joins; every object placed, its replicas
-   summing to ``spec.replicas``; every placed pair a member Deployment
-   with its replicas and an ``OK`` status, and nothing else on the
-   members; churn moving and rewriting only the churned objects;
-   the resync reaching no engine, 0 launches, no member write; no
-   controller panic, ``persist_panic`` included, no shed or retry; the
-   sync stage launching nothing); per round the launch count is set to 0
-   just before and read just after, with the dispatch shapes; the cold
-   round launches at least once per chunk its ticks fill and dispatches
-   a full 4,096-row chunk; the kernel against its twin on the cold
-   round's first chunk and the churn round's dispatch; then the same
-   rounds over ``SchedulerEngine(device="cpu")`` in the same
-   controllers, every round's store equal to the card's object for
-   object, host and members (wall-clock fields masked); a
-   ``control <round>`` line per round (walls by controller, engine
-   ticks, launches, fetch bytes, objects placed, the store's object
-   count, member objects, member writes and ops by verb, dispatch
-   batches, sheds and retries);
+   CONTROL_SHAPE = 10,000 Deployments x 500 member clusters, with its
+   PropagationPolicy and OverridePolicy) — a ``ClusterFleet`` with the
+   JAX manager's controller set for the ``deployments.apps``,
+   ``configmaps`` and ``namespaces`` FTCs (federate, scheduler,
+   override, nsautoprop, sync, policyrc, status, status aggregator,
+   auto-migration over a pod informer, the follower, the monitors), the
+   default engine on the card — through a join, a cold, a 1 % churn, a
+   no-op resync, a topology round (one more member), a follow round (a
+   namespace, its auto-migrating policy, 100 ConfigMaps and the 100
+   Deployments that mount them) and a migrate round (20 of them stuck
+   in one member), each checked (joins; every object placed, its
+   replicas summing to ``spec.replicas``; every placed pair a member
+   Deployment with its replicas and an ``OK`` status, and nothing else
+   on the members; the override annotation on tier-1 members only; one
+   status object per FederatedDeployment; the policies' ref counts; no
+   placement drift; churn and migrate moving and rewriting only their
+   objects; the resync reaching no engine, 0 launches, no member write;
+   the namespace in every member and each ConfigMap on its
+   Deployment's clusters; ``estimatedCapacity`` written on exactly the
+   stuck objects, their capped members holding at most 2; no controller
+   panic, shed or retry; no controller but the schedulers launching);
+   per round the launch count is set to 0 just before and read just
+   after, with the dispatch shapes; the cold round launches at least
+   once per chunk its ticks fill and dispatches a full 4,096-row chunk,
+   the follow and migrate rounds at least once; the kernel against its
+   twin on the cold round's first chunk, the churn round's dispatch and
+   the migrate round's first dispatch; then the same rounds over
+   ``SchedulerEngine(device="cpu")`` in the same controllers, every
+   round's store equal to the card's object for object, host and
+   members (wall-clock fields masked); a ``control <round>`` line per
+   round (walls by controller kind, engine ticks, launches, dispatch
+   shapes, fetch bytes, objects placed, the store's object and status
+   counts, member objects, ConfigMaps and Namespaces, member writes and
+   ops by verb, dispatch batches, sheds and retries, the controllers'
+   checks with the monitors' gauges) and a ``control summary`` line;
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -1713,24 +1726,34 @@ CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64
 
 def control_phase() -> dict:
     """The control plane on the card (``testing/cpworld.py``): a
-    ``ClusterFleet`` with the cluster, federate, scheduler and sync
-    controllers, the scheduler's default engine (the card's), through
-    the join, cold, churn, no-op resync and topology rounds at
-    CONTROL_SHAPE, each checked there (joins, every object placed with
-    its replicas summing to ``spec.replicas``, every placed pair's
-    member Deployment with an ``OK`` status, churn moving and rewriting
-    only the churned objects, the no-op resync reaching no engine and
-    writing no member, no controller panic, shed or retry).  The sync
-    controller's steps must launch nothing.  Per round the phase-1 launch count is
-    set to 0 just before and read just after, beside the dispatches'
-    shapes; the cold round must launch at least once per chunk its ticks
-    fill and dispatch at least one full 4,096-row chunk.  The kernel is
-    held against its plain twin on the cold round's first chunk and the
-    churn round's dispatch.  Then the same rounds with
-    ``SchedulerEngine(device="cpu")`` in the same controllers: every
-    round's store (host and members) equals the card's object for
-    object, wall-clock fields masked.  Prints a ``control <round>`` line
-    per round."""
+    ``ClusterFleet`` with the JAX manager's controller set for the
+    ``deployments.apps``, ``configmaps`` and ``namespaces`` FTCs
+    (federate, scheduler, override, nsautoprop, sync, policyrc, status,
+    status aggregator, auto-migration over a pod informer, the follower,
+    the monitors), one shared engine, the default one (the card's),
+    through the join, cold, churn, no-op resync, topology, follow and
+    migrate rounds at CONTROL_SHAPE, each checked there (joins; every
+    object placed, its replicas summing to ``spec.replicas``; every
+    placed pair's member Deployment with an ``OK`` status; the override
+    annotation on tier-1 members only; one status object per
+    FederatedDeployment listing its placed clusters; the policies' ref
+    counts; no placement drift; churn and migrate moving and rewriting
+    only their objects; the resync reaching no engine and writing no
+    member; ``team-a`` in every member and each ``cfg-i`` on ``mig-i``'s
+    clusters; ``estimatedCapacity`` written on exactly the stuck objects,
+    the capped members holding at most 2; no controller panic, shed or
+    retry).  Every controller's steps but the schedulers' are counted:
+    they must launch nothing.  Per round the phase-1 launch count is set
+    to 0 just before and read just after, beside the dispatches' shapes;
+    the cold round must launch at least once per chunk its ticks fill
+    and dispatch at least one full 4,096-row chunk, the follow and
+    migrate rounds at least once each.  The kernel is held against its
+    plain twin on the cold round's first chunk, the churn round's
+    dispatch and the migrate round's first dispatch.  Then the same
+    rounds with ``SchedulerEngine(device="cpu")`` in the same
+    controllers: every round's store (host and members) equals the
+    card's object for object, wall-clock fields masked.  Prints a
+    ``control <round>`` line per round."""
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
@@ -1741,29 +1764,35 @@ def control_phase() -> dict:
 
     objects, clusters = CONTROL_SHAPE
     flightrec.get_default().clear()
-    plane = cpworld.ControlPlane()  # SchedulerController(engine=None): the card's engine
+    plane = cpworld.ControlPlane()  # the manager's default engine: the card's
     if plane.engine.device.type != "cuda":
         raise AssertionError(f"control: the default engine runs on {plane.engine.device}")
     chunk = plane.engine.chunk_size
-    # The sync stage's launches: the kernel count across the sync
-    # controller's steps (it runs no engine: 0).
-    sync_launches = [0]
-    sync_step = plane.sync.worker.step
+    # Kernel launches inside every controller's steps but the
+    # schedulers': each stage must launch nothing.
+    stage_launches: dict[str, int] = {}
 
-    def counted_sync_step():
-        before = phase1.launches
-        try:
-            return sync_step()
-        finally:
-            sync_launches[0] += phase1.launches - before
+    def counted_step(stage: str, step):
+        def counted():
+            before = phase1.launches
+            try:
+                return step()
+            finally:
+                stage_launches[stage] += phase1.launches - before
+        return counted
 
-    plane.sync.worker.step = counted_sync_step
+    for stage, ctl in [*plane.timer.controllers, *(("monitor", m) for m in plane.monitors)]:
+        if stage == "schedule":
+            continue
+        stage_launches.setdefault(stage, 0)
+        for worker in cpworld.workers_of(ctl):
+            worker.step = counted_step(stage, worker.step)
     stack = contextlib.ExitStack()
     recording = {}
     counted, first_inputs = {}, {}
 
     def on_round(name: str) -> None:
-        keep = [] if name in ("cold", "churn") else None
+        keep = [] if name in ("cold", "churn", "migrate") else None
         recording[name] = (stack.enter_context(recorded_dispatches(keep=keep)), keep)
         phase1.launches = 0
 
@@ -1791,15 +1820,19 @@ def control_phase() -> dict:
         raise AssertionError(f"control cold: {cold['phase1_launches']} launches, {fills} chunks filled")
     if not any(rows == chunk for _, rows, _ in cold["dispatch_shapes"]):
         raise AssertionError(f"control cold: no full {chunk}-row chunk in {cold['dispatch_shapes']}")
+    for name in ("follow", "migrate"):
+        if reports[name]["phase1_launches"] < 1:
+            raise AssertionError(f"control {name}: the scheduler's ticks launched nothing")
     kernel = {
         "cold_chunk": check_phase1("control-cold-chunk", first_inputs["cold"], timed=True),
         "churn": check_phase1("control-churn", first_inputs["churn"], timed=True),
+        "migrate": check_phase1("control-migrate", first_inputs["migrate"], timed=True),
     }
     del first_inputs
     panics = plane.panics()
     engine_ticks = plane.engine.tick_seq
-    if sync_launches[0]:
-        raise AssertionError(f"control: the sync stage launched the kernel {sync_launches[0]} times")
+    if any(stage_launches.values()):
+        raise AssertionError(f"control: controllers other than the scheduler launched {stage_launches}")
     del plane
     torch.cuda.empty_cache()
 
@@ -1829,14 +1862,21 @@ def control_phase() -> dict:
         row["store_equal"] = True
         log(f"control {name}: {json.dumps(row)}")
         out[name] = row
+    migrate = reports["migrate"]
     summary = {
         "objects": objects, "clusters": clusters, "card_s": card_s, "twin_s": twin_s,
-        "engine_ticks": engine_ticks, "panics": panics, "sync_launches": sync_launches[0],
+        "engine_ticks": engine_ticks, "panics": {k: v for k, v in panics.items() if v},
+        "stage_launches": stage_launches,
+        "estimated_capacity": migrate["estimated_capacity"],
+        "estimated_capacity_held": migrate["estimated_capacity_held"],
+        "gauges": migrate["controllers"]["gauges"],
+        "ref_counts": migrate["controllers"]["ref_counts"],
         "kernel": {k: {kk: v[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                    for k, v in kernel.items()},
     }
     log(f"control summary: {json.dumps(summary)}")
-    return {"rounds": out, "summary": summary, "kernel": kernel, "sync_launches": sync_launches[0]}
+    return {"rounds": out, "summary": summary, "kernel": kernel,
+            "sync_launches": stage_launches["sync"], "stage_launches": stage_launches}
 
 
 def main() -> int:
@@ -2030,7 +2070,7 @@ def main() -> int:
         streams[cfg] = stream_phase(cfg, *worlds[cfg][:2])
         log(f"phase stream-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
-    # The control plane (scheduling and member sync) over the card's engine.
+    # The control plane (the manager's controllers) over the card's engine.
     t0 = time.perf_counter()
     del worlds, units, clusters
     gc.collect()
@@ -2061,6 +2101,7 @@ def main() -> int:
                     for r in (c5, c3, slab_rows["5"], slab_rows["3"],
                               surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
                               control["kernel"]["cold_chunk"], control["kernel"]["churn"],
+                              control["kernel"]["migrate"],
                               streams["5"]["kernel"], streams["3"]["kernel"])
                 ),
                 "ms": c5["ms"],
@@ -2158,8 +2199,8 @@ def main() -> int:
                     "c3 dispatch-flush successor": kill["dispatch_flush"]["successor_launches"],
                 },
                 "snapshot_c5": capture5,
-                # The control plane's rounds (cluster, federate and
-                # scheduler controllers over the card's engine): launches
+                # The control plane's rounds (the manager's controllers
+                # over the card's engine): launches
                 # per round, and the kernel at the churn round's shape.
                 "launches_control": {
                     name: row["phase1_launches"] for name, row in control["rounds"].items()
@@ -2168,8 +2209,14 @@ def main() -> int:
                     key: control["kernel"]["churn"][key]
                     for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
                 },
-                # The sync stage of the control rounds launches nothing.
+                "control_migrate": {
+                    key: control["kernel"]["migrate"][key]
+                    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                },
+                # The sync stage of the control rounds launches nothing,
+                # nor does any other controller but the schedulers.
                 "launches_sync": control["sync_launches"],
+                "launches_controllers": control["stage_launches"],
                 # The stream phase: launches per flush (cold, warm-up,
                 # event-log flushes), and the kernel at the second event
                 # flush's slab.

@@ -9,8 +9,8 @@ bit-identical to its JAX counterpart on the same inputs.
 This package imports ``torch`` and never ``jax``, and nothing of
 ``kubeadmiral_tpu``: the framework-free modules it needs (the data
 model, quantity parsing, label matching, FNV hashing, the numpy
-featurizers and the scheduling half of the control plane) are its own
-copies, and it reads no environment variable.
+featurizers and the control plane's controllers) are its own copies,
+and it reads no environment variable.
 
 Layout (mirrors ``kubeadmiral_tpu``):
   models/      data model (SchedulingUnit, ClusterState), FederatedTypeConfig,
@@ -24,9 +24,11 @@ Layout (mirrors ``kubeadmiral_tpu``):
                plugin client
   runtime/     metrics, flight recorder, snapshots; the reconcile runtime
                (queue, workers, pending-controllers, host batch, event sink,
-               lock check, trace, SLO recorder, tenancy)
-  federation/  the cluster, federate and scheduler controllers, their
-               shared helpers and the shard map
+               lock check, trace, SLO recorder, tenancy, informers, the
+               pod informer)
+  federation/  the cluster, federate, scheduler, sync, override, follower,
+               nsautoprop, policyrc, status, auto-migration and monitor
+               controllers, their shared helpers and the shard map
   transport/   the per-member circuit breaker
   testing/     seeded benchmark worlds, the in-memory apiserver fleet
                (fakekube.py), the control plane's world (cpworld.py)

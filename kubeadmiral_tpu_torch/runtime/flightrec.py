@@ -31,7 +31,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -477,3 +477,39 @@ _default = FlightRecorder()
 
 def get_default() -> FlightRecorder:
     return _default
+
+
+# -- drift providers ------------------------------------------------------
+# federation/monitor.py's drift detector registers a snapshot callable;
+# ``drift_report`` collects every registered provider.  Kept here so
+# runtime/ has no federation/ import and any controller can contribute
+# a drift view.
+_drift_lock = threading.Lock()
+_drift_providers: dict[str, Callable[[], dict]] = {}
+
+
+def register_drift_provider(name: str, fn: Callable[[], dict]) -> None:
+    with _drift_lock:
+        _drift_providers[name] = fn
+
+
+def unregister_drift_provider(name: str) -> None:
+    with _drift_lock:
+        _drift_providers.pop(name, None)
+
+
+def drift_report() -> dict:
+    with _drift_lock:
+        providers = dict(_drift_providers)
+    out: dict = {"providers": sorted(providers)}
+    drifted: list[dict] = []
+    for name, fn in sorted(providers.items()):
+        try:
+            snap = fn()
+        except Exception as e:  # a broken provider must not break the report
+            snap = {"error": repr(e)}
+        out[name] = snap
+        drifted.extend(snap.get("drifted", ()) if isinstance(snap, dict) else ())
+    out["drifted"] = drifted
+    out["drifted_total"] = len(drifted)
+    return out

@@ -102,6 +102,15 @@ def test_scan_covers_control_plane():
         "kubeadmiral_tpu_torch/federation/sync.py",
         "kubeadmiral_tpu_torch/testing/membersim.py",
         "kubeadmiral_tpu_torch/testing/worlds.py",
+        "kubeadmiral_tpu_torch/runtime/informer.py",
+        "kubeadmiral_tpu_torch/runtime/podinformer.py",
+        "kubeadmiral_tpu_torch/federation/statusctl.py",
+        "kubeadmiral_tpu_torch/federation/overridectl.py",
+        "kubeadmiral_tpu_torch/federation/policyrc.py",
+        "kubeadmiral_tpu_torch/federation/follower.py",
+        "kubeadmiral_tpu_torch/federation/nsautoprop.py",
+        "kubeadmiral_tpu_torch/federation/automigration.py",
+        "kubeadmiral_tpu_torch/federation/monitor.py",
     ):
         assert rel in PORT_FILES, rel
 

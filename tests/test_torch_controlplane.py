@@ -1,20 +1,23 @@
 """The port's control plane against the JAX package's, store for store.
 
 A ``Pair`` builds the same fleet twice: the JAX package's
-``ClusterFleet`` with its cluster, federate and scheduler controllers
-over a JAX ``SchedulerEngine`` (and, for the end-to-end slice's cases,
-its sync controller), and the port's copies of the same modules over
-the port's ``SchedulerEngine(device="cpu")``.  Every case
-feeds both the same objects in the same order; after each settle the
-two fleets' stores (host and members) are equal object for object —
-placements, overrides, trigger-hash and pending-controllers
-annotations, resourceVersions, events — with only the fields listed in
-``cpworld.WALL_CLOCK_FIELDS`` masked (the event recorder's
-``time.time()`` stamps), and the engines' tick count, cache and fetch
-counters are equal.  The cluster and federate controllers take a frozen
-clock on both sides, so no heartbeat or backoff falls due mid-case.
-The default SLO recorders hold the same provenance tokens, stage marks
-and event counters.
+``ClusterFleet`` with the JAX manager's controller set for the
+``deployments.apps`` FTC (``runtime/manager.py:_start_ftc``: the
+cluster, federate, scheduler, override — when the pipeline names it —
+sync, policyrc, status, status aggregator, auto-migration over a pod
+informer, and follower controllers) over a JAX ``SchedulerEngine``, and
+the port's copies of the same modules over the port's
+``SchedulerEngine(device="cpu")``.  Every case feeds both the same
+objects in the same order; after each settle the two fleets' stores
+(host and members) are equal object for object — placements,
+overrides, trigger-hash and pending-controllers annotations, status
+objects, policy statuses, resourceVersions, events — with only the
+fields listed in ``cpworld.WALL_CLOCK_FIELDS`` masked (the event
+recorder's ``time.time()`` stamps), and the engines' tick count, cache
+and fetch counters are equal.  The controllers take a frozen clock on
+both sides, so no heartbeat or backoff falls due mid-case.  The default
+SLO recorders hold the same provenance tokens, stage marks and event
+counters.
 
 The cases are the cases of ``tests/test_e2e_slice.py`` with the sync
 controller writing to the members, whose stores are compared too
@@ -25,12 +28,19 @@ plugin, a profile update rescheduling, the max-cluster cap) and
 ``tests/test_webhook.py`` (its fake ``HTTPClient``: a filter, the batch
 protocol, a select, an unsupported payload version); each runs with
 both engines at the pipeline depth 16 (the default of both) and at
-depth 1.
+depth 1.  ``test_seven_rounds_stores_equal`` drives
+``testing/cpworld.py``'s seven rounds (join, cold, churn, no-op,
+topology, follow, migrate; three FTCs, the follower and the monitors)
+at a small size over each package, at depth 16 and 1: the stores after
+every settle (status, policy-status, ConfigMap, Namespace and Pod
+objects included), the monitors' gauges, the SLO recorders and every
+round's checked counts are equal.
 """
 
 import dataclasses
 import importlib
 import json
+import types
 
 import pytest
 
@@ -80,9 +90,13 @@ def first_difference(a, b, path="") -> str:
 
 
 class Side:
-    """One package's fleet and controllers of the scheduling half."""
+    """One package's fleet and the JAX manager's controllers for the
+    ``deployments.apps`` FTC (``runtime/manager.py:_start_ftc``: federate,
+    the scheduler once started, the override controller when the
+    pipeline names it, sync, policyrc, status, the status aggregator,
+    auto-migration over a pod informer, and the follower controller)."""
 
-    def __init__(self, root: str, engine, pipeline=SCHEDULER_ONLY, with_sync=False):
+    def __init__(self, root: str, engine, pipeline=SCHEDULER_ONLY):
         def m(name):
             return importlib.import_module(f"{root}.{name}")
 
@@ -107,9 +121,22 @@ class Side:
         )
         self.scheduler = None
         self.client = None
-        self.sync = (
-            m("federation.sync").SyncController(self.fleet, self.ftc, clock=clock)
-            if with_sync else None
+        names = {c for group in pipeline for c in group}
+        self.override = (
+            m("federation.overridectl").OverrideController(self.host, self.ftc, clock=clock)
+            if self.C.OVERRIDE_CONTROLLER in names else None
+        )
+        self.sync = m("federation.sync").SyncController(self.fleet, self.ftc, clock=clock)
+        self.policyrc = m("federation.policyrc").PolicyRCController(self.host, self.ftc)
+        statusctl = m("federation.statusctl")
+        self.status = statusctl.StatusController(self.fleet, self.ftc, clock=clock)
+        self.statusagg = statusctl.StatusAggregator(self.fleet, self.ftc, clock=clock)
+        self.automigration = m("federation.automigration").AutoMigrationController(
+            self.fleet, self.ftc, clock=clock,
+            pod_informer=m("runtime.podinformer").PodInformer(self.fleet),
+        )
+        self.follower = m("federation.follower").FollowerController(
+            self.host, [self.ftc], clock=clock
         )
 
     def start_scheduler(self, client=None) -> None:
@@ -120,14 +147,19 @@ class Side:
 
     def controllers(self):
         return tuple(
-            c for c in (self.clusterctl, self.federate, self.scheduler, self.sync) if c
+            c for c in (
+                self.clusterctl, self.federate, self.scheduler, self.override,
+                self.sync, self.policyrc, self.status, self.statusagg,
+                self.automigration, self.follower,
+            ) if c
         )
 
     def settle(self, rounds=20) -> None:
         for _ in range(rounds):
             progressed = False
             for c in self.controllers():
-                progressed |= c.worker.step()
+                step = getattr(c, "step_all", None) or c.worker.step
+                progressed |= step()
             if not progressed:
                 return
         raise AssertionError(f"{self.root}: not settled in {rounds} rounds")
@@ -271,7 +303,7 @@ def depth(request):
 
 @pytest.fixture
 def slice_pair(monkeypatch, depth):
-    pair = Pair(monkeypatch, depth, with_sync=True)
+    pair = Pair(monkeypatch, depth)
     pair.each(lambda s: s.start_scheduler())
     for name, cpu in (("c1", "64"), ("c2", "32"), ("c3", "32")):
         pair.each(lambda s: s.add_cluster(name, cpu))
@@ -664,3 +696,106 @@ def test_store_digests_read_in_place_equal_a_dump():
     cpworld.run_rounds(plane, objects=60, clusters=6, after_round=check)
     assert seen == list(cpworld.ROUNDS)
     assert plane.digest_cache
+
+
+# -- testing/cpworld.py's seven rounds on both packages -----------------------
+
+def point_cpworld_at_jax(mp, cpworld) -> None:
+    """cpworld's globals from the port pointed at the JAX package's
+    counterparts (the phase-1 launch counter stays the port's: the JAX
+    engine launches none of the port's kernels)."""
+    port_root, jax_root = "kubeadmiral_tpu_torch.", "kubeadmiral_tpu."
+    for name, value in list(vars(cpworld).items()):
+        if name == "phase1_mod":
+            continue
+        if isinstance(value, types.ModuleType):
+            if value.__name__.startswith(port_root):
+                mp.setattr(cpworld, name, importlib.import_module(
+                    jax_root + value.__name__[len(port_root):]))
+            continue
+        module = getattr(value, "__module__", None)
+        if (
+            isinstance(module, str) and module.startswith(port_root)
+            and module != cpworld.__name__ and hasattr(value, "__name__")
+        ):
+            jax_module = importlib.import_module(jax_root + module[len(port_root):])
+            mp.setattr(cpworld, name, getattr(jax_module, value.__name__))
+
+
+SMALL_WORLD = {"objects": 30, "clusters": 5, "followers": 12, "migrants": 4}
+
+
+def seven_rounds(monkeypatch, package: str, depth: int) -> dict:
+    """cpworld's rounds on one package at SMALL_WORLD: per round the
+    fleet's masked dump, the monitors' gauges, the SLO recorder's image
+    and the device-independent counts."""
+    from kubeadmiral_tpu_torch.testing import cpworld
+
+    out = {}
+    with monkeypatch.context() as mp:
+        jax_slo.reset_default()
+        port_slo.reset_default()
+        if package == "jax":
+            point_cpworld_at_jax(mp, cpworld)
+            mp.setenv("KT_PIPELINE_DEPTH", str(depth))
+            engine = JaxEngine(
+                mesh=None, devprof=None,
+                flight_recorder=JaxRecorder(max_ticks=8, max_bytes=256 << 20, topk=8,
+                                            enabled=True),
+            )
+            slo_mod = jax_slo
+        else:
+            engine = SchedulerEngine(device="cpu", flight_recorder=FlightRecorder())
+            engine.pipeline_depth = depth
+            slo_mod = port_slo
+        plane = cpworld.ControlPlane(engine=engine)
+        assert plane.engine is engine
+        assert type(plane.scheduler).__module__.startswith(
+            "kubeadmiral_tpu_torch" if package == "port" else "kubeadmiral_tpu.")
+
+        def after(name, report):
+            out[name] = {
+                "dump": masked_dump(plane.fleet),
+                "gauges": plane.gauges(),
+                "slo": slo_image(slo_mod),
+                "counts": {k: report[k] for k in (
+                    "engine_ticks", "store_objects", "status_objects", "member_objects",
+                    "member_configmaps", "member_namespaces", "member_writes",
+                    "member_ops", "dispatch_batches")},
+            }
+
+        reports = cpworld.run_rounds(plane, after_round=after, **SMALL_WORLD)
+        for name, report in reports.items():
+            out[name]["checked"] = {
+                k: report.get(k) for k in (
+                    "placed", "pairs", "moved", "members_changed", "followers",
+                    "estimated_capacity", "estimated_capacity_held")
+            }
+            out[name]["controllers"] = report.get("controllers")
+    return out
+
+
+def test_seven_rounds_stores_equal(monkeypatch, depth):
+    """The manager's controller set over ``testing/cpworld.py``'s seven
+    rounds (join, cold, churn, no-op, topology, follow, migrate), once
+    over the JAX package and its engine and once over the port's on the
+    CPU: after every settle the host and member stores are equal object
+    for object (status objects, policy statuses, ConfigMaps, Namespaces
+    and Pods included), and so are the monitors' gauges, the SLO
+    recorders and every round's checked counts."""
+    want = seven_rounds(monkeypatch, "jax", depth)
+    got = seven_rounds(monkeypatch, "port", depth)
+    from kubeadmiral_tpu_torch.testing import cpworld
+
+    assert list(got) == list(want) == list(cpworld.ROUNDS)
+    for name in cpworld.ROUNDS:
+        a, b = want[name], got[name]
+        assert a["dump"] == b["dump"], (name, first_difference(a["dump"], b["dump"]))
+        for key in ("gauges", "slo", "counts", "checked", "controllers"):
+            assert a[key] == b[key], (name, key, a[key], b[key])
+    migrate = got["migrate"]["checked"]
+    assert migrate["estimated_capacity"] == SMALL_WORLD["migrants"]
+    assert migrate["moved"] == SMALL_WORLD["migrants"]
+    dump = got["migrate"]["dump"]
+    assert any(kube["objects"].get("v1/pods") for kube in dump["members"].values())
+    assert dump["host"]["objects"]["v1/namespaces"]

@@ -346,12 +346,13 @@ def test_kill_round_on_card(cuda, tmp_path):
 
 
 def test_control_plane_on_card_matches_cpu(cuda):
-    """The cluster, federate, scheduler and sync controllers over the
-    card's engine (the scheduler's default) through the five rounds of
-    ``testing/cpworld.py`` at 200 Deployments x 16 clusters: every
-    round's host and member stores equal the same rounds' over the CPU
-    engine, object for object (wall-clock fields masked), and the cold
-    round's ticks launch the kernel."""
+    """The JAX manager's controller set over the card's engine (the
+    plane's default) through the seven rounds of ``testing/cpworld.py``
+    at 200 Deployments x 16 clusters: every round's host and member
+    stores equal the same rounds' over the CPU engine, object for object
+    (wall-clock fields masked), the cold, follow and migrate rounds'
+    ticks launch the kernel, and auto-migration writes the stuck
+    objects' capacity."""
     from kubeadmiral_tpu_torch.testing import cpworld
 
     card = cpworld.ControlPlane()
@@ -366,6 +367,8 @@ def test_control_plane_on_card_matches_cpu(cuda):
     assert got["noop"]["phase1_launches"] == 0
     assert got["cold"]["pairs"] == want["cold"]["pairs"] == got["cold"]["member_objects"] > 0
     assert got["noop"]["member_writes"] == 0
+    assert got["follow"]["phase1_launches"] >= 1 and got["migrate"]["phase1_launches"] >= 1
+    assert got["migrate"]["estimated_capacity"] == want["migrate"]["estimated_capacity"] > 0
 
 
 def test_stream_on_card_matches_cpu(cuda):

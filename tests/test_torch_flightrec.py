@@ -11,7 +11,10 @@ certificate fallbacks included) and on dense ones.  After every tick
 each object's record is equal: key, tick, program, placements, reason
 counts, feasible count, top-k cluster indices and scores.  Also:
 ``explain(key)`` on both, an ``export_state`` / ``restore_state`` round
-trip through pickle, and the ``flightrec_*`` gauges of the tick.
+trip through pickle, the ``flightrec_*`` gauges of the tick, and the
+drift-provider registry the monitor controller registers with
+(``register_drift_provider``, ``unregister_drift_provider``,
+``drift_report``).
 """
 
 import dataclasses
@@ -25,10 +28,12 @@ from test_engine_cache import make_world
 from test_restart import clusters_eq
 from test_torch_engine import _port
 
+from kubeadmiral_tpu.runtime import flightrec as jax_flightrec
 from kubeadmiral_tpu.runtime.flightrec import FlightRecorder as JaxRecorder
 from kubeadmiral_tpu.runtime.flightrec import summarize_reasons as jax_summarize
 from kubeadmiral_tpu.runtime.metrics import Metrics as JaxMetrics
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
+from kubeadmiral_tpu_torch.runtime import flightrec as port_flightrec
 from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder, summarize_reasons
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics
 from kubeadmiral_tpu_torch.testing.worlds import webhook
@@ -178,3 +183,35 @@ def test_disabled_recorder_records_nothing(monkeypatch):
     port.schedule(list(units), clusters)
     assert port.metrics.get_counter("engine_ticks_total") == 2
     assert "flightrec_records" not in port.metrics.snapshot()["gauges"]
+
+def test_drift_registry_matches_jax(monkeypatch):
+    """``register_drift_provider`` / ``unregister_drift_provider`` /
+    ``drift_report`` on the port equal JAX's for the same providers, a
+    failing one included (each registry emptied for the case: monitors
+    of other cases register with the process-wide one)."""
+    for mod in (jax_flightrec, port_flightrec):
+        monkeypatch.setattr(mod, "_drift_providers", {})
+
+    def failing():
+        raise ValueError("boom")
+
+    providers = {
+        "monitor-b": lambda: {"ftc": "b", "drifted": [{"key": "ns/x", "kind": "orphan"}]},
+        "monitor-a": lambda: {"ftc": "a", "drifted": [{"key": "ns/y", "kind": "missing"}]},
+        "broken": failing,
+        "gone": lambda: {"drifted": [{"key": "never"}]},
+    }
+    reports = []
+    for mod in (jax_flightrec, port_flightrec):
+        for name, fn in providers.items():
+            mod.register_drift_provider(name, fn)
+        mod.unregister_drift_provider("gone")
+        try:
+            reports.append(mod.drift_report())
+        finally:
+            for name in providers:
+                mod.unregister_drift_provider(name)
+        assert mod.drift_report() == {"providers": [], "drifted": [], "drifted_total": 0}
+    assert reports[1] == reports[0]
+    assert reports[1]["drifted_total"] == 2
+    assert reports[1]["providers"] == ["broken", "monitor-a", "monitor-b"]
