@@ -32,7 +32,15 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    config on the card at full size — the pipelined window (depth 16),
    the narrow solve with its dense fallback and the packed wire —
    requires the phase-1 launch count to equal chunks + fallback
-   dispatches (+ planner re-dispatches, if any), prints the stage
+   dispatches (+ planner re-dispatches, if any) and the engine's own
+   dispatch ledger (``runtime/devprof.py``, CUDA events) to hold as many
+   ``tick_narrow`` records as narrow dispatches and ``narrow_fallback``
+   records as fallback dispatches, in dispatch order under the tick's
+   id (``last_tick_id``), nothing in flight after ``drain()`` and at most
+   the tick's wall of device time (``ledger c5 cold`` lines: device and
+   queue ms by program kind; the same on the warm phase's no-op ticks,
+   which leave no record, and its first churn tick; before the ticks a
+   ``ledger overhead`` line: µs per ``observe`` on the card), prints the stage
    timings, narrow_stats, overflow rows, fetch bytes against the dense
    planes' 6 B per cell, ``max_memory_allocated`` and the host
    synchronisations made inside the chunk dispatches, and holds the
@@ -131,12 +139,15 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
 10b. the control phase (``control_phase``): the control plane
    (``testing/cpworld.py``, ``bench_e2e.py``'s world at
    CONTROL_SHAPE = 10,000 Deployments x 500 member clusters, with its
-   PropagationPolicy and OverridePolicy) — a ``ClusterFleet`` with the
-   JAX manager's controller set for the ``deployments.apps``,
-   ``configmaps`` and ``namespaces`` FTCs (federate, scheduler,
-   override, nsautoprop, sync, policyrc, status, status aggregator,
-   auto-migration over a pod informer, the follower, the monitors), the
-   default engine on the card — through a join, a cold, a 1 % churn, a
+   PropagationPolicy and OverridePolicy) — a ``ClusterFleet`` under the
+   port's ``ControllerManager``, whose FTC watch starts the controller
+   sets of the ``deployments.apps``, ``configmaps`` and ``namespaces``
+   FTCs (federate, scheduler, override, nsautoprop, sync, policyrc,
+   status, status aggregator, auto-migration over its pod informer, the
+   follower; the plane's monitors) and whose ``step_all`` settles them,
+   the manager's default engine on the card (every readiness check the
+   manager registered ready after the cold round; a device-profile
+   capture beside the churn round naming both CUDA kernels) — through a join, a cold, a 1 % churn, a
    no-op resync, a topology round (one more member), a follow round (a
    namespace, its auto-migrating policy, 100 ConfigMaps and the 100
    Deployments that mount them) and a migrate round (20 of them stuck
@@ -165,6 +176,11 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    counts, member objects, ConfigMaps and Namespaces, member writes and
    ops by verb, dispatch batches, sheds and retries, the controllers'
    checks with the monitors' gauges) and a ``control summary`` line;
+10c. the process phase (``process_phase``, beside 10b's CPU twin, when
+   the card is idle): ``python -m kubeadmiral_tpu_torch`` on the card as
+   a subprocess, its health, metrics, debug, waterfall, trace and
+   device-profile routes answering 200, then SIGTERM: exit 0 with
+   leadership released and no write shed;
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -802,6 +818,80 @@ def run_tick(label: str, engine, units, clusters, **kw) -> dict:
     return {"results": results, **tick}
 
 
+def ledger_check(label: str, engine, tick: dict, fallback: int) -> dict:
+    """The dispatch ledger's view of the tick just run on ``engine`` (an
+    engine with a ``DispatchLedger`` of its own; ``tick`` from
+    counted_tick, ``fallback`` its certificate-fallback dispatches):
+    nothing in flight after ``drain()``; the tick's records in dispatch
+    order, each carrying the tick's id, which is ``last_tick_id``; as
+    many ``tick_narrow`` records as narrow dispatches, ``narrow_fallback``
+    records as fallback dispatches and ``tick`` records as the other
+    dense dispatches (a no-op tick: no record at all); the records'
+    device seconds summing to at most the tick's wall.  Prints a
+    ``ledger <label>`` line: device and queue ms by program kind."""
+    ledger = engine.devprof
+    if not ledger.drain(120.0) or ledger.inflight:
+        raise AssertionError(f"ledger {label}: {ledger.inflight} records in flight after drain()")
+    tick_id = engine.last_tick_id
+    entries = [e for e in ledger._ticks if e.tick == tick_id]
+    if len(entries) != 1:
+        raise AssertionError(f"ledger {label}: {len(entries)} closed ticks with id {tick_id}")
+    records = entries[0].records
+    seqs = [r.seq for r in records]
+    if seqs != sorted(seqs) or any(r.tick != tick_id for r in records):
+        raise AssertionError(f"ledger {label}: records out of dispatch order or of another tick")
+    summary = ledger.tick_summary(tick_id)
+    by = summary["by_program"]
+    got = {k: by.get(k, {}).get("n", 0) for k in ("tick_narrow", "narrow_fallback", "tick")}
+    want = {
+        "tick_narrow": tick["narrow_dispatches"],
+        "narrow_fallback": fallback,
+        "tick": tick["dense_dispatches"] - fallback,
+    }
+    if got != want:
+        raise AssertionError(f"ledger {label}: records {got}, dispatches {want}")
+    if not (tick["narrow_dispatches"] or tick["dense_dispatches"]) and records:
+        raise AssertionError(f"ledger {label}: a no-op tick left {len(records)} records")
+    device_s = sum(r.device_s for r in records)
+    if device_s * 1e3 > tick["tick_ms"]:
+        raise AssertionError(f"ledger {label}: {device_s * 1e3} device ms in a {tick['tick_ms']} ms tick")
+    row = {
+        "tick": tick_id, "records": len(records), "device_ms": device_s * 1e3,
+        "queue_ms": sum(r.queue_s for r in records) * 1e3, "wall_ms": summary["wall_ms"],
+        "tick_ms": tick["tick_ms"], "by_program": by, "by_device": summary["by_device"],
+    }
+    log(f"ledger {label}: {json.dumps(row)}")
+    return row
+
+
+LEDGER_PROBE_CALLS = 5_000
+
+
+def ledger_overhead() -> dict:
+    """What one ``observe`` costs the thread that dispatches, on the
+    card: LEDGER_PROBE_CALLS observations of a 4-byte CUDA output on a
+    fresh ledger (an event recorded on the current stream, a deque
+    append; the watcher retires them beside), timed on the host clock,
+    then drained.  Prints a ``ledger overhead`` line: µs per call."""
+    import torch
+
+    from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
+
+    ledger = DispatchLedger()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LEDGER_PROBE_CALLS):
+        ledger.observe("tick", out)
+    observe_s = time.perf_counter() - t0
+    if not ledger.drain(120.0):
+        raise AssertionError("ledger overhead: records still in flight")
+    row = {"calls": LEDGER_PROBE_CALLS, "us_per_observe": observe_s / LEDGER_PROBE_CALLS * 1e6,
+           "drain_s": time.perf_counter() - t0 - observe_s}
+    log(f"ledger overhead: {json.dumps(row)}")
+    return row
+
+
 def run_with_narrow_m(label: str, units, clusters, narrow_m: int) -> dict:
     """run_tick on a fresh engine with the engine's NARROW_M constant
     patched for the call."""
@@ -1033,6 +1123,8 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
             raise AssertionError(f"c{cfg} {label}: {tick}")
         if len(again) != len(results) or any(a is not b for a, b in zip(again, results)):
             raise AssertionError(f"c{cfg} {label}: did not replay the previous results")
+        if engine.devprof.enabled:
+            tick["ledger"] = ledger_check(f"c{cfg} {label}", engine, tick, 0)
         record(label, tick)
 
     prev_units, prev, slab = units, results, None
@@ -1067,6 +1159,8 @@ def warm_phase(cfg: str, units, clusters, engine, cold: dict, results):
                              [got[j] for j in changed], want)
         tick.update(changed_units=len(changed), slabs=slabs, slab_cut=cut,
                     fallback_dispatches=fallback)
+        if i == 0 and engine.devprof.enabled:
+            tick["ledger"] = ledger_check(f"c{cfg} {label}", engine, tick, fallback)
         record(label, tick)
         if slab is None:
             slab = captured
@@ -1724,13 +1818,40 @@ def stream_phase(cfg: str, units, clusters) -> dict:
 CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64)
 
 
-def control_phase() -> dict:
+CAPTURE_S = 60.0  # the device-profile capture's cap beside the control churn round
+PROFILED_KERNELS = ("columns_kernel", "phase1_kernel")
+
+
+def read_capture(label: str, capture: dict) -> dict:
+    """A ``capture_device_profile`` result: no error, and a Chrome trace
+    whose events name each of PROFILED_KERNELS.  Returns its wall, size,
+    event count and the kernels' event counts."""
+    import os
+
+    if "error" in capture or not os.path.isfile(capture.get("trace", "")):
+        raise AssertionError(f"{label}: device profile failed: {capture}")
+    with open(capture["trace"]) as f:
+        events = json.load(f).get("traceEvents", [])
+    named = {
+        k: sum(1 for e in events if k in str(e.get("name", ""))) for k in PROFILED_KERNELS
+    }
+    if not all(named.values()):
+        raise AssertionError(f"{label}: the device profile names {named}")
+    return {
+        "wall_s": capture["wall_s"], "trace_bytes": os.path.getsize(capture["trace"]),
+        "events": len(events), "kernel_events": named,
+    }
+
+
+def control_phase(beside=None) -> dict:
     """The control plane on the card (``testing/cpworld.py``): a
-    ``ClusterFleet`` with the JAX manager's controller set for the
-    ``deployments.apps``, ``configmaps`` and ``namespaces`` FTCs
+    ``ClusterFleet`` under the port's ``ControllerManager``, which starts
+    each of the ``deployments.apps``, ``configmaps`` and ``namespaces``
+    FTCs' controller sets from their FTC objects
     (federate, scheduler, override, nsautoprop, sync, policyrc, status,
-    status aggregator, auto-migration over a pod informer, the follower,
-    the monitors), one shared engine, the default one (the card's),
+    status aggregator, auto-migration over its pod informer, the
+    follower; the plane's monitors), the manager's engine, the default
+    one (the card's), settled through the manager's ``step_all``,
     through the join, cold, churn, no-op resync, topology, follow and
     migrate rounds at CONTROL_SHAPE, each checked there (joins; every
     object placed, its replicas summing to ``spec.replicas``; every
@@ -1742,7 +1863,14 @@ def control_phase() -> dict:
     member; ``team-a`` in every member and each ``cfg-i`` on ``mig-i``'s
     clusters; ``estimatedCapacity`` written on exactly the stuck objects,
     the capped members holding at most 2; no controller panic, shed or
-    retry).  Every controller's steps but the schedulers' are counted:
+    retry).  After the cold round every readiness check the manager
+    registered must read ready.  During the churn round a
+    ``capture_device_profile`` runs on a side thread (the round started
+    once the profiler records, the capture stopped when it has settled,
+    at most CAPTURE_S seconds); its Chrome trace must name both of the
+    kernel's CUDA kernels (PROFILED_KERNELS).  ``beside``, if given, runs
+    on another thread while the CPU twin runs (the card is idle then);
+    its result is returned under ``beside``.  Every controller's steps but the schedulers' are counted:
     they must launch nothing.  Per round the phase-1 launch count is set
     to 0 just before and read just after, beside the dispatches' shapes;
     the cold round must launch at least once per chunk its ticks fill
@@ -1754,10 +1882,14 @@ def control_phase() -> dict:
     controllers: every round's store (host and members) equals the
     card's object for object, wall-clock fields masked.  Prints a
     ``control <round>`` line per round."""
+    import tempfile
+    import threading
+    from pathlib import Path
+
     import torch
 
     from kubeadmiral_tpu_torch.ops.phase1 import phase1
-    from kubeadmiral_tpu_torch.runtime import flightrec
+    from kubeadmiral_tpu_torch.runtime import devprof, flightrec
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing import cpworld
     from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
@@ -1765,6 +1897,8 @@ def control_phase() -> dict:
     objects, clusters = CONTROL_SHAPE
     flightrec.get_default().clear()
     plane = cpworld.ControlPlane()  # the manager's default engine: the card's
+    if type(plane.manager).__module__ != "kubeadmiral_tpu_torch.runtime.manager":
+        raise AssertionError(f"control: the plane runs {type(plane.manager)}")
     if plane.engine.device.type != "cuda":
         raise AssertionError(f"control: the default engine runs on {plane.engine.device}")
     chunk = plane.engine.chunk_size
@@ -1790,9 +1924,23 @@ def control_phase() -> dict:
     stack = contextlib.ExitStack()
     recording = {}
     counted, first_inputs = {}, {}
+    capture: dict = {}
+    work = tempfile.mkdtemp(prefix="_profile_", dir=Path(__file__).resolve().parent)
 
     def on_round(name: str) -> None:
         keep = [] if name in ("cold", "churn", "migrate") else None
+        if name == "churn":
+            ready, stop = threading.Event(), threading.Event()
+            thread = threading.Thread(
+                target=lambda: capture.update(devprof.capture_device_profile(
+                    CAPTURE_S, out_dir=work, ready=ready, stop=stop)),
+                name="control-profile",
+            )
+            thread.start()
+            if not ready.wait(120.0):
+                thread.join()
+                raise AssertionError(f"control churn: the profiler did not start: {capture}")
+            capture["thread"], capture["stop"] = thread, stop
         recording[name] = (stack.enter_context(recorded_dispatches(keep=keep)), keep)
         phase1.launches = 0
 
@@ -1804,9 +1952,21 @@ def control_phase() -> dict:
         report["dispatches"] = len(shapes)
         if keep:
             first_inputs[name] = keep[0]
+        if name == "cold":
+            ready = plane.manager.health.readyz()
+            if not ready or not all(ready.values()):
+                raise AssertionError(f"control cold: readiness {ready}")
+            report["readiness_checks"] = len(ready)
+        if name == "churn":
+            capture.pop("stop").set()
+            capture.pop("thread").join()
 
     t0 = time.perf_counter()
-    reports = cpworld.run_rounds(plane, objects, clusters, on_round, after_round)
+    try:
+        reports = cpworld.run_rounds(plane, objects, clusters, on_round, after_round)
+        profile = read_capture("control churn", capture)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     card_s = time.perf_counter() - t0
     for name, report in reports.items():
         if counted[name] != report["phase1_launches"]:
@@ -1837,12 +1997,26 @@ def control_phase() -> dict:
     torch.cuda.empty_cache()
 
     # The CPU twin: the same rounds, the same controllers, the CPU engine.
+    side: dict = {}
+    if beside is not None:
+        def run_beside():
+            try:
+                side["result"] = beside()
+            except BaseException as e:  # re-raised on the main thread
+                side["error"] = e
+
+        side_thread = threading.Thread(target=run_beside, name="control-beside")
+        side_thread.start()
     t0 = time.perf_counter()
     twin = cpworld.ControlPlane(
         engine=SchedulerEngine(device="cpu", flight_recorder=flightrec.FlightRecorder())
     )
     twin_reports = cpworld.run_rounds(twin, objects, clusters)
     twin_s = time.perf_counter() - t0
+    if beside is not None:
+        side_thread.join()
+        if "error" in side:
+            raise side["error"]
     for name in cpworld.ROUNDS:
         diff = cpworld.digest_diff(reports[name]["digests"], twin_reports[name]["digests"])
         if diff:
@@ -1871,12 +2045,126 @@ def control_phase() -> dict:
         "estimated_capacity_held": migrate["estimated_capacity_held"],
         "gauges": migrate["controllers"]["gauges"],
         "ref_counts": migrate["controllers"]["ref_counts"],
+        "readiness_checks": reports["cold"]["readiness_checks"],
+        "profile": profile,
         "kernel": {k: {kk: v[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                    for k, v in kernel.items()},
     }
     log(f"control summary: {json.dumps(summary)}")
     return {"rounds": out, "summary": summary, "kernel": kernel,
-            "sync_launches": stage_launches["sync"], "stage_launches": stage_launches}
+            "sync_launches": stage_launches["sync"], "stage_launches": stage_launches,
+            "beside": side.get("result")}
+
+
+PROCESS_ARGS = (
+    "--port", "0", "--members", "3", "--create-crds-for-ftcs",
+    "--enable-profiling", "--profiling-port", "0",
+)
+PROCESS_ROUTES = (
+    "/livez", "/readyz", "/metrics", "/debug", "/debug/waterfall", "/debug/trace",
+)
+PROCESS_TIMEOUT_S = 60.0
+
+
+def process_phase() -> dict:
+    """``python -m kubeadmiral_tpu_torch`` (PROCESS_ARGS: the engine on
+    the card, leader election on) as a subprocess: its health and
+    profiling ports read from its own lines; 200 from every route of
+    PROCESS_ROUTES on the health port (``/metrics`` carrying ``engine_``
+    series within PROCESS_TIMEOUT_S: the prewarm's warm dispatch) and from ``/debug/profile?mode=device&seconds=1`` on the
+    profiling port (a capture with no error, written to a scratch
+    directory of the checkout removed afterwards); then SIGTERM, after
+    which it must exit 0 within PROCESS_TIMEOUT_S having printed
+    ``leadership released`` and ``shutdown: shed_writes=0``.  Prints a
+    ``process`` line: start-up, route and shutdown walls, the routes'
+    bytes, the ``engine_`` series count and the capture."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    work = tempfile.mkdtemp(prefix="_profile_", dir=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeadmiral_tpu_torch", *PROCESS_ARGS],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    lines: "queue.Queue[str]" = queue.Queue()
+    seen: list[str] = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=pump, name="process-output", daemon=True).start()
+
+    def wait_for(pattern: str, timeout: float) -> re.Match:
+        deadline = time.monotonic() + timeout
+        while True:
+            for line in seen:
+                found = re.search(pattern, line)
+                if found:
+                    return found
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(f"process: no line matching {pattern!r}: {seen[-20:]}")
+            seen.append(line)
+
+    def get(port: str, route: str) -> bytes:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=120) as resp:
+            if resp.status != 200:
+                raise AssertionError(f"process: {route} answered {resp.status}")
+            return resp.read()
+
+    try:
+        health = wait_for(r"health endpoints on :(\d+)", 300).group(1)
+        prof = wait_for(r"profiling endpoints on :(\d+)", 300).group(1)
+        wait_for(r"controller manager running", 300)
+        start_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        sizes = {route: len(get(health, route)) for route in PROCESS_ROUTES}
+        # The engine's series come with the prewarm thread's warm
+        # dispatch, which runs beside the first requests.
+        deadline = time.monotonic() + PROCESS_TIMEOUT_S
+        while True:
+            metrics = get(health, "/metrics").decode()
+            engine_series = sum(1 for line in metrics.splitlines() if line.startswith("engine_"))
+            if engine_series or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        if not engine_series:
+            raise AssertionError("process: /metrics carries no engine_ series")
+        capture = json.loads(get(prof, f"/debug/profile?mode=device&seconds=1&dir={work}"))
+        if "error" in capture or not capture.get("files"):
+            raise AssertionError(f"process: device profile {capture}")
+        routes_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=PROCESS_TIMEOUT_S)
+        stop_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"process: exit {rc} after SIGTERM: {seen[-20:]}")
+        for pattern in (r"leadership released", r"shutdown: shed_writes=0\b"):
+            wait_for(pattern, 10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    row = {
+        "args": list(PROCESS_ARGS), "start_s": start_s, "routes_s": routes_s,
+        "stop_s": stop_s, "route_bytes": sizes, "engine_series": engine_series,
+        "capture": {k: capture[k] for k in ("seconds", "wall_s", "files")},
+    }
+    log(f"process: {json.dumps(row)}")
+    return row
 
 
 def main() -> int:
@@ -1888,6 +2176,7 @@ def main() -> int:
     from kubeadmiral_tpu_torch.convert import to_device
     from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
     from kubeadmiral_tpu_torch.runtime import flightrec
+    from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
     from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.problems import (
@@ -1963,16 +2252,19 @@ def main() -> int:
     t0 = time.perf_counter()
     syncs = dispatch_syncs(worlds)
     log(f"phase syncs: {time.perf_counter() - t0:.2f} s")
+    overhead = ledger_overhead()
 
     ticks, dense_ticks, fallback_ticks = {}, {}, {}
     warm, slab_rows, depth_turns, surface = {}, {}, {}, {}
     for cfg in ("3", "5"):
         t0 = time.perf_counter()
         units, clusters, _ = worlds[cfg]
-        engine = SchedulerEngine()
+        # A dispatch ledger of its own: its records are this engine's.
+        engine = SchedulerEngine(devprof=DispatchLedger())
         tick = run_tick(f"c{cfg} narrow", engine, units, clusters)
         if tick["narrow_m"] is None:
             raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
+        tick["ledger"] = ledger_check(f"c{cfg} cold", engine, tick, tick["fallback_dispatches"])
         got = tick.pop("results")
         ticks[cfg] = tick
         if cfg == "5" and tick["fetch_bytes"] != C5_COLD_FETCH_BYTES:
@@ -2074,8 +2366,11 @@ def main() -> int:
     t0 = time.perf_counter()
     del worlds, units, clusters
     gc.collect()
-    control = control_phase()
-    log(f"phase control: {time.perf_counter() - t0:.2f} s")
+    # The process (python -m kubeadmiral_tpu_torch on the card) runs
+    # beside the control phase's CPU twin, while the card is idle.
+    control = control_phase(beside=process_phase)
+    process = control["beside"]
+    log(f"phase control and process: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
     kernels = {
@@ -2205,6 +2500,21 @@ def main() -> int:
                 "launches_control": {
                     name: row["phase1_launches"] for name, row in control["rounds"].items()
                 },
+                # The same rounds, counted on the path through the port's
+                # ControllerManager (its FTC watch starts the controllers,
+                # its step_all settles them).
+                "launches_control_manager": {
+                    name: row["phase1_launches"] for name, row in control["rounds"].items()
+                },
+                "profile_control_churn": control["summary"]["profile"]["kernel_events"],
+                # The dispatch ledger's records per kind on the step-7
+                # cold ticks (engines with ledgers of their own).
+                "ledger_cold": {
+                    f"c{cfg}": {k: v["n"] for k, v in ticks[cfg]["ledger"]["by_program"].items()}
+                    for cfg in ("3", "5")
+                },
+                "process_engine_series": process["engine_series"],
+                "ledger_us_per_observe": overhead["us_per_observe"],
                 "control_churn": {
                     key: control["kernel"]["churn"][key]
                     for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")

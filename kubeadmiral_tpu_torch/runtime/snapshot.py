@@ -60,6 +60,24 @@ SNAPSHOT_VERSION = 1
 _HEADER_FMT = "<Q"  # header-json byte length
 
 
+def shard_snapshot_store(
+    base_dir: str, shard, keep: int = 2, metrics=None
+) -> "SnapshotStore":
+    """A :class:`SnapshotStore` scoped to one shard of the sharded
+    control plane: ``<base_dir>/shard-<i>/``.  Each replica persists
+    only its own keys' working set, so a standby taking over shard i
+    restores shard i's artifact without ever seeing (or trusting)
+    another shard's planes.  The shard identity also rides in the
+    payload (see SnapshotManager ``shard=``) and is validated at
+    restore — directory layout is convenience, the payload guard is
+    the contract."""
+    return SnapshotStore(
+        os.path.join(base_dir, f"shard-{shard.shard_index}"),
+        keep=keep,
+        metrics=metrics,
+    )
+
+
 class SnapshotStore:
     """Atomic, CRC-guarded snapshot files in one directory."""
 
@@ -238,9 +256,16 @@ class SnapshotManager:
         breakers=None,
         flightrec="engine",
         watermark_fn: Optional[Callable[[], dict]] = None,
+        shard=None,
     ):
         self.engine = engine
         self.store = store
+        # Sharded control plane: when a ShardMap is supplied, every
+        # snapshot is keyed by (shard_count, shard_index, epoch) and
+        # restore REFUSES a mismatched artifact (cold boot instead) —
+        # a resize bumps the epoch, so planes captured under the old
+        # key→shard routing are never replayed into the new one.
+        self.shard = shard
         self.every = max(1, every)
         self.breakers = breakers
         self.flightrec = (
@@ -274,7 +299,7 @@ class SnapshotManager:
         payload = {
             "version": SNAPSHOT_VERSION,
             "engine": state,
-            "shard": None,
+            "shard": self._shard_key(),
             "watermarks": self.watermark_fn() if self.watermark_fn else None,
             "breakers": (
                 self.breakers.export_state() if self.breakers is not None else None
@@ -291,6 +316,15 @@ class SnapshotManager:
         self.last_result = "written"
         return path
 
+    def _shard_key(self) -> Optional[dict]:
+        if self.shard is None:
+            return None
+        return {
+            "shard_count": self.shard.shard_count,
+            "shard_index": self.shard.shard_index,
+            "epoch": self.shard.epoch,
+        }
+
     # -- restore ----------------------------------------------------------
     def restore(self, watermarks: Optional[dict] = None) -> str:
         """Stage the newest valid snapshot into the engine (consumed at
@@ -301,6 +335,18 @@ class SnapshotManager:
             self.last_result = "cold"
             return "cold"
         header, payload = loaded
+        want = self._shard_key()
+        if want is not None and payload.get("shard") != want:
+            # Wrong shard identity or a pre-resize epoch: the artifact's
+            # planes were captured under a different key→shard routing.
+            # Never stage it — cold boot.
+            self.store._count("shard_mismatch")
+            self.last_result = "cold"
+            log.warning(
+                "snapshot shard mismatch: artifact=%s replica=%s (cold boot)",
+                payload.get("shard"), want,
+            )
+            return "cold"
         if watermarks is None and self.watermark_fn is not None:
             watermarks = self.watermark_fn()
         snap_marks = payload.get("watermarks")

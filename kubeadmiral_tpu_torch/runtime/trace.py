@@ -8,16 +8,22 @@ for work handed to another thread (``Tracer.span_from``) and a bounded
 ring of completed spans.  Overhead per span is two ``perf_counter``
 calls and a deque append, so it stays on.
 
+The ring exports as Chrome trace-event JSON (``Tracer.chrome_trace``,
+served at ``GET /debug/trace`` by ``runtime/profiling.py``, which merges
+the dispatch ledger's device lanes in on the same :func:`epoch`).  The
+export carries ``otherData.wall_epoch``, the wall-clock instant of this
+process's epoch, so two processes' traces align on one timeline.
+
 Left out until the HTTP transport is ported, since nothing in process
-reaches them: the W3C traceparent propagation
-(``current_traceparent``, ``Tracer.server_span``) and the Chrome
-trace-event export served at ``GET /debug/trace``.  The JAX module's ``KT_TRACE_SAMPLE_N`` is
+reaches it: the W3C traceparent propagation (``current_traceparent``,
+``Tracer.server_span``).  The JAX module's ``KT_TRACE_SAMPLE_N`` is
 SAMPLE_N here, with its default.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -30,6 +36,24 @@ DEFAULT_RING = 16384
 # One epoch per process: span timestamps are seconds since this moment,
 # comparable across threads and tracers.
 _EPOCH = time.perf_counter()
+
+
+def epoch() -> float:
+    """The process trace epoch (a perf_counter reading): other
+    timestamp sources merging into the Chrome trace — the dispatch
+    ledger's device lanes (runtime/devprof.py) — subtract this so one
+    trace load shows host spans and device records on one timeline."""
+    return _EPOCH
+
+
+def wall_epoch() -> float:
+    """The wall-clock time (``time.time()``) of :func:`epoch` — the
+    per-process anchor that makes two processes' trace timestamps
+    comparable: ``wall = wall_epoch() + span.start``.  Recomputed from
+    the current clocks on each call (drift between the two clocks over
+    a process lifetime is far below the microsecond resolution of the
+    export)."""
+    return time.time() - (time.perf_counter() - _EPOCH)
 
 
 class Span:
@@ -119,6 +143,51 @@ class Tracer:
 
     def spans(self) -> list[Span]:
         return list(self._ring)
+
+    def chrome_trace(self) -> dict:
+        """The completed ring as Chrome trace-event JSON: one complete
+        ("X") event per span (ts/dur in microseconds), span/parent/trace
+        ids in args so nesting survives tools that ignore timing, plus
+        thread-name metadata events and the per-process wall-clock
+        anchor (``otherData.wall_epoch``)."""
+        pid = os.getpid()
+        events = []
+        threads: dict[int, str] = {}
+        for sp in self.spans():
+            threads.setdefault(sp.tid, sp.thread_name)
+            args = {"span_id": sp.span_id, "trace_id": sp.trace_id}
+            if sp.parent_id is not None:
+                args["parent_id"] = sp.parent_id
+            args.update(sp.args)
+            events.append(
+                {
+                    "name": sp.name,
+                    "ph": "X",
+                    "ts": round(sp.start * 1e6, 3),
+                    "dur": round(((sp.end or sp.start) - sp.start) * 1e6, 3),
+                    "pid": pid,
+                    "tid": sp.tid,
+                    "args": args,
+                }
+            )
+        for tid, tname in threads.items():
+            events.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": pid,
+                    "tid": tid,
+                    "args": {"name": tname},
+                }
+            )
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {"wall_epoch": wall_epoch(), "pid": pid},
+        }
+
+    def chrome_trace_json(self) -> str:
+        return json.dumps(self.chrome_trace())
 
 
 _default = Tracer()

@@ -52,7 +52,10 @@ same wire and cached beside the placements; a tick that wants scores
 takes no drift gate); ``follower_index`` (the follower union of
 ``ops/follower.py`` over the returned rows, recomputed for the followers
 of ``last_changed``); ``dirty_rows``; and it counts its ticks
-(``tick_seq``, ``last_tick_id``).  One tick runs at a time on an engine
+(``tick_seq``, ``last_tick_id``: the dispatch ledger's tick id).  Every
+device program it enqueues is observed in the dispatch ledger
+(``runtime/devprof.py``, ``devprof=``) under the JAX engine's program
+kinds.  One tick runs at a time on an engine
 (a lock).  The device is ``"cuda"`` unless the caller asks for the CPU;
 without CUDA the default raises instead of carrying on on the CPU.
 
@@ -103,7 +106,9 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     unpack_wire,
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
+from kubeadmiral_tpu_torch.runtime import devprof as devprof_mod
 from kubeadmiral_tpu_torch.runtime import flightrec as flightrec_mod
+from kubeadmiral_tpu_torch.runtime import trace
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics, null_metrics
 from kubeadmiral_tpu_torch.scheduler import compact as Cmp
 from kubeadmiral_tpu_torch.scheduler.compact import (
@@ -505,7 +510,7 @@ class SchedulerEngine:
     ("default": the process-wide one, None: no recording)."""
 
     def __init__(self, device="cuda", metrics: Optional[Metrics] = None,
-                 flight_recorder="default"):
+                 flight_recorder="default", devprof="default"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -599,14 +604,25 @@ class SchedulerEngine:
         # was still going after PLANNER_ROUNDS.
         self.pipeline_depth = PIPELINE_DEPTH
         self.planner_reruns = 0
-        # Ticks with units so far, and the last tick's id (the tick
-        # count: the port has no device profiler to issue other ids).
+        # Ticks with units so far, and the last tick's id: the dispatch
+        # ledger's tick id, shared by the waterfall, the trace span and
+        # the logs (the tick count when the ledger is off).
         self.tick_seq = 0
         self.last_tick_id = 0
+        # Dispatch ledger (runtime/devprof.py): every device program the
+        # engine enqueues is observed (devprof.observe), so per-tick waterfalls
+        # split the host stage timers into device time per program.
+        # "default" is the process-wide ledger behind GET
+        # /debug/waterfall; pass a DispatchLedger of its own, or None
+        # for a disabled one.
+        if devprof == "default":
+            devprof = devprof_mod.get_default()
+        self.devprof = devprof or devprof_mod.DispatchLedger(enabled=False)
         # Telemetry registry (runtime/metrics.py): per-tick stage
         # histograms and path counters, emitted from the host counters
         # above after each tick.
         self.metrics = metrics or null_metrics()
+        self.devprof.attach(self.metrics)
         # Rows featurized per path ("full": whole chunks, "delta":
         # patched rows), and stale device-input rows repaired per phase
         # ("churn": eagerly in the tick that made them stale, "drift":
@@ -651,18 +667,19 @@ class SchedulerEngine:
         wait: bool = False,
     ) -> threading.Thread:
         """Build the phase-1 kernel in a background thread, so the first
-        tick does not wait for nvcc; the JAX engine's signature (its
-        arguments pick XLA program shapes, which the port does not
-        compile).  Uploads nothing; on the CPU the thread does nothing.
-        A build failure is logged here, and the first tick's build then
-        raises."""
-        del n_objects, n_clusters, scalar_resources, key_len, policy_entries, webhooks
+        tick does not wait for nvcc, then run one warm dispatch at the
+        workload's geometry (``_warm_dispatch``); the JAX engine's
+        signature (its arguments pick the XLA program shapes its ladder
+        compiles; ``policy_entries`` and ``webhooks`` pick programs the
+        port does not compile).  On the CPU it builds nothing.  A
+        failure is logged here, and the first tick's build then raises."""
+        del policy_entries, webhooks
 
         def run():
-            if self.device.type != "cuda":
-                return
             try:
-                phase1_mod._library()
+                if self.device.type == "cuda":
+                    phase1_mod._library()
+                self._warm_dispatch(n_objects, n_clusters, scalar_resources, key_len)
             except Exception:
                 log.warning("engine prewarm failed", exc_info=True)
 
@@ -671,6 +688,58 @@ class SchedulerEngine:
         if wait:
             thread.join()
         return thread
+
+    def _warm_dispatch(self, n_objects: int, n_clusters: int,
+                       scalar_resources: Sequence[str] = (), key_len: int = 32) -> None:
+        """One chunk dispatch of a one-object warm world at the
+        workload's geometry (rows up to ``n_objects``, ``n_clusters``
+        clusters advertising ``scalar_resources``, a ``key_len`` key):
+        the JAX engine's prewarm ladder cut to the production program.
+        It loads the kernel module and warms the caching allocator, so
+        the first tick starts on a warm card.  Uses none of the engine's
+        caches or counters; its programs land in the dispatch ledger's
+        untracked ring."""
+        alloc = {"cpu": "8", "memory": "16Gi", **{r: "8" for r in scalar_resources}}
+        avail = {"cpu": "4", "memory": "8Gi", **{r: "4" for r in scalar_resources}}
+        gvk = "apps/v1/Deployment"
+        clusters = [
+            T.ClusterState(
+                name=f"warm-{j}", labels={}, taints=(),
+                allocatable=T.parse_resources(alloc),
+                available=T.parse_resources(avail),
+                api_resources=frozenset({gvk}),
+            )
+            for j in range(max(1, n_clusters))
+        ]
+        unit = T.SchedulingUnit(
+            gvk=gvk, namespace="prewarm",
+            name="prewarm".ljust(max(1, key_len - len("prewarm/")), "x"),
+            scheduling_mode=T.MODE_DIVIDE, desired_replicas=1,
+            resource_request=T.parse_resources(
+                {"cpu": "100m", **{r: "1" for r in scalar_resources}}
+            ),
+        )
+        view = _build_cluster_view(clusters, [unit])
+        vocab = CompactVocab(view)
+        c_bucket, eff_chunk, ladder = self._tick_geometry(len(clusters))
+        b_pad = self._bucket_rows(min(max(1, n_objects), eff_chunk), ladder, eff_chunk, False)
+        padded = self._pad_for_dispatch(
+            featurize_compact([unit], view, vocab), "compact", b_pad, c_bucket
+        )
+        host = {
+            **{n: np.asarray(getattr(padded, n)) for n in self._per_object_fields("compact")},
+            **Cmp.pad_tables(vocab.tables(), c_bucket),
+            **self._cluster_planes_host(view, c_bucket),
+        }
+        device_in = CompactInputs(**{k: tensor(v, self.device) for k, v in host.items()})
+        tick_in = expand_compact(device_in, self._key_max(padded, "compact"))
+        self.devprof.observe("tiebreak", tick_in.tiebreak)
+        m = self._narrow_m(padded, c_bucket)
+        if m is None:
+            self.devprof.observe("tick", schedule_tick(tick_in))
+        else:
+            self.devprof.observe("tick_narrow", schedule_tick_narrow(tick_in, m))
+        self._sync()
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
@@ -1059,19 +1128,23 @@ class SchedulerEngine:
         key = (id(view), c_bucket)
         if self._cluster_device is not None and self._cluster_device[0] == key:
             return self._cluster_device[2]
+        host = self._cluster_planes_host(view, c_bucket)
+        self.upload_bytes["cluster"] += sum(a.nbytes for a in host.values())
+        dev = {k: tensor(v, self.device) for k, v in host.items()}
+        # The view reference keeps id(view) stable for the key.
+        self._cluster_device = (key, view, dev)
+        return dev
+
+    @staticmethod
+    def _cluster_planes_host(view: ClusterView, c_bucket: int) -> dict:
         c = len(view.names)
-        host = {
+        return {
             "alloc": _pad_cluster_axis(view.alloc, c_bucket, 0),
             "used": _pad_cluster_axis(view.used, c_bucket, 0),
             "cpu_alloc": _pad_cluster_axis(view.cpu_alloc, c_bucket, 0),
             "cpu_avail": _pad_cluster_axis(view.cpu_avail, c_bucket, 0),
             "cluster_valid": _pad_cluster_axis(np.ones(c, bool), c_bucket, False),
         }
-        self.upload_bytes["cluster"] += sum(a.nbytes for a in host.values())
-        dev = {k: tensor(v, self.device) for k, v in host.items()}
-        # The view reference keeps id(view) stable for the key.
-        self._cluster_device = (key, view, dev)
-        return dev
 
     def _tables_device(self, vocab: CompactVocab, c_bucket: int) -> dict:
         """Device copies of the vocabulary tables, re-uploaded only when
@@ -1162,6 +1235,7 @@ class SchedulerEngine:
         dst = self._index(stale)
         for name, dev in entry.device_per_object.items():
             dev.index_copy_(0, dst, rows[name])
+        self.devprof.observe("patch", entry.device_per_object)
         entry.stale_rows = None
 
     def _sync(self) -> None:
@@ -1191,11 +1265,19 @@ class SchedulerEngine:
         keys (``_key_max``); ``budget`` is the planner's RoundBudget, if
         any.  The module-level tick functions are looked up at call time
         (chip_smoke counts them)."""
-        tick_in = expand_compact(device_in, key_max) if fmt == "compact" else device_in
+        if fmt == "compact":
+            tick_in = expand_compact(device_in, key_max)
+            self.devprof.observe("tiebreak", tick_in.tiebreak)
+        else:
+            tick_in = device_in
         if m is None:
-            return schedule_tick(tick_in, budget=budget), None
+            out = schedule_tick(tick_in, budget=budget)
+            self.devprof.observe("tick", out)
+            return out, None
         self.narrow_last_m = m
-        return schedule_tick_narrow(tick_in, m, budget=budget)
+        out, cert = schedule_tick_narrow(tick_in, m, budget=budget)
+        self.devprof.observe("tick_narrow", (out, cert))
+        return out, cert
 
     # -- the tick ----------------------------------------------------------
     def schedule(
@@ -1236,16 +1318,27 @@ class SchedulerEngine:
             if rec is not None:
                 rec.begin_tick(len(units), len(clusters))
             self.tick_seq += 1
-            self.last_tick_id = self.tick_seq
+            # One correlation id per tick, shared by the dispatch-ledger
+            # waterfall, the trace spans and the logs.
+            self.last_tick_id = self.devprof.begin_tick(
+                engine_tick=self.tick_seq,
+                objects=len(units),
+                clusters=len(clusters),
+            ) or self.tick_seq
             t_start = time.perf_counter()
             try:
-                results = self._schedule(
-                    units, clusters, view, webhook_eval, want_scores, follower_index,
-                    dirty_rows,
-                )
+                with trace.span(
+                    "engine.schedule", objects=len(units), clusters=len(clusters),
+                    tick=self.last_tick_id,
+                ):
+                    results = self._schedule(
+                        units, clusters, view, webhook_eval, want_scores, follower_index,
+                        dirty_rows,
+                    )
             finally:
                 if rec is not None:
                     rec.end_tick()
+                self.devprof.end_tick(self.timings)
             self._emit_tick_metrics(len(units), time.perf_counter() - t_start, before)
             if self.post_tick is not None:
                 # A persistence failure logs; it never fails the tick.
@@ -1998,9 +2091,11 @@ class SchedulerEngine:
             self.fetch_stats["delta"] += 1
             gidx = self._index(idx)
             wire = pack_wire(*(p.index_select(0, gidx) for p in _planes(it.out)), it.pack_k)
+            self.devprof.observe("pack", wire)
             wires.append((it, idx, wire))
         for it in full_items:
             wire = pack_wire(*(p[: it.n] for p in _planes(it.out)), it.pack_k)
+            self.devprof.observe("pack", wire)
             wires.append((it, None, wire))
         arrs = self._read_all([w[2] for w in wires])
         timings["fetch"] += time.perf_counter() - t0
@@ -2202,6 +2297,7 @@ class SchedulerEngine:
             )
         else:
             mask, new_cols = drift_gate_dense(entry.device_per_object, *args)
+        self.devprof.observe("gate", (mask, new_cols))
         return {
             "mask": self._start_read(mask),
             "new_cols": new_cols,
@@ -2260,9 +2356,11 @@ class SchedulerEngine:
                 m,
                 i32_keys=True,
             )
+            self.devprof.observe("survivor", (out, cert))
             wire = pack_wire(
                 out.selected, out.replicas, out.counted, out.scores, out.reasons, pack_k
             )
+            self.devprof.observe("pack", wire)
             self.survivor_stats["groups"] += 1
             self.survivor_stats["padded_rows"] += g
             self.dispatches_total += 1
@@ -2393,6 +2491,7 @@ class SchedulerEngine:
                         oldc["cpu_alloc"], oldc["cpu_avail"],
                         newc["cpu_alloc"], newc["cpu_avail"],
                     )
+                    self.devprof.observe("wcheck", flags)
                     wcheck_jobs.append((pi, np.asarray(seg), flags))
             jobs.extend(
                 self._dispatch_drift_survivors(
@@ -2498,8 +2597,10 @@ class SchedulerEngine:
             **{name: getattr(device_in, name)[idx] for name in self._per_object_fields(fmt)}
         )
         fb = schedule_tick(expand_compact(sub) if fmt == "compact" else sub)
+        self.devprof.observe("narrow_fallback", fb)
         for name in ("selected", "replicas", "counted", "reasons"):
             getattr(out, name)[idx] = getattr(fb, name)
+        self.devprof.observe("repair", out.reasons)
         self._sync()
         timings["narrow_fallback"] += time.perf_counter() - t0
         return out, rows
@@ -2645,7 +2746,9 @@ class SchedulerEngine:
         for n, out in slabs:
             t2 = time.perf_counter()
             planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
-            packed = unpack_wire(self._read_np(pack_wire(*(p[:n] for p in planes), pack_k)), pack_k)
+            wire = pack_wire(*(p[:n] for p in planes), pack_k)
+            self.devprof.observe("pack", wire)
+            packed = unpack_wire(self._read_np(wire), pack_k)
             nsel_all.append(packed.nsel)
             if rec is not None:
                 rec_parts.append(
@@ -2809,6 +2912,7 @@ class SchedulerEngine:
         nfeas.index_copy_(
             0, dst, (out.feasible.index_select(0, src) != 0).sum(dim=1, dtype=torch.int32)
         )
+        self.devprof.observe("repair", nfeas)
 
     def _store_prev(self, entry, out) -> None:
         """Adopt a dispatch's six output planes as the entry's prev state,
@@ -2939,6 +3043,7 @@ class SchedulerEngine:
                 ))
             else:
                 gathers.append(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
+            self.devprof.observe("overflow", gathers[-1])
         arrs = self._read_all(gathers)
         timings["overflow_fetch"] += time.perf_counter() - t0
         return [

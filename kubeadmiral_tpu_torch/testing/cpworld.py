@@ -9,29 +9,34 @@ mode; the OverridePolicy ``op``, which adds the annotation
 Deployments ``web-00000…`` with ``(i % 20) + 1`` replicas of 50m cpu,
 labelled with both policies.
 
-:class:`ControlPlane` runs the controller set of the JAX manager
-(``runtime/manager.py:_start_ftc``), not the bench's five-controller
-subset: it is what a deployment runs, and it puts every controller of
-the control plane to work at scale.  Three FederatedTypeConfigs with
-their default pipelines: ``deployments.apps`` (scheduler → override →
+:class:`ControlPlane` runs the port's controller manager
+(``runtime/manager.py:ControllerManager``), not the bench's
+five-controller subset: it is what a deployment runs, and it puts every
+controller of the control plane to work at scale.  The plane writes
+three FederatedTypeConfig objects to the host store and the manager's
+FTC watch starts each one's controller set (``_start_ftc``), with their
+default pipelines: ``deployments.apps`` (scheduler → override →
 follower; federate, scheduler, override, sync, policyrc, status, status
 aggregator and auto-migration), ``configmaps`` (scheduler → override;
 federate, scheduler, override, sync, policyrc: no policy binds the
 ConfigMaps, so the scheduler leaves their placement empty and the
 follower places them) and ``namespaces`` (nsautoprop → override;
-federate, nsautoprop, override, sync, policyrc); one engine shared by
-the schedulers, as the manager shares it; the always-on follower
-controller over all three; and a monitor per FTC (off by default in the
-manager, on here as a round check).  The ``deployments.apps`` monitor
+federate, nsautoprop, override, sync, policyrc); the manager's one
+engine shared by the schedulers; its always-on cluster controller (on a
+frozen clock) and follower controller over all three; and a monitor per
+FTC (off by default in the manager, so the plane keeps its own, as a
+round check).  The ``deployments.apps`` monitor
 has the fleet, for placement drift; the others run host-only, as the
 manager builds them: drift is measured against the scheduler's
 placement, and every member object of an FTC the scheduler does not
-place would read as an orphan.  Auto-migration reads a
+place would read as an orphan.  Auto-migration reads the manager's
 :class:`PodInformer` and a fixed clock (``ControlPlane.now``), so two
-planes fed the same rounds decide alike.  The sync controllers write
-each placed object to its member clusters inline (an in-process fleet),
-in submission order.  The plane settles as the bench's ``StageTimer``
-does, timing each controller kind.
+planes fed the same rounds decide alike: the manager builds it on
+``time.time``, so the plane swaps in a controller on its clock through
+the manager's ``_teardown`` and its ``_ftcs`` table.  The sync
+controllers write each placed object to its member clusters inline (an
+in-process fleet), in submission order.  The plane settles through the
+manager's ``step_all``, timing each controller kind (:class:`StageTimer`).
 
 :func:`run_rounds` drives seven rounds and checks each:
 
@@ -98,32 +103,22 @@ from kubeadmiral_tpu_torch.federation.clusterctl import (
     JOINED,
     NODES,
     READY,
-    FederatedClusterController,
     get_condition,
 )
-from kubeadmiral_tpu_torch.federation.federate import FederateController
-from kubeadmiral_tpu_torch.federation.follower import FollowerController
 from kubeadmiral_tpu_torch.federation.monitor import (
     DEFAULT_INTERVAL_SECONDS,
     DRIFT_KINDS,
     MonitorController,
 )
-from kubeadmiral_tpu_torch.federation.nsautoprop import NamespaceAutoPropagationController
 from kubeadmiral_tpu_torch.federation.overridectl import (
     OVERRIDE_POLICIES,
     OVERRIDE_POLICY_NAME_LABEL,
-    OverrideController,
 )
-from kubeadmiral_tpu_torch.federation.policyrc import PolicyRCController
-from kubeadmiral_tpu_torch.federation.schedulerctl import SchedulerController
-from kubeadmiral_tpu_torch.federation.statusctl import StatusAggregator, StatusController
-from kubeadmiral_tpu_torch.federation.sync import SyncController
-from kubeadmiral_tpu_torch.models.ftc import default_ftcs
+from kubeadmiral_tpu_torch.models.ftc import FEDERATED_TYPE_CONFIGS, default_ftcs, ftc_to_object
 from kubeadmiral_tpu_torch.models.policy import PROPAGATION_POLICIES, PROPAGATION_POLICY_LABEL
 from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+from kubeadmiral_tpu_torch.runtime.manager import ControllerManager
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics, series_key
-from kubeadmiral_tpu_torch.runtime.podinformer import PodInformer
-from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 from kubeadmiral_tpu_torch.testing.fakekube import ClusterFleet
 
 GVK = "apps/v1/Deployment"
@@ -391,48 +386,60 @@ def workers_of(ctl) -> list:
     return out
 
 
-class StageTimer:
-    """Each controller's workers stepped with cumulative timing: the
-    in-process settle of ``bench_e2e.py:StageTimer``; controllers that
-    share a name share its timer."""
+# The manager's controller names -> this world's stage keys (the report
+# keys since the world ran its own copy of the manager's set).
+STAGE_OF = {"scheduler": "schedule", "statusaggregator": "statusagg"}
 
-    def __init__(self, named_controllers):
+
+class StageTimer:
+    """The manager's ``step_all`` with each controller's steps timed by
+    kind: the in-process settle of ``bench_e2e.py:StageTimer``; the
+    controllers of one kind share its timer.  The steps the manager
+    calls (a controller's ``step_all``, else its worker's ``step``) are
+    wrapped in place, so the manager itself drives them."""
+
+    def __init__(self, manager, named_controllers):
+        self.manager = manager
         self.stages = {name: 0.0 for name, _ in named_controllers}
         self.controllers = named_controllers
+        for name, ctl in named_controllers:
+            if getattr(ctl, "step_all", None) is not None:
+                ctl.step_all = self._timed(name, ctl.step_all)
+            else:
+                ctl.worker.step = self._timed(name, ctl.worker.step)
+
+    def _timed(self, name: str, step):
+        def timed():
+            t0 = time.perf_counter()
+            try:
+                return step()
+            finally:
+                self.stages[name] += time.perf_counter() - t0
+        return timed
 
     def settle(self, max_rounds: int = 10_000) -> None:
         for _ in range(max_rounds):
-            progressed = False
-            for name, ctl in self.controllers:
-                t0 = time.perf_counter()
-                for worker in workers_of(ctl):
-                    stepped = True
-                    # Drain this worker fully before moving on: batch
-                    # controllers amortize best over a full queue.
-                    while stepped:
-                        stepped = worker.step()
-                        progressed |= stepped
-                self.stages[name] += time.perf_counter() - t0
-            if not progressed:
-                # Keys pending but not yet due within a short fuse
-                # (admission delays) are waited out; long-fuse requeues
-                # (heartbeats, auto-migration's threshold) read as idle.
-                dues = [
-                    d
-                    for _, ctl in self.controllers
-                    for worker in workers_of(ctl)
-                    for d in (worker.queue.next_due_in(),)
-                    if d is not None and d <= 0.25
-                ]
-                if not dues:
-                    return
-                time.sleep(min(dues) + 0.002)
+            if self.manager.step_all():
+                continue
+            # Keys pending but not yet due within a short fuse
+            # (admission delays) are waited out; long-fuse requeues
+            # (heartbeats, auto-migration's threshold) read as idle.
+            dues = [
+                d
+                for _, ctl in self.controllers
+                for worker in workers_of(ctl)
+                for d in (worker.queue.next_due_in(),)
+                if d is not None and d <= 0.25
+            ]
+            if not dues:
+                return
+            time.sleep(min(dues) + 0.002)
         raise RuntimeError(f"controllers did not settle in {max_rounds} rounds")
 
 
 class ControlPlane:
-    """A fleet and the JAX manager's controllers for three FTCs over
-    ``engine`` (``None``: the scheduler's default engine, on the card)."""
+    """A fleet and the port's controller manager for three FTCs over
+    ``engine`` (``None``: the manager's default engine, on the card)."""
 
     def __init__(self, engine=None):
         self.fleet = ClusterFleet()
@@ -444,47 +451,44 @@ class ControlPlane:
         # only by the rounds, so two planes decide alike.
         self.now = [0.0]
         self.monitor_now = [0.0]
-        self.pod_informer = PodInformer(self.fleet)
         m = self.metrics
         # The cluster controller's clock is frozen, as the package
         # tests' are: its 10 s heartbeat is a timer, and one falling due
         # mid-round would make the round's writes depend on the wall
         # clock (round 7's running Pods change their members' available
-        # cpu).  Joins are event-driven and need no tick.
-        named = [("cluster", FederatedClusterController(
-            self.fleet, metrics=m, api_resource_probe=[GVK], clock=lambda: 0.0))]
-        # One engine for every FTC's scheduler, as the manager shares it.
-        self.engine = engine if engine is not None else SchedulerEngine(metrics=m)
-        self.controllers: dict[str, dict[str, object]] = {}
-        self.monitors: list[MonitorController] = []
+        # cpu).  Joins are event-driven and need no tick.  Only
+        # arguments both packages' managers take.
+        self.manager = ControllerManager(
+            self.fleet,
+            metrics=m,
+            engine=engine,
+            cluster_controller_kwargs={"api_resource_probe": [GVK], "clock": lambda: 0.0},
+        )
+        # One engine for every FTC's scheduler: the manager's.
+        self.engine = self.manager.engine
+        self.pod_informer = self.manager.pod_informer
         for ftc in self.ftcs.values():
-            # runtime/manager.py:_start_ftc, in its order.
-            pipeline = {c for group in ftc.controllers for c in group}
-            ctls: dict[str, object] = {"federate": FederateController(self.host, ftc, metrics=m)}
-            if C.SCHEDULER in pipeline:
-                ctls["schedule"] = SchedulerController(
-                    self.host, ftc, engine=self.engine, metrics=m
-                )
-            if C.OVERRIDE_CONTROLLER in pipeline:
-                ctls["override"] = OverrideController(self.host, ftc, metrics=m)
-            if NamespaceAutoPropagationController.name in pipeline:
-                ctls["nsautoprop"] = NamespaceAutoPropagationController(self.host, ftc, metrics=m)
-            ctls["sync"] = SyncController(self.fleet, ftc, metrics=m)
-            ctls["policyrc"] = PolicyRCController(self.host, ftc, metrics=m)
-            if ftc.status_collection and ftc.status is not None:
-                ctls["status"] = StatusController(self.fleet, ftc, metrics=m)
-            if ftc.status_aggregation:
-                ctls["statusagg"] = StatusAggregator(self.fleet, ftc, metrics=m)
-            if ftc.auto_migration:
-                ctls["automigration"] = AutoMigrationController(
+            self.host.create(FEDERATED_TYPE_CONFIGS, ftc_to_object(ftc))
+        self.controllers: dict[str, dict[str, object]] = {}
+        named = [("cluster", self.manager.always_on["cluster"])]
+        for ftc in self.ftcs.values():
+            runtime = self.manager._ftcs[ftc.name]
+            old = runtime.controllers.get("automigration")
+            if old is not None:
+                # The manager's auto-migration runs on time.time: swap
+                # in one on the plane's clock.
+                self.manager._teardown(old)
+                runtime.controllers["automigration"] = AutoMigrationController(
                     self.fleet, ftc, metrics=m, clock=lambda: self.now[0],
                     pod_informer=self.pod_informer,
                 )
+            ctls = {STAGE_OF.get(k, k): c for k, c in runtime.controllers.items()}
             self.controllers[ftc.name] = ctls
             named += list(ctls.items())
-        self.follower = FollowerController(self.host, list(self.ftcs.values()), metrics=m)
+        self.follower = self.manager._follower
         named.append(("follower", self.follower))
         self.scheduler = self.controllers[self.ftc.name]["schedule"]
+        self.monitors: list[MonitorController] = []
         for ftc in self.ftcs.values():
             # Drift is measured against the scheduler's placement, which
             # only the Deployments have: the other FTCs get the
@@ -495,7 +499,7 @@ class ControlPlane:
                 flight_recorder=self.engine.flightrec,
             ))
         self.sync = self.controllers[self.ftc.name]["sync"]
-        self.timer = StageTimer(named)
+        self.timer = StageTimer(self.manager, named)
         self.timer.stages["monitor"] = 0.0
         # Member ops by verb, through the members' bulk write path.
         self.member_ops: dict[str, int] = {}

@@ -7,8 +7,11 @@
   control plane's copies, and no port file reads an environment
   variable.
 * ``SchedulerEngine()`` (default device "cuda") raises without CUDA,
-  and so does ``SchedulerController(host, ftc)``, which builds it, and
-  a ``StreamingScheduler`` over it: nothing catches the error.
+  and so does ``SchedulerController(host, ftc)``, which builds it, a
+  ``StreamingScheduler`` over it and ``ControllerManager(fleet)``:
+  nothing catches the error.
+* ``SchedulerEngine(devprof="default")`` engines share the process
+  dispatch ledger; ``devprof=None`` gives a disabled one.
 * ``phase1`` on CPU tensors runs the plain version and never touches
   the kernel build; its launch counter stays 0.
 """
@@ -115,6 +118,24 @@ def test_scan_covers_control_plane():
         assert rel in PORT_FILES, rel
 
 
+def test_scan_covers_the_process():
+    for rel in (
+        "kubeadmiral_tpu_torch/__main__.py",
+        "kubeadmiral_tpu_torch/runtime/devprof.py",
+        "kubeadmiral_tpu_torch/runtime/manager.py",
+        "kubeadmiral_tpu_torch/runtime/healthcheck.py",
+        "kubeadmiral_tpu_torch/runtime/leaderelection.py",
+        "kubeadmiral_tpu_torch/runtime/logconf.py",
+        "kubeadmiral_tpu_torch/runtime/gctune.py",
+        "kubeadmiral_tpu_torch/runtime/profiling.py",
+        "kubeadmiral_tpu_torch/runtime/timeline.py",
+        "kubeadmiral_tpu_torch/runtime/telespill.py",
+        "kubeadmiral_tpu_torch/runtime/fleetscrape.py",
+        "kubeadmiral_tpu_torch/models/crds.py",
+    ):
+        assert rel in PORT_FILES, rel
+
+
 def _reads_environment(path: Path) -> list[int]:
     """Lines reading os.environ / os.getenv / os.putenv."""
     return sorted(
@@ -184,6 +205,32 @@ def test_streaming_scheduler_default_engine_raises_without_cuda():
         StreamingScheduler(SchedulerEngine(), clusters, units)
     stream = StreamingScheduler(SchedulerEngine(device="cpu"), clusters, units)
     assert len(stream.flush()) == len(units)
+
+
+def test_controller_manager_default_engine_raises_without_cuda():
+    """``ControllerManager(fleet)`` builds the port's default engine, on
+    the card: without CUDA it raises, and nothing catches it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default engine is valid here")
+    from kubeadmiral_tpu_torch.runtime.manager import ControllerManager
+    from kubeadmiral_tpu_torch.testing.fakekube import ClusterFleet
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ControllerManager(ClusterFleet())
+    manager = ControllerManager(ClusterFleet(), engine=SchedulerEngine(device="cpu"))
+    assert manager.engine.device.type == "cpu"
+
+
+def test_default_ledger_is_shared():
+    from kubeadmiral_tpu_torch.runtime import devprof
+
+    a, b = SchedulerEngine(device="cpu"), SchedulerEngine(device="cpu", devprof="default")
+    assert a.devprof is b.devprof is devprof.get_default()
+    assert a.devprof.enabled
+    off = SchedulerEngine(device="cpu", devprof=None)
+    assert off.devprof is not devprof.get_default() and not off.devprof.enabled
+    own = devprof.DispatchLedger()
+    assert SchedulerEngine(device="cpu", devprof=own).devprof is own
 
 
 def test_kernel_wrapper_checks_each_plane():

@@ -48,9 +48,11 @@ from test_e2e_slice import make_deployment, make_node
 from test_webhook import FakeClient
 
 from kubeadmiral_tpu.runtime import slo as jax_slo
+from kubeadmiral_tpu.runtime.devprof import DispatchLedger as JaxLedger
 from kubeadmiral_tpu.runtime.flightrec import FlightRecorder as JaxRecorder
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
 from kubeadmiral_tpu_torch.runtime import slo as port_slo
+from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
 from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 from kubeadmiral_tpu_torch.testing.cpworld import WALL_CLOCK_FIELDS
@@ -220,11 +222,15 @@ class Pair:
         monkeypatch.setenv("KT_PIPELINE_DEPTH", str(depth))
         jax_slo.reset_default()
         port_slo.reset_default()
+        # Each engine its own dispatch ledger: the tick ids the spans
+        # carry are then each engine's tick count.
         ref = JaxEngine(
-            mesh=None, devprof=None,
+            mesh=None, devprof=JaxLedger(enabled=True),
             flight_recorder=JaxRecorder(max_ticks=8, max_bytes=256 << 20, topk=8, enabled=True),
         )
-        port = SchedulerEngine(device="cpu", flight_recorder=FlightRecorder())
+        port = SchedulerEngine(
+            device="cpu", flight_recorder=FlightRecorder(), devprof=DispatchLedger()
+        )
         port.pipeline_depth = depth
         self.jax = Side("kubeadmiral_tpu", ref, **side_kw)
         self.port = Side("kubeadmiral_tpu_torch", port, **side_kw)
@@ -628,8 +634,9 @@ class TestWebhookScheduling:
 
 def test_trace_spans_carry_the_same_tick_ids(monkeypatch):
     """The scheduler reads ``last_tick_id`` through getattr onto its
-    engine-tick and persist spans: the port's (``tick_seq``) equals the
-    JAX engine's (no device profiler: its tick count too) on every span."""
+    engine-tick and persist spans: with a dispatch ledger of its own per
+    engine, the port's (its ledger's tick id) equals the JAX engine's on
+    every span."""
     from kubeadmiral_tpu.runtime import trace as jax_trace
     from kubeadmiral_tpu_torch.runtime import trace as port_trace
 
@@ -739,13 +746,15 @@ def seven_rounds(monkeypatch, package: str, depth: int) -> dict:
             point_cpworld_at_jax(mp, cpworld)
             mp.setenv("KT_PIPELINE_DEPTH", str(depth))
             engine = JaxEngine(
-                mesh=None, devprof=None,
+                mesh=None, devprof=JaxLedger(enabled=True),
                 flight_recorder=JaxRecorder(max_ticks=8, max_bytes=256 << 20, topk=8,
                                             enabled=True),
             )
             slo_mod = jax_slo
         else:
-            engine = SchedulerEngine(device="cpu", flight_recorder=FlightRecorder())
+            engine = SchedulerEngine(
+                device="cpu", flight_recorder=FlightRecorder(), devprof=DispatchLedger()
+            )
             engine.pipeline_depth = depth
             slo_mod = port_slo
         plane = cpworld.ControlPlane(engine=engine)

@@ -55,13 +55,14 @@ ENV_CONSTANTS = {
 
 class ConstantsPatch:
     """A ``monkeypatch`` whose ``setenv`` of a JAX knob sets the port's
-    constant instead."""
+    constant instead (``constants``: knob -> (module, name, convert))."""
 
-    def __init__(self, mp):
+    def __init__(self, mp, constants=None):
         self._mp = mp
+        self._constants = ENV_CONSTANTS if constants is None else constants
 
     def setenv(self, name, value, prepend=None):
-        module, attr, convert = ENV_CONSTANTS[name]
+        module, attr, convert = self._constants[name]
         self._mp.setattr(module, attr, convert(value))
 
     def __getattr__(self, item):

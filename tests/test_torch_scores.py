@@ -29,7 +29,9 @@ from test_engine_cache import make_world
 from test_engine_vs_sequential import random_cluster, random_unit
 from test_torch_engine import _port
 
+from kubeadmiral_tpu.runtime.devprof import DispatchLedger as JaxLedger
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
+from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 
 COUNTERS = ("cache_stats", "fetch_stats", "drift_stats", "narrow_stats")
@@ -263,6 +265,11 @@ def test_schedule_signature_matches_jax():
 def test_tick_seq_advances_once_per_tick_with_units(monkeypatch):
     units, clusters = make_world(b=24, c=6)
     pair = Pair(monkeypatch, chunk_size=32, min_bucket=8)
+    # Each engine its own dispatch ledger: the tick ids are then each
+    # engine's tick count.
+    pair.ref = JaxEngine(mesh=None, flight_recorder=None, devprof=JaxLedger(enabled=True),
+                         chunk_size=32, min_bucket=8)
+    pair.port.devprof = DispatchLedger()
     for batch, kw in (
         (units, {}), (units, {}), ([], {}), (units, {"want_scores": True}),
         (units[:5], {"webhook_eval": lambda su, cls: None}), (list(units), {}),
@@ -270,7 +277,7 @@ def test_tick_seq_advances_once_per_tick_with_units(monkeypatch):
         pair.port.schedule(batch, clusters, **kw)
         pair.ref.schedule(batch, clusters, **kw)
         assert pair.port.tick_seq == pair.ref.tick_seq
-        assert pair.port.last_tick_id == pair.port.tick_seq
+        assert pair.port.last_tick_id == pair.ref.last_tick_id == pair.port.tick_seq
     assert pair.port.tick_seq == 5
 
 

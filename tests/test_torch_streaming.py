@@ -30,12 +30,14 @@ from test_torch_engine import _port
 
 from kubeadmiral_tpu.ops.follower import FollowerIndex as JaxFollowerIndex
 from kubeadmiral_tpu.runtime import tenancy as jax_tenancy
+from kubeadmiral_tpu.runtime.devprof import DispatchLedger as JaxLedger
 from kubeadmiral_tpu.runtime.flightrec import FlightRecorder as JaxRecorder
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
 from kubeadmiral_tpu.scheduler.streaming import StreamingScheduler as JaxStreamingScheduler
 from kubeadmiral_tpu_torch.models import types as port_types
 from kubeadmiral_tpu_torch.ops.follower import FollowerIndex
 from kubeadmiral_tpu_torch.runtime import tenancy
+from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
 from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler import streaming
@@ -61,8 +63,11 @@ def to_port(x):
 
 def _engines(monkeypatch, depth, port_rec=None, ref_rec=None):
     monkeypatch.setenv("KT_PIPELINE_DEPTH", str(depth))
-    ref = JaxEngine(mesh=None, flight_recorder=ref_rec, devprof=None, **KW)
+    # Each engine its own dispatch ledger: its tick ids are then the
+    # engine's tick count.
+    ref = JaxEngine(mesh=None, flight_recorder=ref_rec, devprof=JaxLedger(enabled=True), **KW)
     port = _port(monkeypatch, **KW)
+    port.devprof = DispatchLedger()
     port.flightrec = port_rec
     port.pipeline_depth = depth
     return port, ref
@@ -173,7 +178,7 @@ def test_randomized_event_log_matches_jax_and_stop_the_world(monkeypatch, depth)
         assert mine.units == to_port(theirs.units)
         assert mine.clusters == to_port(theirs.clusters)
         assert port.tick_seq == ref.tick_seq == mine._last_engine_tick
-        assert port.last_tick_id == port.tick_seq
+        assert port.last_tick_id == ref.last_tick_id == port.tick_seq
         oracle_rec = FlightRecorder(max_ticks=2, max_bytes=1 << 26)
         oracle = _port(monkeypatch, **KW)
         oracle.flightrec = oracle_rec
