@@ -47,11 +47,12 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    placements against the port's CPU engine (every row at c3; the first
    rows at c5);
 7b. the window against the sequential dispatch in turns per config: cold
-   ticks on fresh engines at depth 16, 1, 1, 16, each checked as in 7
+   ticks on fresh engines at depth 16, 1, 1, 16 (c5 cut to its first
+   C5_BUDGET_OBJECTS objects), each checked as in 7
    and equal to 7's placements (a ``turns c5 depth`` line: wall ms,
    stages, launches, peak memory, dispatch syncs, fetch bytes per tick);
    then cold ticks at depth 16 with the planner's round budget
-   (``PLANNER_ROUNDS``) at 1, 2, 2, 1 (c5 cut to its first
+   (``PLANNER_ROUNDS``) at 1, 2, 2, 1 (c5: 1, 2, over its first
    C5_BUDGET_OBJECTS objects), each checked as in 7 and
    equal to 7's placements (a ``turns c5 planner rounds`` line: wall,
    device and device + fetch ms, re-dispatches, syncs); the ``syncs``
@@ -180,12 +181,46 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    the card is idle): ``python -m kubeadmiral_tpu_torch`` on the card as
    a subprocess, its health, metrics, debug, waterfall, trace and
    device-profile routes answering 200, then SIGTERM: exit 0 with
-   leadership released and no write shed;
+   leadership released and no write shed; then the process over HTTP
+   (``process_http_phase``): ``--transport http --members 3`` on the
+   card, its three members Joined and Ready as the host apiserver's
+   socket reads, a Deployment and its PropagationPolicy created through
+   that socket, the divided copies read back from the member sockets
+   with the printed admin tokens, then SIGTERM: exit 0, no write shed;
+10d. the HTTP phase: ``http_world`` runs in a subprocess of its own
+   (``python3 chip_smoke.py --http-world DIR``) from the tick loop on,
+   beside steps 7-10c: ``testing/cpworld.py``'s world at HTTP_SHAPE
+   (1,000 Deployments x 20 members, ``BENCH_E2E_HTTP_r06.json``'s
+   size) over a kwok-lite farm of apiserver sockets, the port's
+   ControllerManager with its default engine on the card, through the
+   join, cold, churn, no-op, topology and partition rounds, each
+   checked as cpworld checks it, with the launches per round (counts
+   set to 0 before, read after), dispatch shapes, requests by verb,
+   watch events, reconnects and relists, member writes, sheds, retries,
+   breaker opens and a fleet scrape of every member; after the control
+   phase (``http_phase_finish``) the same rounds over an in-memory
+   ``ClusterFleet`` and the CPU engine, every round's stores equal under
+   ``cpworld.transport_masked``, and the kernel against its twin on the
+   cold round's first dispatch, timed with its bound; ``http <round>``
+   lines and an ``http summary``;
+10e. the extension stage (``extension_stage``): the port's
+   ``ExtensionService`` on a socket serving ``testing/worlds.py``'s
+   seeded webhook as filter-batch and score-batch handlers, a
+   ``want_scores`` tick on the card over the HTTP world's 1,000
+   Deployments and 20 clusters through the scheduler's webhook
+   evaluator: results and scores equal the in-process stand-in's tick,
+   one POST per plugin; an ``extension`` line;
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
-Any failed check exits nonzero without the final line.  Without CUDA it
-exits 2 before doing anything.  Usage: ``python3 chip_smoke.py``.
+Any failed check exits nonzero without the final line, and every
+subprocess it started is stopped.  Without CUDA it exits 2 before doing
+anything.  Usage: ``python3 chip_smoke.py``.
+
+Two phases are cut to make room for the HTTP phase within the time
+limit: c5's depth turns run over its first C5_BUDGET_OBJECTS objects
+(as its budget turns), and c5's budget turns run C5_TURN_BUDGETS (1, 2)
+(c3 keeps TURN_BUDGETS).
 """
 
 from __future__ import annotations
@@ -214,7 +249,7 @@ CONV_OPS_PER_S = 67e12 / 16
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
 C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
 C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
-C5_BUDGET_OBJECTS = 50000  # c5 depth of the planner-round budget turns
+C5_BUDGET_OBJECTS = 50000  # c5 depth of the depth turns and the planner-round budget turns
 FALLBACK_OBJECTS = 4096    # depth of the forced-fallback run (one chunk)
 FALLBACK_NARROW_M = 8      # M = 32 over maxClusters <= 19: many rows fail the cert
 
@@ -976,13 +1011,16 @@ def turns_depth(cfg: str, units, clusters, got) -> dict:
     return arms
 
 
-# The window's planner round budget in turns (fresh engines, depth 16).
+# The window's planner round budget in turns (fresh engines, depth 16);
+# c5 runs the first two turns only (C5_TURN_BUDGETS), to make room in
+# the time limit for the HTTP phase.
 TURN_BUDGETS = (1, 2, 2, 1)
+C5_TURN_BUDGETS = (1, 2)
 
 
-def turns_budget(cfg: str, units, clusters, got) -> dict:
+def turns_budget(cfg: str, units, clusters, got, budgets=TURN_BUDGETS) -> dict:
     """Cold ticks at the default depth on fresh engines with the
-    engine's PLANNER_ROUNDS patched to TURN_BUDGETS, each checked as
+    engine's PLANNER_ROUNDS patched to ``budgets``, each checked as
     run_tick checks and equal to ``got``; logs and returns per budget
     the wall ms, the device (queuing) and device + fetch ms, planner
     re-dispatches and dispatch syncs."""
@@ -993,7 +1031,7 @@ def turns_budget(cfg: str, units, clusters, got) -> dict:
     saved = engine_mod.PLANNER_ROUNDS
     arms: dict = {}
     try:
-        for turn, rounds in enumerate(TURN_BUDGETS):
+        for turn, rounds in enumerate(budgets):
             engine_mod.PLANNER_ROUNDS = rounds
             engine = engine_mod.SchedulerEngine()
             label = f"c{cfg} planner rounds {rounds}, turn {turn}"
@@ -1013,7 +1051,7 @@ def turns_budget(cfg: str, units, clusters, got) -> dict:
             torch.cuda.empty_cache()
     finally:
         engine_mod.PLANNER_ROUNDS = saved
-    log(f"turns c{cfg} planner rounds {TURN_BUDGETS}: {json.dumps(arms)}")
+    log(f"turns c{cfg} planner rounds {tuple(budgets)}: {json.dumps(arms)}")
     return arms
 
 
@@ -2167,6 +2205,486 @@ def process_phase() -> dict:
     return row
 
 
+# The HTTP transport: BENCH_E2E_HTTP_r06.json's 1,000 Deployments over 20
+# member apiservers (e2e_objects_per_sec_1000x20_http, in-process farm).
+HTTP_SHAPE = (1000, 20)
+HTTP_TIMEOUT_S = 300.0  # the wait for it after the control phase
+
+
+def _watch_counts(clients) -> dict:
+    """Events dispatched, reconnect backoffs slept and 410 relists over
+    every watch stream of ``clients``."""
+    out = {"watch_events": 0, "reconnects": 0, "relists": 0}
+    for client in clients:
+        for mux in list(client._mux.values()):
+            out["watch_events"] += mux.events
+            out["reconnects"] += len(mux.reconnect_delays)
+            out["relists"] += mux.relists
+    return out
+
+
+def _requests_by_verb(servers) -> dict:
+    out: dict[str, int] = {}
+    for server in servers:
+        for labels, n in server.metrics.counter_family("apiserver_requests_total").items():
+            verb = dict(labels).get("verb", "")
+            out[verb] = out.get(verb, 0) + int(n)
+    return out
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in sorted(after.items()) if v - before.get(k, 0)}
+
+
+def http_world(out_dir: str) -> int:
+    """The HTTP world on the card, run as ``python3 chip_smoke.py
+    --http-world DIR`` by ``http_phase_start``: ``testing/cpworld.py``'s
+    world at HTTP_SHAPE over a kwok-lite farm (``testing/kwoklite.py``:
+    the host and every member an apiserver on its own socket, bearer
+    tokens, members minting service-account tokens), the port's
+    ControllerManager with its default engine on the card, through
+    cpworld.HTTP_ROUNDS (join, cold, churn, no-op resync, topology,
+    partition), each checked by ``run_rounds``.  Per round the phase-1
+    launch count is set to 0 just before and read just after, beside
+    the dispatch shapes, the apiservers' requests by verb, the watch
+    streams' events, reconnects and 410 relists, the member writes,
+    batches, sheds, retries and breaker opens, and a fleet scrape of the
+    members' /metrics (``runtime/fleetscrape.py``).  Writes
+    ``report.json`` (the rounds with their store digests) and the cold
+    round's first dispatch (``cold_inputs.pt``) for the kernel check in
+    the parent, and the twin comparison there."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1
+    from kubeadmiral_tpu_torch.runtime import flightrec
+    from kubeadmiral_tpu_torch.runtime.fleetscrape import FleetScraper
+    from kubeadmiral_tpu_torch.runtime.metrics import Metrics
+    from kubeadmiral_tpu_torch.testing import cpworld
+    from kubeadmiral_tpu_torch.testing.kwoklite import KwokLiteFarm
+    from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
+
+    if not torch.cuda.is_available():
+        print("http world: CUDA is not available", file=sys.stderr)
+        return 2
+    phase1_mod._library()
+    objects, clusters = HTTP_SHAPE
+    flightrec.get_default().clear()
+    farm = KwokLiteFarm()
+    # The host apiserver's requests by verb (the members count theirs).
+    farm.host_server.metrics = Metrics()
+    try:
+        plane = cpworld.ControlPlane(farm=farm)  # the manager's default engine: the card's
+        if plane.engine.device.type != "cuda":
+            raise AssertionError(f"http: the default engine runs on {plane.engine.device}")
+        chunk = plane.engine.chunk_size
+        stack = contextlib.ExitStack()
+        recording, counted, first = {}, {}, []
+        before: dict = {}
+        scraper = FleetScraper(roster=farm.scrape_roster)
+
+        def clients():
+            return [farm.host, *farm._extra_clients, *farm.fleet.factory._cache.values()]
+
+        def servers():
+            return [farm.host_server, *farm.member_servers.values()]
+
+        def on_round(name: str) -> None:
+            before["requests"] = _requests_by_verb(servers())
+            before["watch"] = _watch_counts(clients())
+            recording[name] = stack.enter_context(
+                recorded_dispatches(keep=first if name == "cold" else None)
+            )
+            phase1.launches = 0
+
+        def after_round(name: str, report: dict) -> None:
+            counted[name] = phase1.launches
+            stack.close()
+            shapes = recording.pop(name)
+            report["dispatch_shapes"] = sorted({tuple(c) for c in shapes})
+            report["dispatches"] = len(shapes)
+            report["requests"] = _delta(_requests_by_verb(servers()), before["requests"])
+            report["watch"] = _delta(_watch_counts(clients()), before["watch"])
+            pane = scraper.scrape()
+            report["fleet"] = {
+                "instances": len(pane["instances"]),
+                "scrape_errors": pane["scrape_errors"],
+                "down": sorted(n for n, i in pane["instances"].items() if not i.get("up")),
+            }
+
+        t0 = time.perf_counter()
+        reports = cpworld.run_rounds(
+            plane, objects, clusters, on_round, after_round, rounds=cpworld.HTTP_ROUNDS
+        )
+        wall_s = time.perf_counter() - t0
+        for name, report in reports.items():
+            if counted[name] != report["phase1_launches"]:
+                raise AssertionError(
+                    f"http {name}: {counted[name]} launches counted, "
+                    f"{report['phase1_launches']} in its engine ticks"
+                )
+            want = clusters + (name in ("topology", "partition"))
+            fleet = report["fleet"]
+            if fleet["instances"] != want or fleet["scrape_errors"] or fleet["down"]:
+                raise AssertionError(f"http {name}: fleet scrape {fleet}, {want} members")
+        cold = reports["cold"]
+        fills = sum(-(-t["units"] // chunk) for t in cold["ticks"])
+        if cold["phase1_launches"] < fills:
+            raise AssertionError(f"http cold: {cold['phase1_launches']} launches, {fills} chunks filled")
+        for name in ("churn", "topology", "partition"):
+            if reports[name]["phase1_launches"] < 1:
+                raise AssertionError(f"http {name}: the scheduler's ticks launched nothing")
+        torch.save({"type": [type(first[0]).__module__, type(first[0]).__name__],
+                    "fields": {k: v.cpu() for k, v in first[0]._asdict().items()}},
+                   f"{out_dir}/cold_inputs.pt")
+        rows = {}
+        for name, report in reports.items():
+            row = {k: v for k, v in report.items() if k != "ticks"}
+            row["ticks"] = [
+                {k: t[k] for k in ("units", "clusters", "wall_ms", "phase1_launches", "fetch_bytes")}
+                for t in report["ticks"]
+            ]
+            rows[name] = row
+        summary = {
+            "objects": objects, "clusters": clusters, "wall_s": wall_s,
+            "engine_ticks": plane.engine.tick_seq,
+            "panics": {k: v for k, v in plane.panics().items() if v},
+        }
+        with open(f"{out_dir}/report.json", "w") as f:
+            json.dump({"rounds": rows, "summary": summary}, f)
+    finally:
+        farm.close()
+    return 0
+
+
+# Subprocesses started by this script and still running at its end
+# (stopped by stop_started, however main() ends).
+_STARTED: list = []
+
+
+def stop_started() -> None:
+    for proc, work in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def http_phase_start():
+    """Start ``http_world`` in a subprocess (its own interpreter: the
+    farm's apiserver threads and the controllers share that process's
+    GIL, not this one's); returns (process, scratch directory)."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    work = tempfile.mkdtemp(prefix="_http_", dir=root)
+    log_file = open(f"{work}/stdout.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), "--http-world", work],
+        cwd=root, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+    )
+    log_file.close()
+    _STARTED.append((proc, work))
+    return proc, work
+
+
+def http_phase_finish(proc, work: str) -> dict:
+    """Wait for ``http_world``, then the same rounds over an in-memory
+    ``ClusterFleet`` with ``SchedulerEngine(device="cpu")`` (the partition
+    round there the same churn with no fault): every round's store
+    digests, host and members, equal the card world's under
+    cpworld.transport_masked (cpworld.TRANSPORT_ONLY left out).  The
+    kernel against its twin on the cold round's first dispatch, timed
+    with its bound.  Prints an ``http <round>`` line per round and an
+    ``http summary`` line; returns the rounds, the summary, the kernel
+    row and the twin's plane (for ``extension_stage``)."""
+    import importlib
+
+    import torch
+
+    from kubeadmiral_tpu_torch.runtime import flightrec, slo
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing import cpworld
+
+    objects, clusters = HTTP_SHAPE
+    # The control phase's recorder holds its own pending tokens: the
+    # twin's recovery reads a fresh one.
+    slo.reset_default()
+    t0 = time.perf_counter()
+    twin = cpworld.ControlPlane(
+        engine=SchedulerEngine(device="cpu", flight_recorder=flightrec.FlightRecorder()),
+        transport_masks=True,
+    )
+    twin_reports = cpworld.run_rounds(twin, objects, clusters, rounds=cpworld.HTTP_ROUNDS)
+    twin_s = time.perf_counter() - t0
+    try:
+        rc = proc.wait(timeout=HTTP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    try:
+        with open(f"{work}/stdout.log") as f:
+            out = f.read()
+        if rc != 0:
+            raise AssertionError(f"http world: exit {rc}: {out[-4000:]}")
+        with open(f"{work}/report.json") as f:
+            got = json.load(f)
+        saved = torch.load(f"{work}/cold_inputs.pt")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    module, name = saved["type"]
+    inp = getattr(importlib.import_module(module), name)(
+        **{k: v.cuda() for k, v in saved["fields"].items()}
+    )
+    kernel = check_phase1("http-cold-chunk", inp, timed=True)
+    del inp, saved
+    rows = got["rounds"]
+    for name in cpworld.HTTP_ROUNDS:
+        diff = cpworld.digest_diff(rows[name]["digests"], twin_reports[name]["digests"])
+        if diff:
+            raise AssertionError(f"http {name}: the HTTP world's store differs from the in-memory twin's: {diff}")
+    out_rows = {}
+    for name in cpworld.HTTP_ROUNDS:
+        row = {k: v for k, v in rows[name].items() if k != "digests"}
+        row["twin_wall_s"] = twin_reports[name]["wall_s"]
+        row["twin_walls_s"] = twin_reports[name]["walls_s"]
+        row["twin_engine_ticks"] = twin_reports[name]["engine_ticks"]
+        row["store_equal"] = True
+        log(f"http {name}: {json.dumps(row)}")
+        out_rows[name] = row
+    summary = dict(got["summary"], twin_s=twin_s,
+                   kernel={k: kernel[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
+    log(f"http summary: {json.dumps(summary)}")
+    return {"rounds": out_rows, "summary": summary, "kernel": kernel, "twin": twin}
+
+
+EXTENSION_PLUGIN = "ext"
+
+
+def extension_stage(twin) -> dict:
+    """The port's ``ExtensionService`` (``scheduler/extension_service.py``)
+    on a socket, batch protocol, serving ``testing/worlds.py:webhook(0)``
+    (the seeded stand-in the surface phase ticks with) as filter-batch
+    and score-batch handlers; a ``SchedulerController``'s webhook
+    evaluator over a ``WebhookPlugin`` registered from
+    ``service.webhook_configuration`` feeds a ``want_scores`` tick on a
+    fresh card engine over the HTTP world's 1,000 Deployments and its
+    first 20 clusters (the twin's units after its last round).  Results
+    and score dicts equal a fresh card engine's tick with the stand-in
+    in process, and the service sees one POST per plugin (filter-batch,
+    score-batch) for the tick.  Prints an ``extension`` line."""
+    from kubeadmiral_tpu_torch.federation.schedulerctl import SchedulerController
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1
+    from kubeadmiral_tpu_torch.scheduler import webhook as W
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.scheduler.extension_service import ExtensionService
+    from kubeadmiral_tpu_torch.testing import cpworld
+    from kubeadmiral_tpu_torch.testing.fakekube import FakeKube
+    from kubeadmiral_tpu_torch.testing.worlds import webhook
+
+    objects, clusters_n = HTTP_SHAPE
+    sched = twin.scheduler
+    feds = {cpworld.web_key(i): twin.host.get(twin.ftc.federated.resource, cpworld.web_key(i))
+            for i in range(objects)}
+    units = [
+        dataclasses.replace(
+            sched._scheduling_unit(fed, sched._policy_for(fed)),
+            enabled_filters=(EXTENSION_PLUGIN,), enabled_scores=(EXTENSION_PLUGIN,),
+        )
+        for fed in feds.values()
+    ]
+    clusters = sched._clusters()[:clusters_n]
+    by_key = {su.key: su for su in units}
+    names = [c.name for c in clusters]
+    hook = webhook(0)
+    posts: dict[str, int] = {}
+
+    def answers(request: dict):
+        cls = [c["metadata"]["name"] for c in request["clusters"]]
+        if cls != names:
+            raise AssertionError(f"extension: clusters {cls[:3]}...")
+        for payload in request["schedulingUnits"]:
+            yield hook(by_key[f"{payload.get('namespace', '')}/{payload['name']}"], clusters)
+
+    def filter_batch(request: dict) -> dict:
+        posts["filter-batch"] = posts.get("filter-batch", 0) + 1
+        return {"selected": [[True] * len(names) if a is None else [bool(x) for x in a[0]]
+                             for a in answers(request)]}
+
+    def score_batch(request: dict) -> dict:
+        posts["score-batch"] = posts.get("score-batch", 0) + 1
+        return {"scores": [[0] * len(names) if a is None else [int(x) for x in a[1]]
+                           for a in answers(request)]}
+
+    service = ExtensionService(filter_batch_fn=filter_batch, score_batch_fn=score_batch)
+    service.start()
+    try:
+        config = service.webhook_configuration(EXTENSION_PLUGIN)
+        config["spec"].update(filterPath="/filter", scorePath="/score")
+        plugin = W.WebhookPlugin(W.parse_webhook_config(config))
+        ctl = SchedulerController(FakeKube("extension"), twin.ftc, engine=SchedulerEngine())
+        t0 = time.perf_counter()
+        evaluate = ctl._webhook_eval({EXTENSION_PLUGIN: plugin}, units, clusters)
+        phase1.launches = 0
+        got = ctl.engine.schedule(units, clusters, webhook_eval=evaluate, want_scores=True)
+        launches = phase1.launches
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        want = SchedulerEngine().schedule(units, clusters, webhook_eval=hook, want_scores=True)
+    finally:
+        service.stop()
+    assert_results_equal("extension vs stand-in", got, want, scores=True)
+    if posts != {"filter-batch": 1, "score-batch": 1}:
+        raise AssertionError(f"extension: POSTs {posts}, one per plugin expected")
+    if launches < 1:
+        raise AssertionError("extension: the tick launched nothing")
+    row = {"units": len(units), "clusters": len(clusters), "posts": posts, "launches": launches,
+           "wall_ms": wall_ms, "scored_rows": sum(1 for r in got if r.scores),
+           "placed_pairs": sum(len(r.clusters) for r in got)}
+    log(f"extension: {json.dumps(row)}")
+    return row
+
+
+HTTP_PROCESS_ARGS = ("--port", "0", "--transport", "http", "--members", "3", "--create-crds-for-ftcs")
+HTTP_PROCESS_REPLICAS = 9
+
+
+def process_http_phase() -> dict:
+    """``python -m kubeadmiral_tpu_torch`` over HTTP (HTTP_PROCESS_ARGS:
+    a kwok-lite farm of a host and three member apiservers, the engine
+    on the card, leader election on) as a subprocess: the three members
+    Joined and Ready, read from the host apiserver's socket; a
+    PropagationPolicy (Divide) and a Deployment of HTTP_PROCESS_REPLICAS
+    replicas created through the host socket; its divided copies read
+    back from the member sockets with the printed admin tokens, summing
+    to the replicas; then SIGTERM, after which it must exit 0 within
+    PROCESS_TIMEOUT_S having printed ``shutdown: shed_writes=0``.
+    Prints a ``process http`` line."""
+    import queue
+    import signal
+    import threading
+    from pathlib import Path
+
+    from kubeadmiral_tpu_torch.federation.clusterctl import FEDERATED_CLUSTERS, JOINED, READY, get_condition
+    from kubeadmiral_tpu_torch.models.policy import PROPAGATION_POLICIES, PROPAGATION_POLICY_LABEL
+    from kubeadmiral_tpu_torch.transport.client import HttpKube
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeadmiral_tpu_torch", *HTTP_PROCESS_ARGS],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    lines: "queue.Queue[str]" = queue.Queue()
+    seen: list[str] = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    threading.Thread(target=pump, name="process-http-output", daemon=True).start()
+
+    def wait_for(pattern: str, timeout: float) -> list:
+        deadline = time.monotonic() + timeout
+        while True:
+            found = [m for m in (re.search(pattern, line) for line in seen) if m]
+            if found:
+                return found
+            try:
+                line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(f"process http: no line matching {pattern!r}: {seen[-20:]}")
+            seen.append(line)
+
+    def until(what: str, check, timeout: float = PROCESS_TIMEOUT_S):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = check()
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(f"process http: {what} within {timeout} s: {seen[-20:]}")
+            time.sleep(0.2)
+
+    clients = []
+    try:
+        wait_for(r"controller manager running", 300)
+        host_url = wait_for(r"host apiserver on (\S+)", 10)[0].group(1)
+        members = {
+            m.group(1): (m.group(2), m.group(3))
+            for m in wait_for(r"member (\S+) apiserver on (\S+) \(admin token: (\S+)\)", 10)
+        }
+        start_s = time.perf_counter() - t0
+        if len(members) != 3:
+            raise AssertionError(f"process http: members {sorted(members)}")
+        host = HttpKube(host_url, name="host")
+        clients.append(host)
+
+        def joined():
+            objs = host.list(FEDERATED_CLUSTERS)
+            ok = [o for o in objs if all(
+                (get_condition(o, c) or {}).get("status") == "True" for c in (JOINED, READY))]
+            return len(ok) == len(members) and ok
+
+        t1 = time.perf_counter()
+        until("the members Joined and Ready", joined)
+        join_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host.create(PROPAGATION_POLICIES, {
+            "apiVersion": "core.kubeadmiral.io/v1alpha1", "kind": "PropagationPolicy",
+            "metadata": {"name": "pp", "namespace": "default"},
+            "spec": {"schedulingMode": "Divide"},
+        })
+        dep = {
+            "apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": "web", "namespace": "default",
+                         "labels": {PROPAGATION_POLICY_LABEL: "pp"}},
+            "spec": {
+                "replicas": HTTP_PROCESS_REPLICAS,
+                "selector": {"matchLabels": {"app": "web"}},
+                "template": {"metadata": {"labels": {"app": "web"}}, "spec": {"containers": [
+                    {"name": "c", "image": "nginx", "resources": {"requests": {"cpu": "50m"}}}]}},
+            },
+        }
+        host.create("apps/v1/deployments", dep)
+        member_clients = {}
+        for name, (url, token) in members.items():
+            member_clients[name] = HttpKube(url, token=token, name=name)
+            clients.append(member_clients[name])
+
+        def divided():
+            reps = {}
+            for name, client in member_clients.items():
+                obj = client.try_get("apps/v1/deployments", "default/web")
+                if obj is not None:
+                    reps[name] = obj["spec"]["replicas"]
+            return sum(reps.values()) == HTTP_PROCESS_REPLICAS and reps
+
+        replicas = until("the divided copies on the members", divided)
+        propagate_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=PROCESS_TIMEOUT_S)
+        stop_s = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"process http: exit {rc} after SIGTERM: {seen[-20:]}")
+        wait_for(r"shutdown: shed_writes=0\b", 10)
+    finally:
+        for client in clients:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    row = {"args": list(HTTP_PROCESS_ARGS), "start_s": start_s, "join_s": join_s,
+           "propagate_s": propagate_s, "stop_s": stop_s, "replicas": replicas}
+    log(f"process http: {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2254,6 +2772,13 @@ def main() -> int:
     log(f"phase syncs: {time.perf_counter() - t0:.2f} s")
     overhead = ledger_overhead()
 
+    # The HTTP world runs in its own process from here on, beside the
+    # phases below (its controllers and apiservers share that process's
+    # interpreter lock, not this one's; its engine ticks are a few
+    # milliseconds of the card); http_phase_finish collects it after the
+    # control phase.
+    http_proc, http_work = http_phase_start()
+
     ticks, dense_ticks, fallback_ticks = {}, {}, {}
     warm, slab_rows, depth_turns, surface = {}, {}, {}, {}
     for cfg in ("3", "5"):
@@ -2280,13 +2805,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase e2e-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
-        # The window against the sequential dispatch, in turns.
-        t0 = time.perf_counter()
-        depth_turns[cfg] = turns_depth(cfg, units, clusters, got)
-        log(f"phase turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
+        # The window against the sequential dispatch, in turns; c5 over
+        # its first C5_BUDGET_OBJECTS objects, as the budget turns.
         t0 = time.perf_counter()
         depth = len(units) if cfg == "3" else C5_BUDGET_OBJECTS
-        turns_budget(cfg, units[:depth], clusters, got[:depth])
+        depth_turns[cfg] = turns_depth(cfg, units[:depth], clusters, got[:depth])
+        log(f"phase turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        turns_budget(cfg, units[:depth], clusters, got[:depth],
+                     TURN_BUDGETS if cfg == "3" else C5_TURN_BUDGETS)
         log(f"phase budget-turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
         # The dense tick through the engine: M patched to the cluster
@@ -2366,11 +2893,21 @@ def main() -> int:
     t0 = time.perf_counter()
     del worlds, units, clusters
     gc.collect()
-    # The process (python -m kubeadmiral_tpu_torch on the card) runs
-    # beside the control phase's CPU twin, while the card is idle.
-    control = control_phase(beside=process_phase)
-    process = control["beside"]
+    # The processes (python -m kubeadmiral_tpu_torch on the card, in
+    # memory and over HTTP) run beside the control phase's CPU twin,
+    # while the card is idle.
+    control = control_phase(
+        beside=lambda: {"memory": process_phase(), "http": process_http_phase()}
+    )
+    process, process_http = control["beside"]["memory"], control["beside"]["http"]
     log(f"phase control and process: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    http = http_phase_finish(http_proc, http_work)
+    log(f"phase http: {time.perf_counter() - t0:.2f} s (its twin, the wait, the kernel check)")
+    t0 = time.perf_counter()
+    extension = extension_stage(http.pop("twin"))
+    gc.collect()
+    log(f"phase extension: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
     kernels = {
@@ -2396,7 +2933,7 @@ def main() -> int:
                     for r in (c5, c3, slab_rows["5"], slab_rows["3"],
                               surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
                               control["kernel"]["cold_chunk"], control["kernel"]["churn"],
-                              control["kernel"]["migrate"],
+                              control["kernel"]["migrate"], http["kernel"],
                               streams["5"]["kernel"], streams["3"]["kernel"])
                 ),
                 "ms": c5["ms"],
@@ -2541,6 +3078,21 @@ def main() -> int:
                     }
                     for cfg in ("3", "5")
                 },
+                # The HTTP world (the manager's controllers over a
+                # kwok-lite farm of apiserver sockets, in its own
+                # process): launches per round, the kernel at the cold
+                # round's first dispatch, the extension tick's launches
+                # and the process over HTTP.
+                "launches_http": {
+                    name: row["phase1_launches"] for name, row in http["rounds"].items()
+                },
+                "http_cold": {
+                    key: http["kernel"][key]
+                    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                },
+                "launches_extension": extension["launches"],
+                "extension_posts": extension["posts"],
+                "process_http_replicas": process_http["replicas"],
                 "card": card,
             }
         ]
@@ -2559,4 +3111,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 3 and sys.argv[1] == "--http-world":
+        sys.exit(http_world(sys.argv[2]))
+    try:
+        rc = main()
+    finally:
+        stop_started()
+    sys.exit(rc)

@@ -4,9 +4,12 @@ A copy of ``kubeadmiral_tpu/__main__.py`` over the port, with one more
 flag, ``--device {cuda,cpu}`` (default ``cuda``): the scheduling engine
 runs on the card unless the caller asks for the CPU, and without CUDA
 the default fails at engine construction with a nonzero exit, never
-falling back to the CPU.  ``--transport http`` needs the HTTP transport,
-which the port does not have yet: it exits 2 with a message that says so.
-Every line it prints is flushed, so a parent process can read the ports.
+falling back to the CPU.  ``--transport http`` serves the control plane
+over a kwok-lite farm of real apiserver sockets (``testing/kwoklite.py``):
+a host apiserver on ``--host-port`` and one member apiserver per
+``--members``, each with one Ready Node and a FederatedCluster, so the
+cluster controller performs the real join handshake.  Every line it
+prints is flushed, so a parent process can read the ports and tokens.
 
 Mirrors the reference controller-manager's flag surface (reference:
 cmd/controller-manager/main.go:32-46,
@@ -68,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--transport", choices=("memory", "http"), default="memory",
         help="memory = in-process stores (demo); http = a kwok-lite farm "
-        "of real apiserver sockets (not in this package yet: exits 2)",
+        "of real apiserver sockets",
     )
     parser.add_argument("--run-seconds", type=float, default=0.0,
         help="exit after this many seconds (0 = run forever)")
@@ -101,14 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.transport == "http":
-        print(
-            "--transport http needs the HTTP transport (testing/kwoklite.py, "
-            "transport/apiserver.py), which this package does not have yet; "
-            "use --transport memory",
-            file=sys.stderr,
-        )
-        return 2
     sys.stdout.reconfigure(line_buffering=True)
 
     from kubeadmiral_tpu_torch.runtime.logconf import setup_logging
@@ -123,9 +118,54 @@ def main(argv=None) -> int:
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.fakekube import AlreadyExists, ClusterFleet
 
-    fleet = ClusterFleet()
-    for i in range(args.members):
-        fleet.add_member(f"member-{i + 1}")
+    farm = None
+    if args.transport == "http":
+        # Real sockets: a kwok-lite farm (host + member apiservers with
+        # REST/watch/auth), FederatedCluster CRs registered so the
+        # cluster controller performs the real join handshake.
+        from kubeadmiral_tpu_torch.federation.common import FEDERATED_CLUSTERS
+        from kubeadmiral_tpu_torch.testing.kwoklite import KwokLiteFarm
+
+        farm = KwokLiteFarm(host_port=args.host_port)
+        fleet = farm.fleet
+        for i in range(args.members):
+            name = f"member-{i + 1}"
+            member = farm.add_member(name)
+            member.create(
+                "v1/nodes",
+                {
+                    "apiVersion": "v1",
+                    "kind": "Node",
+                    "metadata": {"name": f"{name}-node"},
+                    "spec": {},
+                    "status": {
+                        "allocatable": {"cpu": "32", "memory": "128Gi"},
+                        "conditions": [{"type": "Ready", "status": "True"}],
+                    },
+                },
+            )
+            fleet.host.create(
+                FEDERATED_CLUSTERS,
+                {
+                    "apiVersion": "core.kubeadmiral.io/v1alpha1",
+                    "kind": "FederatedCluster",
+                    "metadata": {"name": name},
+                    "spec": farm.cluster_spec(name),
+                },
+            )
+        print(f"host apiserver on {farm.host_server.url}")
+        for name, member_server in farm.member_servers.items():
+            # Demo farm: print the member admin token so quickstart curls
+            # can read the propagated objects (member apiservers require
+            # bearer auth, exactly like real clusters).
+            print(
+                f"member {name} apiserver on {member_server.url} "
+                f"(admin token: {member_server.admin_token})"
+            )
+    else:
+        fleet = ClusterFleet()
+        for i in range(args.members):
+            fleet.add_member(f"member-{i + 1}")
 
     health = HealthCheckRegistry()
     # ONE registry shared by the manager's controllers, the engine
@@ -213,6 +253,8 @@ def main(argv=None) -> int:
             f"snapshot={summary['snapshot']}"
         )
         server.stop()
+        if farm is not None:
+            farm.close()
     return 0
 
 

@@ -14,10 +14,14 @@ the dispatch ledger's device lanes in on the same :func:`epoch`).  The
 export carries ``otherData.wall_epoch``, the wall-clock instant of this
 process's epoch, so two processes' traces align on one timeline.
 
-Left out until the HTTP transport is ported, since nothing in process
-reaches it: the W3C traceparent propagation (``current_traceparent``,
-``Tracer.server_span``).  The JAX module's ``KT_TRACE_SAMPLE_N`` is
-SAMPLE_N here, with its default.
+Cross-process correlation: :func:`current_traceparent` renders the
+innermost open span as a W3C traceparent header value
+(``00-<trace id>-<span id>-01``); the HTTP client
+(``transport/client.py``) injects it on every request, and
+:meth:`Tracer.server_span` on the apiserver side adopts the inbound
+trace id and parent, so the server-side span is a true child of the
+caller's span across process boundaries.  The JAX module's
+``KT_TRACE_SAMPLE_N`` is SAMPLE_N here, with its default.
 """
 
 from __future__ import annotations
@@ -56,6 +60,33 @@ def wall_epoch() -> float:
     return time.time() - (time.perf_counter() - _EPOCH)
 
 
+def format_traceparent(trace_id: str, span_id: int) -> str:
+    """``00-<32 hex trace id>-<16 hex span id>-01`` (W3C traceparent)."""
+    return f"00-{trace_id}-{span_id & ((1 << 64) - 1):016x}-01"
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[tuple[str, int]]:
+    """(trace_id, parent span id) from a traceparent header, or None
+    for anything malformed — a bad header degrades to an unparented
+    server span, never an error on the request path."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) != 4 or parts[0] != "00":
+        return None
+    trace_id, span_hex = parts[1], parts[2]
+    if len(trace_id) != 32 or len(span_hex) != 16:
+        return None
+    try:
+        int(trace_id, 16)
+        span_id = int(span_hex, 16)
+    except ValueError:
+        return None
+    if span_id == 0 or int(trace_id, 16) == 0:
+        return None
+    return trace_id.lower(), span_id
+
+
 class Span:
     __slots__ = (
         "name", "span_id", "parent_id", "trace_id", "start", "end",
@@ -80,6 +111,10 @@ class Span:
         """Attach attributes to an open span (e.g. a result count known
         only at the end of the work)."""
         self.args.update(args)
+
+    def traceparent(self) -> str:
+        """This span as a traceparent header value."""
+        return format_traceparent(self.trace_id, self.span_id)
 
 
 class Tracer:
@@ -134,9 +169,31 @@ class Tracer:
             return
         yield from self._span_gen(name, parent.trace_id, parent.span_id, args)
 
+    @contextmanager
+    def server_span(self, name: str, traceparent: Optional[str], **args):
+        """The server half of cross-process propagation: a span adopting
+        the inbound header's trace id with the caller's span as parent,
+        so a member-apiserver write shows up as a child of the manager's
+        dispatch span in the assembled trace.  No/invalid header opens
+        an ordinary (locally rooted) span."""
+        ctx = parse_traceparent(traceparent)
+        if ctx is None:
+            with self.span(name, **args) as sp:
+                yield sp
+            return
+        trace_id, parent_id = ctx
+        args["remote_parent"] = True
+        yield from self._span_gen(name, trace_id, parent_id, args)
+
     def current(self) -> Optional[Span]:
         stack = self._stack()
         return stack[-1] if stack else None
+
+    def current_traceparent(self) -> Optional[str]:
+        """The innermost open span as a traceparent header value, or
+        None when this thread has no open span."""
+        sp = self.current()
+        return sp.traceparent() if sp is not None else None
 
     def clear(self) -> None:
         self._ring.clear()
@@ -218,12 +275,15 @@ _sample_counter = itertools.count()
 
 
 class _NullSpan:
-    """The skipped-sample stand-in: accepts set()."""
+    """The skipped-sample stand-in: accepts set() and traceparent()."""
 
     __slots__ = ()
 
     def set(self, **args) -> None:
         pass
+
+    def traceparent(self) -> Optional[str]:
+        return None
 
 
 _NULL_SPAN = _NullSpan()
@@ -243,3 +303,9 @@ def hot_span(name: str, **args):
         return _null_span()
     args["sampled_1_in"] = SAMPLE_N
     return _default.span(name, **args)
+
+
+def current_traceparent() -> Optional[str]:
+    """The calling thread's innermost open span on the default tracer,
+    as a traceparent header value (None with no open span)."""
+    return _default.current_traceparent()

@@ -87,6 +87,37 @@ dispatch accounting (:meth:`ControlPlane.member_counts`), the monitors'
 gauges, and the store's per-object digests (:func:`store_digests`;
 wall-clock fields masked), which let two runs — the card's engine and
 the CPU engine — be held equal object for object.
+
+**Over HTTP.**  ``ControlPlane(farm=KwokLiteFarm())`` builds the same
+world over real apiserver sockets (``testing/kwoklite.py``): the host
+and every member an in-process ``KubeApiServer`` on its own port with
+bearer-token auth, members minting service-account tokens, so the
+cluster controller's join is the real handshake; the controllers reach
+the stores only through ``HttpKube`` clients, the member clients built
+from the join secrets (``transport/client.py:HttpFleet``), and the sync
+controllers write through the pooled bulk path (``inline=False``, write
+coalescing on).  Watch events arrive on reflector threads, so a settle
+ends only after GRACE_POLLS idle polls in a row once every watch stream
+has delivered what its apiserver logged, waits for retries due
+within RETRY_WAIT_S (two writers racing on one object over the wire),
+moves the cluster controller's clock while a cluster is not Joined
+(its retry waits on that clock), and fails past SETTLE_DEADLINE_S.
+Store digests, and the Deployments' monitor, read the servers' stores
+(``farm.host_store`` and each member server's).  :data:`HTTP_ROUNDS`
+run there: join, cold, churn, no-op resync, topology, and ``partition``
+— one member (the one holding the most objects) partitioned
+(``FaultPolicy(partition=True)``, its apiserver severing a held request
+after PARTITION_HANG_S), a 1 % churn of objects placed on it, a settle,
+the fault cleared, and settles until no placement is unwritten
+(``soakharness.py``'s recovery), the cluster controller's heartbeat
+moved on once the breakers' cool-down has passed, so that its probe
+closes the member's breaker and marks it Ready.  Its twin runs the same
+rounds over a ``ClusterFleet`` (``ControlPlane(transport_masks=True)``),
+the partition round there being the same churn with no fault; both
+digest their stores through :func:`transport_masked`, so after every
+round the two are held equal object for object but for what exists
+only because of the transport (:data:`TRANSPORT_ONLY`,
+:data:`TRANSPORT_FIELDS`).
 """
 
 from __future__ import annotations
@@ -118,8 +149,11 @@ from kubeadmiral_tpu_torch.models.ftc import FEDERATED_TYPE_CONFIGS, default_ftc
 from kubeadmiral_tpu_torch.models.policy import PROPAGATION_POLICIES, PROPAGATION_POLICY_LABEL
 from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
 from kubeadmiral_tpu_torch.runtime.manager import ControllerManager
+from kubeadmiral_tpu_torch.runtime import slo as slo_mod
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics, series_key
 from kubeadmiral_tpu_torch.testing.fakekube import ClusterFleet
+from kubeadmiral_tpu_torch.transport.client import FED_SYSTEM_NAMESPACE, SECRETS
+from kubeadmiral_tpu_torch.transport.faults import FaultPolicy
 
 GVK = "apps/v1/Deployment"
 # The manager's FTCs in this world, in ``default_ftcs`` order.
@@ -143,6 +177,61 @@ OVERRIDE_ANNOTATION = ("tier", "one")
 # ConfigMaps, Namespaces and auto-migration's annotations compare
 # unmasked (the Pods' transition times come from the round).
 WALL_CLOCK_FIELDS = {"v1/events": ("firstTimestamp", "lastTimestamp")}
+
+# The rounds over HTTP (``ControlPlane(farm=...)``).
+HTTP_ROUNDS = ("join", "cold", "churn", "noop", "topology", "partition")
+# A settle over HTTP: idle polls in a row before the controllers count
+# as settled (watch events arrive on reflector threads;
+# tests/test_e2e_http.py's grace window), the poll, and the deadline
+# past which a settle fails.
+GRACE_POLLS = 12
+GRACE_POLL_S = 0.05
+SETTLE_DEADLINE_S = 600.0
+# Over HTTP two writers can race on one object, and the loser's retry
+# waits out the queue's first backoff (5 s): a settle over HTTP waits
+# for keys due within RETRY_WAIT_S on the queues that run on the wall
+# clock (the plane's own clocks do not move while it settles).
+RETRY_WAIT_S = 6.0
+# After the partition clears: settles until no placement is unwritten.
+RECOVER_DEADLINE_S = 120.0
+# How long the partitioned member's apiserver holds a request before it
+# severs the connection (``FaultInjector.partition_hang_s``; the
+# client's own timeout is 10 s): the partition round's failed reads and
+# writes then cost a second each, not the timeout.
+PARTITION_HANG_S = 1.0
+# The cluster controller's heartbeat period (its ``resync_seconds``).
+CLUSTER_HEARTBEAT_S = 10.0
+SERVICE_ACCOUNTS = "v1/serviceaccounts"
+EVENTS = "v1/events"
+
+# What exists only because of the transport, left out of the digests of
+# a plane with ``transport_masks`` (the HTTP world and its in-memory
+# twin), each with its reason; (store, resource, predicate on the key):
+# "host" is the host store, "member" every member store.
+TRANSPORT_ONLY = (
+    # The join secrets: over HTTP the farm seeds each with the member's
+    # admin token and the join rewrites it with the token the member
+    # minted; in memory the join writes a synthetic token.
+    ("host", SECRETS, lambda key: key.startswith(FED_SYSTEM_NAMESPACE + "/")),
+    # The join's service accounts and their token secrets: only a
+    # member apiserver mints tokens (``mint_sa_tokens``).
+    ("member", SERVICE_ACCOUNTS, lambda key: key.startswith(FED_SYSTEM_NAMESPACE + "/")),
+    ("member", SECRETS, lambda key: key.startswith(FED_SYSTEM_NAMESPACE + "/")),
+    # The sync controller's PropagationFailed events: the partition
+    # round's failed member writes; the twin's round has no fault.
+    ("host", EVENTS, lambda key: key.endswith(".propagationfailed")),
+)
+# Fields masked in every object of such a plane: the store's write
+# order (resourceVersion, and the uid, which the store mints from it),
+# and the FederatedCluster's credentials (the member's endpoint and
+# its join secret, which only the HTTP world's clusters carry).  A uid
+# that another object records (a label, an annotation, an owner
+# reference) is replaced by the identity of the object it names
+# (``uid:<store>/<resource>/<key>``), and ``metadata.finalizers`` is
+# compared as a set: its order is the order the controllers' writes
+# landed in.
+TRANSPORT_FIELDS = (("metadata", "resourceVersion"), ("metadata", "uid"))
+CREDENTIAL_FIELDS = {FEDERATED_CLUSTERS: (("spec", "apiEndpoint"), ("spec", "secretRef"))}
 
 
 def world_ftcs() -> dict:
@@ -315,42 +404,104 @@ def masked(resource: str, obj: dict) -> dict:
     return {k: v for k, v in obj.items() if k not in fields}
 
 
-def _digest(resource: str, obj: dict) -> str:
-    return hashlib.blake2b(
-        json.dumps(masked(resource, obj), sort_keys=True).encode(), digest_size=12
-    ).hexdigest()
+def _without(obj: dict, paths) -> dict:
+    """``obj`` with each (parent, field) path removed (copying only the
+    parents touched)."""
+    out = dict(obj)
+    for parent, field in paths:
+        sub = out.get(parent)
+        if isinstance(sub, dict) and field in sub:
+            out[parent] = {k: v for k, v in sub.items() if k != field}
+    return out
 
 
-def store_digests(fleet: ClusterFleet, cache: Optional[dict] = None) -> dict:
+def _named(value, uids: dict):
+    return uids.get(value, value) if isinstance(value, str) else value
+
+
+def transport_masked(resource: str, obj: dict, uids: Optional[dict] = None) -> dict:
+    """:func:`masked`, then TRANSPORT_FIELDS and the resource's
+    CREDENTIAL_FIELDS removed, the uids in ``metadata`` named by
+    ``uids`` (uid -> identity) and the finalizers sorted."""
+    out = _without(masked(resource, obj), TRANSPORT_FIELDS + CREDENTIAL_FIELDS.get(resource, ()))
+    meta = dict(out.get("metadata") or {})
+    for field in ("labels", "annotations"):
+        if meta.get(field):
+            meta[field] = {k: _named(v, uids or {}) for k, v in meta[field].items()}
+    if meta.get("ownerReferences"):
+        meta["ownerReferences"] = [
+            {**ref, "uid": _named(ref.get("uid"), uids or {})} for ref in meta["ownerReferences"]
+        ]
+    if meta.get("finalizers"):
+        meta["finalizers"] = sorted(meta["finalizers"])
+    out["metadata"] = meta
+    return out
+
+
+def transport_only(store: str, resource: str, key: str) -> bool:
+    """Whether TRANSPORT_ONLY leaves this object out."""
+    kind = "host" if store == "host" else "member"
+    return any(k == kind and r == resource and pred(key) for k, r, pred in TRANSPORT_ONLY)
+
+
+def uid_identities(stores: dict) -> dict:
+    """uid -> ``uid:<store>/<resource>/<key>`` over ``{store: {resource:
+    {key: obj}}}``."""
+    return {
+        obj["metadata"]["uid"]: f"uid:{name}/{resource}/{key}"
+        for name, nodes in stores.items()
+        for resource, objs in nodes.items()
+        for key, obj in objs.items()
+        if obj.get("metadata", {}).get("uid")
+    }
+
+
+def _digest(resource: str, obj: dict, uids: Optional[dict] = None) -> str:
+    view = transport_masked(resource, obj, uids) if uids is not None else masked(resource, obj)
+    return hashlib.blake2b(json.dumps(view, sort_keys=True).encode(), digest_size=12).hexdigest()
+
+
+def store_digests(fleet: ClusterFleet, cache: Optional[dict] = None,
+                  transport: bool = False) -> dict:
     """``{"host"|member: {"rv": n, "objects": {resource: {key: digest}}}}``
     over the whole fleet, each object's canonical JSON digested with
     its wall-clock fields masked.  The stores' version nodes are read in
     place (they are immutable); with ``cache`` (a dict kept across calls
     on one fleet) an object whose resourceVersion is unchanged since an
-    earlier call keeps its digest: every write bumps it."""
+    earlier call keeps its digest: every write bumps it.  ``fleet`` is
+    anything with a ``host`` store and a ``members`` dict of stores.
+    With ``transport`` the digests are :func:`transport_masked`, the
+    TRANSPORT_ONLY objects are left out and ``rv`` is None: the store's
+    write count is not compared across transports."""
 
-    def one(name: str, kube) -> dict:
+    stores = {"host": fleet.host, **fleet.members}
+    views = {}
+    for name, kube in stores.items():
         with kube._lock:
-            rv = kube._rv
-            nodes = {resource: dict(objs) for resource, objs in kube._objects.items()}
+            views[name] = (kube._rv, {resource: dict(objs) for resource, objs in kube._objects.items()})
+    uids = uid_identities({name: nodes for name, (_, nodes) in views.items()}) if transport else None
+
+    def one(name: str) -> dict:
+        rv, nodes = views[name]
         out = {}
         for resource, objs in nodes.items():
             digests = out[resource] = {}
             for key, obj in objs.items():
+                if transport and transport_only(name, resource, key):
+                    continue
                 version = obj.get("metadata", {}).get("resourceVersion")
                 tag = (name, resource, key, version)
                 digest = None if cache is None or version is None else cache.get(tag)
                 if digest is None:
-                    digest = _digest(resource, obj)
+                    digest = _digest(resource, obj, uids)
                     if cache is not None and version is not None:
                         cache[tag] = digest
                 digests[key] = digest
-        return {"rv": rv, "objects": out}
+            if transport and not digests:
+                del out[resource]
+        return {"rv": None if transport else rv, "objects": out}
 
-    out = {"host": one("host", fleet.host)}
-    for name, member in fleet.members.items():
-        out[name] = one(name, member)
-    return out
+    return {name: one(name) for name in stores}
 
 
 def digest_diff(a: dict, b: dict, limit: int = 8) -> list[str]:
@@ -398,10 +549,20 @@ class StageTimer:
     calls (a controller's ``step_all``, else its worker's ``step``) are
     wrapped in place, so the manager itself drives them."""
 
-    def __init__(self, manager, named_controllers):
+    def __init__(self, manager, named_controllers, grace: int = 0, patience: float = 0.25,
+                 caught_up: Optional[Callable[[], bool]] = None):
         self.manager = manager
         self.stages = {name: 0.0 for name, _ in named_controllers}
         self.controllers = named_controllers
+        # Idle polls in a row (GRACE_POLL_S apart) before a settle ends:
+        # 0 for in-process stores, whose watches deliver inline.
+        self.grace = grace
+        # Keys due within this many seconds on a wall-clock queue are
+        # waited for (0.25 s: admission delays; RETRY_WAIT_S over HTTP).
+        self.patience = patience
+        # Over HTTP: whether every watch stream has handed its handlers
+        # every event its apiserver logged (a settle ends only then).
+        self.caught_up = caught_up
         for name, ctl in named_controllers:
             if getattr(ctl, "step_all", None) is not None:
                 ctl.step_all = self._timed(name, ctl.step_all)
@@ -418,8 +579,13 @@ class StageTimer:
         return timed
 
     def settle(self, max_rounds: int = 10_000) -> None:
+        deadline = time.monotonic() + SETTLE_DEADLINE_S
+        idle = 0
         for _ in range(max_rounds):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"controllers did not settle in {SETTLE_DEADLINE_S} s")
             if self.manager.step_all():
+                idle = 0
                 continue
             # Keys pending but not yet due within a short fuse
             # (admission delays) are waited out; long-fuse requeues
@@ -429,20 +595,66 @@ class StageTimer:
                 for _, ctl in self.controllers
                 for worker in workers_of(ctl)
                 for d in (worker.queue.next_due_in(),)
-                if d is not None and d <= 0.25
+                if d is not None and d <= (
+                    self.patience if worker.queue._clock is time.monotonic else 0.25)
             ]
-            if not dues:
+            if dues:
+                time.sleep(min(dues) + 0.002)
+                continue
+            if idle >= self.grace and (self.caught_up is None or self.caught_up()):
                 return
-            time.sleep(min(dues) + 0.002)
+            idle += 1
+            time.sleep(GRACE_POLL_S)
         raise RuntimeError(f"controllers did not settle in {max_rounds} rounds")
+
+
+class _FarmStores:
+    """A farm's server-side stores, shaped as a fleet (``host`` and
+    ``members``): for :func:`store_digests` and the plane's monitors."""
+
+    def __init__(self, farm):
+        self.farm = farm
+        self.host = farm.host_store
+
+    @property
+    def members(self) -> dict:
+        return {name: srv.store for name, srv in self.farm.member_servers.items()}
+
+    def watches_caught_up(self) -> bool:
+        """Every watch stream of the farm's clients has handed its
+        handlers every event its apiserver has logged for the resource
+        (a member whose watch a fault stalls is skipped)."""
+        farm = self.farm
+        servers = {f"{farm.host_server.host}:{farm.host_server.port}": (None, farm.host_server)}
+        for name, srv in farm.member_servers.items():
+            servers[f"{srv.host}:{srv.port}"] = (name, srv)
+        for client in [farm.host, *farm.fleet.factory._cache.values()]:
+            name, srv = servers.get(client._netloc, (None, None))
+            if srv is None or (name is not None and farm.faults.watch_stalled(name)):
+                continue
+            for resource, mux in list(client._mux.items()):
+                if not hasattr(mux, "rv"):
+                    continue  # a client that does not report its position
+                with srv._log.cond:
+                    log = srv._log.logs.get(resource)
+                    latest = log.seqs[-1] if log is not None and log.seqs else 0
+                if mux.rv < latest:
+                    return False
+        return True
 
 
 class ControlPlane:
     """A fleet and the port's controller manager for three FTCs over
-    ``engine`` (``None``: the manager's default engine, on the card)."""
+    ``engine`` (``None``: the manager's default engine, on the card).
+    With ``farm`` (a ``KwokLiteFarm``) the fleet is the farm's HTTP
+    fleet; ``transport_masks`` (default: with a farm) digests the
+    stores for a comparison across transports (:func:`store_digests`)."""
 
-    def __init__(self, engine=None):
-        self.fleet = ClusterFleet()
+    def __init__(self, engine=None, farm=None, transport_masks: Optional[bool] = None):
+        self.farm = farm
+        self.fleet = farm.fleet if farm is not None else ClusterFleet()
+        self._farm_stores = _FarmStores(farm) if farm is not None else None
+        self.transport_masks = farm is not None if transport_masks is None else transport_masks
         self.host = self.fleet.host
         self.ftcs = world_ftcs()
         self.ftc = self.ftcs["deployments.apps"]
@@ -451,6 +663,10 @@ class ControlPlane:
         # only by the rounds, so two planes decide alike.
         self.now = [0.0]
         self.monitor_now = [0.0]
+        # The cluster controller's clock: frozen, moved over HTTP only
+        # while a cluster is not Joined and by the partition round's
+        # recovery (its retries and heartbeats then fall due).
+        self.cluster_now = [0.0]
         m = self.metrics
         # The cluster controller's clock is frozen, as the package
         # tests' are: its 10 s heartbeat is a timer, and one falling due
@@ -462,13 +678,22 @@ class ControlPlane:
             self.fleet,
             metrics=m,
             engine=engine,
-            cluster_controller_kwargs={"api_resource_probe": [GVK], "clock": lambda: 0.0},
+            cluster_controller_kwargs={
+                "api_resource_probe": [GVK], "clock": lambda: self.cluster_now[0],
+            },
         )
         # One engine for every FTC's scheduler: the manager's.
         self.engine = self.manager.engine
         self.pod_informer = self.manager.pod_informer
         for ftc in self.ftcs.values():
             self.host.create(FEDERATED_TYPE_CONFIGS, ftc_to_object(ftc))
+        # Over HTTP the manager's FTC watch delivers on its reflector
+        # thread: wait for the three controller sets.
+        deadline = time.monotonic() + SETTLE_DEADLINE_S
+        while not all(name in self.manager._ftcs for name in self.ftcs):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the manager started {sorted(self.manager._ftcs)}")
+            time.sleep(GRACE_POLL_S)
         self.controllers: dict[str, dict[str, object]] = {}
         named = [("cluster", self.manager.always_on["cluster"])]
         for ftc in self.ftcs.values():
@@ -489,20 +714,42 @@ class ControlPlane:
         named.append(("follower", self.follower))
         self.scheduler = self.controllers[self.ftc.name]["schedule"]
         self.monitors: list[MonitorController] = []
+        # Over HTTP the Deployments' monitor reads the member stores
+        # server-side: a round check, it needs no round trip per
+        # (object, member) pair, and reads a cut-off member too.
         for ftc in self.ftcs.values():
             # Drift is measured against the scheduler's placement, which
             # only the Deployments have: the other FTCs get the
             # manager's host-only monitor.
             self.monitors.append(MonitorController(
                 self.host, ftc, metrics=m, clock=lambda: self.monitor_now[0],
-                fleet=self.fleet if ftc is self.ftc else None,
+                fleet=self.stores if ftc is self.ftc else None,
                 flight_recorder=self.engine.flightrec,
             ))
         self.sync = self.controllers[self.ftc.name]["sync"]
-        self.timer = StageTimer(self.manager, named)
+        self.timer = StageTimer(
+            self.manager, named,
+            grace=GRACE_POLLS if farm is not None else 0,
+            patience=RETRY_WAIT_S if farm is not None else 0.25,
+            caught_up=self._farm_stores.watches_caught_up if farm is not None else None,
+        )
         self.timer.stages["monitor"] = 0.0
         # Member ops by verb, through the members' bulk write path.
         self.member_ops: dict[str, int] = {}
+        if farm is not None:
+            # Over HTTP the controllers' member clients come from the
+            # fleet's client factory: count their bulk ops there.
+            client_for = self.fleet.factory.client_for
+            counted: set = set()
+
+            def counted_client_for(cluster: dict):
+                client = client_for(cluster)
+                if id(client) not in counted:
+                    counted.add(id(client))
+                    client.batch = self._counted_batch(client.batch)
+                return client
+
+            self.fleet.factory.client_for = counted_client_for
         # Store digests by (store, resource, key, resourceVersion).
         self.digest_cache: dict = {}
         self.ticks: list[dict] = []
@@ -546,6 +793,24 @@ class ControlPlane:
         })
         return out
 
+    def _counted_batch(self, batch):
+        def counted_batch(ops):
+            for op in ops:
+                verb = op.get("verb", "?")
+                self.member_ops[verb] = self.member_ops.get(verb, 0) + 1
+            return batch(ops)
+
+        return counted_batch
+
+    @property
+    def stores(self):
+        """The stores themselves: the in-process fleet, or the farm's
+        servers' stores."""
+        return self.fleet if self.farm is None else self._farm_stores
+
+    def digests(self) -> dict:
+        return store_digests(self.stores, self.digest_cache, self.transport_masks)
+
     def workers(self) -> list:
         """Every controller's workers, the monitors' included."""
         return [w for _, ctl in self.timer.controllers for w in workers_of(ctl)] + [
@@ -554,18 +819,18 @@ class ControlPlane:
 
     # -- the world ---------------------------------------------------------
     def add_cluster(self, j: int) -> None:
-        member = self.fleet.add_member(cluster_name(j))
+        name = cluster_name(j)
+        cluster = federated_cluster(j)
+        if self.farm is None:
+            member = self.fleet.add_member(name)
+            member.batch = self._counted_batch(member.batch)
+        else:
+            # A member apiserver and its bootstrap join secret; the
+            # cluster points at its endpoint and secret.
+            member = self.farm.add_member(name)
+            cluster["spec"] = self.farm.cluster_spec(name)
         member.create(NODES, member_node(j))
-        batch = member.batch
-
-        def counted_batch(ops):
-            for op in ops:
-                verb = op.get("verb", "?")
-                self.member_ops[verb] = self.member_ops.get(verb, 0) + 1
-            return batch(ops)
-
-        member.batch = counted_batch
-        self.host.create(FEDERATED_CLUSTERS, federated_cluster(j))
+        self.host.create(FEDERATED_CLUSTERS, cluster)
 
     def create_objects(self, ids) -> None:
         for i in ids:
@@ -617,11 +882,66 @@ class ControlPlane:
             stuck[key] = name
         return stuck
 
+    def partition(self, name: str) -> None:
+        """Cut ``name`` off (over HTTP; in memory there is no fault)."""
+        if self.farm is not None:
+            self.farm.faults.partition_hang_s = PARTITION_HANG_S
+            self.farm.set_fault(name, FaultPolicy(partition=True))
+
+    def heal(self, name: str) -> None:
+        if self.farm is not None:
+            self.farm.clear_fault(name)
+
+    def recover(self) -> dict[str, float]:
+        """Settle until no placement is unwritten (the SLO recorder's
+        pending member writes), failing past RECOVER_DEADLINE_S;
+        seconds per controller kind.  While placements are unwritten and
+        no member breaker is still cooling down, the cluster
+        controller's clock moves one heartbeat: the heartbeat's probe is
+        what closes a cooled-down breaker and marks its member Ready
+        again."""
+        before = dict(self.timer.stages)
+        rec = slo_mod.get_default()
+        deadline = time.monotonic() + RECOVER_DEADLINE_S
+        while True:
+            self.settle()
+            if rec is None or not rec.enabled or rec.unwritten_placements() == 0:
+                break
+            snap = self.sync.breakers.snapshot()
+            open_s = self.sync.breakers.config.open_seconds
+            if all(e.get("opened_ago_s", open_s) >= open_s for e in snap.values()):
+                self.cluster_now[0] += CLUSTER_HEARTBEAT_S
+            if time.monotonic() > deadline:
+                pending = {k: (sorted(e.expected or ()), sorted(e.acked))
+                           for k, e in list(rec._pending.items())[:5]}
+                raise RuntimeError(
+                    f"{rec.unwritten_placements()} placements unwritten "
+                    f"{RECOVER_DEADLINE_S} s after the partition cleared: "
+                    f"(expected, acked) {pending}"
+                )
+            time.sleep(0.2)
+        return {k: v - before.get(k, 0.0) for k, v in self.timer.stages.items()}
+
+    def _unjoined(self) -> list[str]:
+        return [
+            obj["metadata"]["name"] for obj in self.stores.host.list_view(FEDERATED_CLUSTERS)
+            if (get_condition(obj, JOINED) or {}).get("status") != "True"
+        ]
+
     def settle(self) -> dict[str, float]:
         """Settle the controllers, then one monitor pass (its clock moved
-        by one interval); seconds per controller kind."""
+        by one interval); seconds per controller kind.  Over HTTP a join
+        can lose a write race and retry on the cluster controller's
+        clock: while a cluster is not Joined, that clock moves one
+        heartbeat and the controllers settle again."""
         before = dict(self.timer.stages)
         self.timer.settle()
+        deadline = time.monotonic() + SETTLE_DEADLINE_S
+        while self.farm is not None and self._unjoined():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"clusters not joined: {self._unjoined()}")
+            self.cluster_now[0] += CLUSTER_HEARTBEAT_S
+            self.timer.settle()
         t0 = time.perf_counter()
         self.monitor_now[0] += DEFAULT_INTERVAL_SECONDS
         for mon in self.monitors:
@@ -653,14 +973,14 @@ class ControlPlane:
                 C.meta(obj).get("namespace", "") + "/" + obj["metadata"]["name"]: obj
                 for obj in member.list_view(resource)
             }
-            for name, member in self.fleet.members.items()
+            for name, member in self.stores.members.items()
         }
 
     def member_counts(self) -> dict:
         """Cumulative member-side counts: Deployments, ConfigMaps and
         Namespaces held, store writes (resourceVersion steps), ops by
         verb, bulk requests, and the breakers' sheds and retries."""
-        members = self.fleet.members.values()
+        members = self.stores.members.values()
         snap = self.sync.breakers.snapshot()
         return {
             "member_objects": sum(len(m.keys(self.ftc.source.resource)) for m in members),
@@ -673,6 +993,7 @@ class ControlPlane:
             ),
             "sheds": self.sync.breakers.shed_total(),
             "retries": sum(e["dispatch_retries"] for e in snap.values()),
+            "breaker_opens": sum(e["opens_total"] for e in snap.values()),
         }
 
     def gauges(self) -> dict:
@@ -825,8 +1146,8 @@ def check_followers(plane: ControlPlane, followers: int) -> dict:
     """``team-a`` in every member; each ``cfg-i`` placed by the follower
     on exactly ``mig-i``'s clusters, and the members hold exactly those
     ConfigMaps."""
-    members = set(plane.fleet.members)
-    for name, member in plane.fleet.members.items():
+    members = set(plane.stores.members)
+    for name, member in plane.stores.members.items():
         if member.try_get_view(NAMESPACES, TEAM) is None:
             raise AssertionError(f"{name}: no Namespace {TEAM}")
     cm_ftc = plane.ftcs["configmaps"]
@@ -885,28 +1206,30 @@ def run_rounds(
     after_round: Optional[Callable[[str, dict], None]] = None,
     followers: int = FOLLOWERS,
     migrants: int = MIGRANTS,
+    rounds: tuple = ROUNDS,
 ) -> dict[str, dict]:
-    """The seven rounds of the module docstring on ``plane``, each
-    checked, with ``followers`` ``mig-*`` objects, the first ``migrants``
-    of them stuck in round 7; ``on_round(name)`` runs just before each
-    round (the caller's counter resets) and ``after_round(name,
-    report)`` just after it settles, before its checks."""
+    """The rounds of the module docstring on ``plane``, each checked:
+    ``rounds`` is ROUNDS or HTTP_ROUNDS.  ``followers`` ``mig-*``
+    objects, the first ``migrants`` of them stuck in round 7;
+    ``on_round(name)`` runs just before each round (the caller's counter
+    resets) and ``after_round(name, report)`` just after it settles,
+    before its checks."""
     expected = {web_key(i): replicas_of(i) for i in range(objects)}
     reports: dict[str, dict] = {}
     resource = plane.ftc.source.resource
     refs = {"default/pp": 0, "default/op": 0}
 
-    def round_(name: str, act: Callable[[], None]) -> dict:
+    def round_(name: str, act: Callable[[], None], settle: Optional[Callable] = None) -> dict:
         if on_round is not None:
             on_round(name)
         ticks0, seq0 = len(plane.ticks), plane.engine.tick_seq
         counts0 = plane.member_counts()
         t0 = time.perf_counter()
         act()
-        walls = plane.settle()
+        walls = (settle or plane.settle)()
         wall = time.perf_counter() - t0
         ticks = plane.ticks[ticks0:]
-        digests = store_digests(plane.fleet, plane.digest_cache)
+        digests = plane.digests()
         counts = plane.member_counts()
         reports[name] = report = {
             "wall_s": wall,
@@ -929,6 +1252,7 @@ def run_rounds(
             "dispatch_batches": counts["dispatch_batches"] - counts0["dispatch_batches"],
             "sheds": counts["sheds"],
             "retries": counts["retries"],
+            "breaker_opens": counts["breaker_opens"],
             # Enqueues the workers' admission deferred (ADMIT_DEPTH), by
             # worker, since the plane started: a deferral waits on the
             # wall clock.
@@ -1012,6 +1336,63 @@ def run_rounds(
         raise AssertionError(f"topology changed member objects of {sorted(written - moved)[:5]}")
     report["members_changed"] = len(written)
     before = after
+
+    if "partition" in rounds:
+        # 6 (HTTP). partition: one member cut off — the one holding the
+        # most objects, the lowest name on a tie — a 1 % churn of objects
+        # placed on it, then the fault cleared and every write landed.
+        held: dict[str, int] = {}
+        for reps in before.values():
+            for cl in reps:
+                held[cl] = held.get(cl, 0) + 1
+        victim = min(held, key=lambda cl: (-held[cl], cl))
+        on_victim = [i for i in range(objects) if victim in before.get(web_key(i), {})]
+        churned = {i: expected[web_key(i)] + 3
+                   for i in on_victim[: max(1, objects // CHURN_EVERY)]}
+        if not churned:
+            raise AssertionError(f"partition: no object placed on {victim}")
+
+        def cut_and_churn():
+            plane.partition(victim)
+            plane.scale(churned)
+            plane.settle()
+            plane.heal(victim)
+
+        opens0, sheds0, retries0 = (reports["topology"][k] for k in
+                                    ("breaker_opens", "sheds", "retries"))
+        report = round_("partition", cut_and_churn, settle=plane.recover)
+        for i, n in churned.items():
+            expected[web_key(i)] = n
+        report["placed"] = check_sums(plane, expected)
+        after = plane.placements()
+        keys = {web_key(i) for i in churned}
+        moved = {k for k in after if after[k] != before.get(k)}
+        if not moved <= keys:
+            raise AssertionError(f"partition moved unchurned objects: {sorted(moved - keys)[:5]}")
+        report["churned"], report["moved"] = len(churned), len(moved)
+        report["pairs"] = check_members(plane)
+        written = member_changes(reports["topology"]["digests"], report["digests"], resource)
+        if not written or not written <= keys:
+            raise AssertionError(f"partition changed member objects of {sorted(written - keys)[:5]}")
+        report["members_changed"] = len(written)
+        report["fault"] = {
+            "member": victim,
+            "breaker_opens": report["breaker_opens"] - opens0,
+            "sheds": report["sheds"] - sheds0,
+            "retries": report["retries"] - retries0,
+        }
+        if plane.farm is not None and not (report["fault"]["sheds"] or report["fault"]["retries"]):
+            raise AssertionError(f"partition: no write to {victim} failed: {report['fault']}")
+        before = after
+
+    if "follow" not in rounds:
+        panics = plane.panics()
+        if any(panics.values()):
+            raise AssertionError(f"controller panics: { {k: v for k, v in panics.items() if v} }")
+        last = reports["topology"]
+        if last["sheds"] or last["retries"]:
+            raise AssertionError(f"dispatch: {last['sheds']} sheds, {last['retries']} retries")
+        return reports
 
     # 6. follow: a namespace, its policy, ConfigMaps and the Deployments
     # that mount them.

@@ -136,6 +136,52 @@ def test_scan_covers_the_process():
         assert rel in PORT_FILES, rel
 
 
+def test_scan_covers_the_transport():
+    for rel in (
+        "kubeadmiral_tpu_torch/transport/paths.py",
+        "kubeadmiral_tpu_torch/transport/client.py",
+        "kubeadmiral_tpu_torch/transport/apiserver.py",
+        "kubeadmiral_tpu_torch/transport/faults.py",
+        "kubeadmiral_tpu_torch/testing/kwoklite.py",
+        "kubeadmiral_tpu_torch/testing/kwokserver.py",
+        "kubeadmiral_tpu_torch/testing/soakharness.py",
+        "kubeadmiral_tpu_torch/testing/shardreplica.py",
+        "kubeadmiral_tpu_torch/scheduler/extension_service.py",
+    ):
+        assert rel in PORT_FILES, rel
+
+
+@pytest.mark.parametrize("module", ["kwokserver", "shardreplica"])
+def test_entry_points_take_their_configuration_as_arguments(module):
+    """The ``python -m`` entry points of the member apiserver and the
+    shard replica read their configuration from the command line (the
+    JAX modules read KWOK_* and KT_REPLICA_* / KT_SHARD_* variables)."""
+    import importlib
+
+    mod = importlib.import_module(f"kubeadmiral_tpu_torch.testing.{module}")
+    options = {o for a in mod.build_parser()._actions for o in a.option_strings}
+    want = {
+        "kwokserver": {"--name", "--token", "--port", "--telemetry-dir"},
+        "shardreplica": {"--host-url", "--host-token", "--shard-count", "--shard-index",
+                         "--ftc", "--device"},
+    }[module]
+    assert want <= options
+    assert not _reads_environment(ROOT / f"kubeadmiral_tpu_torch/testing/{module}.py")
+
+
+def test_http_transport_no_longer_exits_2():
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeadmiral_tpu_torch", "--transport", "http", "--device", "cpu",
+         "--port", "0", "--members", "1", "--no-leader-elect", "--run-seconds", "0.1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "host apiserver on http://" in proc.stdout
+
+
 def _reads_environment(path: Path) -> list[int]:
     """Lines reading os.environ / os.getenv / os.putenv."""
     return sorted(

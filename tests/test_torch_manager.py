@@ -54,9 +54,17 @@ def run_manager_case(cls, name):
 
     def both(monkeypatch):
         def with_cpu_manager():
-            if TM.ControllerManager is port_manager.ControllerManager:
-                monkeypatch.setattr(TM, "ControllerManager", CpuControllerManager)
-            return run()
+            # Swapped and put back here, inside run_both's context: a
+            # setattr on the test's own monkeypatch would be undone after
+            # that context, putting back the port's class it saw, and
+            # leave it in test_manager for the tests that run later.
+            if TM.ControllerManager is not port_manager.ControllerManager:
+                return run()
+            TM.ControllerManager = CpuControllerManager
+            try:
+                return run()
+            finally:
+                TM.ControllerManager = port_manager.ControllerManager
 
         return run_both(monkeypatch, (TM,), with_cpu_manager)
 

@@ -5,7 +5,12 @@
   drains it: exit 0, leadership released (when elected), no write shed.
 * Without CUDA and without ``--device cpu`` it exits nonzero at engine
   construction: the process never falls back to the CPU.
-* ``--transport http`` exits 2: the port has no HTTP transport yet.
+* ``--transport http --device cpu --members 3`` serves the control plane
+  over a kwok-lite farm of apiserver sockets: the members join (read
+  from the host apiserver's socket), a Deployment created through that
+  socket is divided over the member sockets (read with the printed
+  admin tokens), and a SIGTERM drains it with exit 0 and no write shed;
+  the transport no longer exits 2.
 * The parser has the JAX entry point's options and defaults, plus
   ``--device``.
 """
@@ -105,13 +110,82 @@ def test_default_device_without_cuda_exits_nonzero():
 
 
 def test_http_transport_exits_2():
+    """Until the HTTP transport was ported ``--transport http`` exited
+    2; now it serves, and ends 0 when its run time is up."""
     proc = subprocess.run(
-        [sys.executable, "-m", "kubeadmiral_tpu_torch", "--transport", "http", "--port", "0"],
+        [sys.executable, "-m", "kubeadmiral_tpu_torch", "--transport", "http", "--port", "0",
+         "--device", "cpu", "--members", "1", "--no-leader-elect", "--run-seconds", "1"],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
-    assert proc.returncode == 2
-    assert "HTTP transport" in proc.stderr
-    assert "health endpoints" not in proc.stdout
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert re.search(r"host apiserver on http://127\.0\.0\.1:\d+", proc.stdout)
+    assert "health endpoints" in proc.stdout
+    assert "shutdown: shed_writes=0" in proc.stdout
+
+
+def test_http_transport_joins_propagates_and_drains():
+    from kubeadmiral_tpu_torch.federation.clusterctl import (
+        FEDERATED_CLUSTERS,
+        JOINED,
+        READY,
+        get_condition,
+    )
+    from kubeadmiral_tpu_torch.models.policy import PROPAGATION_POLICIES, PROPAGATION_POLICY_LABEL
+    from kubeadmiral_tpu_torch.transport.client import HttpKube
+
+    proc = start("--transport", "http", "--device", "cpu", "--port", "0", "--members", "3",
+                 "--create-crds-for-ftcs")
+    lines, clients = [], []
+    try:
+        host_url = read_until(proc, r"host apiserver on (\S+)", lines).group(1)
+        members = {}
+        for _ in range(3):
+            m = read_until(proc, r"member (\S+) apiserver on (\S+) \(admin token: (\S+)\)", lines)
+            members[m.group(1)] = (m.group(2), m.group(3))
+        read_until(proc, r"controller manager running", lines)
+        host = HttpKube(host_url)
+        clients.append(host)
+
+        def until(check, timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while not check():
+                assert time.monotonic() < deadline, lines
+                time.sleep(0.1)
+
+        until(lambda: len([
+            o for o in host.list(FEDERATED_CLUSTERS)
+            if all((get_condition(o, c) or {}).get("status") == "True" for c in (JOINED, READY))
+        ]) == 3)
+        host.create(PROPAGATION_POLICIES, {
+            "apiVersion": "core.kubeadmiral.io/v1alpha1", "kind": "PropagationPolicy",
+            "metadata": {"name": "pp", "namespace": "default"}, "spec": {"schedulingMode": "Divide"}})
+        host.create("apps/v1/deployments", {
+            "apiVersion": "apps/v1", "kind": "Deployment",
+            "metadata": {"name": "web", "namespace": "default",
+                         "labels": {PROPAGATION_POLICY_LABEL: "pp"}},
+            "spec": {"replicas": 6, "selector": {"matchLabels": {"app": "web"}},
+                     "template": {"metadata": {"labels": {"app": "web"}}, "spec": {"containers": [
+                         {"name": "c", "image": "nginx", "resources": {"requests": {"cpu": "50m"}}}]}}}})
+        member_clients = [HttpKube(url, token=token) for url, token in members.values()]
+        clients.extend(member_clients)
+
+        def replicas():
+            objs = [c.try_get("apps/v1/deployments", "default/web") for c in member_clients]
+            return sum(o["spec"]["replicas"] for o in objs if o is not None)
+
+        until(lambda: replicas() == 6)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        lines.append(out)
+    finally:
+        for client in clients:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    assert proc.returncode == 0, text
+    assert "shutdown: shed_writes=0" in text
 
 
 def _options(parser):
