@@ -137,6 +137,23 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    engine's stop-the-world tick at the checked flushes; the kernel
    against its twin on a flush's slab; ``stream c3 ...`` lines and a
    summary (rows re-decided per second, event -> visible latency);
+10a'. the opt-in phase (``optin_phase``), c3 at full size, then c5's
+   width over its first C5_OPTIN_OBJECTS objects: a default engine ticks
+   OPTIN_TICKS (cold, 1 % churn, no-op, a drift and back, a fit-flip
+   drift — a quarter of the cpu left on the four clusters with the least
+   and the four with the most — and back; at c3 also DONATION_TICKS, a
+   drift the gate does not take and back), then one engine per
+   OPTIN_CONFIGS entry (the three-stream survivor revert, with and
+   without its replan or resolve stream; f16 score planes; the dense
+   fetch format; the dense solve; int64 select keys; full
+   featurization; no donation, which also ticks DONATION_TICKS) ticks
+   the same worlds: its results equal the default engine's after every
+   tick, no-op ticks launch nothing, the three-stream fit-flip drift
+   settles rows through the programs it leaves on (and the ledger names
+   them), and every f16 plane and exactness vector equals the CPU
+   conversion of the default engine's i32 plane; ``optin c3 <config>
+   <tick>`` lines (wall ms, launches, drift_stats, survivor_stats, fetch
+   paths and bytes, ledger kinds, memory_allocated and its peak);
 10b. the control phase (``control_phase``): the control plane
    (``testing/cpworld.py``, ``bench_e2e.py``'s world at
    CONTROL_SHAPE = 10,000 Deployments x 500 member clusters, with its
@@ -220,7 +237,8 @@ anything.  Usage: ``python3 chip_smoke.py``.
 Two phases are cut to make room for the HTTP phase within the time
 limit: c5's depth turns run over its first C5_BUDGET_OBJECTS objects
 (as its budget turns), and c5's budget turns run C5_TURN_BUDGETS (1, 2)
-(c3 keeps TURN_BUDGETS).
+(c3 keeps TURN_BUDGETS).  The opt-in phase's c5 engines run over the
+world's first C5_OPTIN_OBJECTS objects.
 """
 
 from __future__ import annotations
@@ -1853,6 +1871,165 @@ def stream_phase(cfg: str, units, clusters) -> dict:
     return {"flushes": flushes, "summary": summary, "kernel": kernel}
 
 
+# The opt-in phase: each configuration an engine with the switches
+# given, ticked through OPTIN_TICKS beside the default engine.  c3 runs
+# at full size; the c5 engines over the world's first C5_OPTIN_OBJECTS
+# objects (two 4,096-row chunks at the full 5,120-cluster width: at
+# 16,384 objects the phase ran 119.42 s on an H100, past its 100 s).
+C5_OPTIN_OBJECTS = 8192
+OPTIN_CONFIGS = {
+    "3": (
+        ("three-stream", {"survivor_unified": False}),
+        ("three-stream replan off", {"survivor_unified": False, "replan": False}),
+        ("three-stream resolve off", {"survivor_unified": False, "drift_resolve": False}),
+        ("f16", {"score_f16": True}),
+        ("dense fetch", {"fetch_format": "dense"}),
+        ("dense solve", {"narrow": False}),
+        ("i64 keys", {"phase1_i32": False}),
+        ("full featurization", {"delta_feat": False}),
+        ("donate off", {"donate": False}),
+    ),
+    "5": (
+        ("three-stream", {"survivor_unified": False}),
+        ("f16", {"score_f16": True}),
+        ("dense fetch", {"fetch_format": "dense"}),
+        ("dense solve", {"narrow": False}),
+    ),
+}
+OPTIN_TICKS = ("cold", "churn", "noop", "drift", "back", "fitflip", "back from fitflip")
+# Ticks past OPTIN_TICKS that the default engine and the donate-off
+# engine take at c3: a drift the gate does not take (every chunk a full
+# dispatch with the delta fetch, where donation frees the previous
+# planes) and its tick back.
+DONATION_TICKS = ("wide", "back from wide")
+
+
+def optin_phase(cfg: str, units, clusters) -> dict:
+    """The engine's opt-in switches on the card.  The default engine
+    ticks OPTIN_TICKS (at c3 then DONATION_TICKS) first: its results,
+    and the chunks' i32 score planes on the host, are kept per tick.
+    Then each configuration of OPTIN_CONFIGS[cfg] on a fresh engine
+    ticks the same sequence: after every tick its results must equal the
+    default engine's; no-op ticks launch nothing; under the three-stream
+    revert the fit-flip drift must settle rows through the resolve,
+    replan and score-only programs (the ones a configuration leaves on)
+    and record their ledger kinds; under f16 every chunk's stored plane
+    and exactness vector must equal the plain CPU conversion
+    (``ops.pipeline.compress_scores``) of the default engine's i32
+    plane.  Engines record into no flight recorder (the dense format
+    then reads 6 B a cell) and each into a dispatch ledger of its own.
+    Each tick logs its wall ms, launches, drift_stats, survivor_stats,
+    fetch bytes, ledger kinds, memory_allocated and its peak.  Returns
+    the ticks by configuration and label."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops.pipeline import compress_scores
+    from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.worlds import churn, drift, drift_fitflip, drift_wide
+
+    if cfg == "5":
+        units = units[:C5_OPTIN_OBJECTS]
+    churned = churn(np.random.default_rng(0), units)
+    worlds = {
+        "cold": (units, clusters), "churn": (churned, clusters), "noop": (churned, clusters),
+        "drift": (churned, drift(clusters)), "back": (churned, clusters),
+        "fitflip": (churned, drift_fitflip(clusters)), "back from fitflip": (churned, clusters),
+        "wide": (churned, drift_wide(clusters)), "back from wide": (churned, clusters),
+    }
+
+    def run(name, switches, labels, keep_planes=False):
+        ledger = DispatchLedger()
+        engine = SchedulerEngine(flight_recorder=None, devprof=ledger, **switches)
+        out = {}
+        for label in labels:
+            batch, world = worlds[label]
+            got, tick, _ = counted_tick(engine, batch, world)
+            tick.pop("drains", None)
+            tick["ledger_kinds"] = sorted(ledger.tick_summary(engine.last_tick_id)["by_program"])
+            if keep_planes:
+                # A copy (on a CPU tensor .cpu() is the tensor itself,
+                # which later ticks update in place).
+                tick["planes"] = [
+                    np.array(e.prev_out[3].cpu()) for _, e in sorted(engine._chunk_cache.items())
+                ]
+            if engine.score_f16:
+                tick["f16_rows_inexact"] = f16_check(f"c{cfg} {name} {label}", engine,
+                                                     default[label]["planes"])
+            out[label] = (got, tick)
+        del engine
+        torch.cuda.empty_cache()
+        return out
+
+    def f16_check(label, engine, planes) -> int:
+        """The stored f16 planes and exactness vectors against the CPU
+        conversion of the default engine's i32 planes; returns the
+        inexact rows."""
+        inexact = 0
+        for (_, e), i32 in zip(sorted(engine._chunk_cache.items()), planes):
+            want16, want_exact = compress_scores(torch.from_numpy(i32))
+            got16 = e.prev_out[3].cpu().numpy()
+            got_exact = e.prev_sco_exact.cpu().numpy()
+            if not (np.array_equal(got16.view(np.uint16), want16.numpy().view(np.uint16))
+                    and np.array_equal(got_exact, want_exact.numpy())):
+                raise AssertionError(f"{label}: the f16 plane or vector differs from the CPU's")
+            inexact += int((got_exact == 0).sum())
+        return inexact
+
+    def summary(tick) -> dict:
+        keys = ("tick_ms", "phase1_launches", "drift_stats", "survivor_stats", "fetch_paths",
+                "fetch_bytes", "narrow_dispatches", "dense_dispatches", "planner_reruns",
+                "memory_allocated", "max_memory_allocated", "ledger_kinds",
+                "f16_rows_inexact")
+        return {k: tick[k] for k in keys if k in tick}
+
+    labels = OPTIN_TICKS + (DONATION_TICKS if cfg == "3" else ())
+    # The script's heap (both worlds, earlier phases' results) makes each
+    # tick's gc.collect() in counted_tick take a second or more: frozen
+    # for the phase, the collections see this phase's objects only.
+    gc.freeze()
+    try:
+        t0 = time.perf_counter()
+        base = run("default", {}, labels, keep_planes=True)
+        results = {label: got for label, (got, _tick) in base.items()}
+        default = {label: tick for label, (_got, tick) in base.items()}
+        del base
+        ticks = {"default": {}}
+        for label, tick in default.items():
+            ticks["default"][label] = summary(tick)
+            log(f"optin c{cfg} default {label}: {json.dumps(ticks['default'][label])}")
+        log(f"optin c{cfg} default: {time.perf_counter() - t0:.2f} s")
+        for name, switches in OPTIN_CONFIGS[cfg]:
+            t0 = time.perf_counter()
+            these = labels if switches.get("donate") is False else OPTIN_TICKS
+            ticks[name] = {}
+            for label, (got, tick) in run(name, switches, these).items():
+                assert_results_equal(f"optin c{cfg} {name} {label} vs default", got, results[label])
+                if label == "noop" and tick["phase1_launches"]:
+                    raise AssertionError(f"optin c{cfg} {name} noop launched: {tick}")
+                ticks[name][label] = summary(tick)
+                log(f"optin c{cfg} {name} {label}: {json.dumps(ticks[name][label])}")
+            if not switches.get("survivor_unified", True):
+                flip = ticks[name]["fitflip"]
+                stats, kinds = flip["drift_stats"], flip["ledger_kinds"]
+                want = {"resolve": switches.get("drift_resolve", True),
+                        "replan": switches.get("replan", True),
+                        "score_only": switches.get("replan", True)}
+                for key, on in want.items():
+                    if (stats.get(key, 0) > 0) != on:
+                        raise AssertionError(f"optin c{cfg} {name} fitflip: {key} {stats}")
+                    kind = "scoreonly" if key == "score_only" else key
+                    if (kind in kinds) != on:
+                        raise AssertionError(f"optin c{cfg} {name} fitflip: ledger kinds {kinds}")
+            log(f"optin c{cfg} {name}: {time.perf_counter() - t0:.2f} s")
+        del results, default
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ticks
+    finally:
+        gc.unfreeze()
+
+
 CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64)
 
 
@@ -2889,6 +3066,15 @@ def main() -> int:
         streams[cfg] = stream_phase(cfg, *worlds[cfg][:2])
         log(f"phase stream-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
+    # The engine's opt-in switches, each beside the default engine.
+    optin = {}
+    for cfg in ("3", "5"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        optin[cfg] = optin_phase(cfg, *worlds[cfg][:2])
+        log(f"phase optin-c{cfg}: {time.perf_counter() - t0:.2f} s")
+
     # The control plane (the manager's controllers) over the card's engine.
     t0 = time.perf_counter()
     del worlds, units, clusters
@@ -3091,6 +3277,22 @@ def main() -> int:
                     for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
                 },
                 "launches_extension": extension["launches"],
+                # The opt-in phase: launches per configuration and tick
+                # (the default engine's beside them), and the device
+                # memory held after and at the peak of each tick.
+                "launches_optin": {
+                    f"c{cfg} {name} {label}": t["phase1_launches"]
+                    for cfg, by_name in optin.items()
+                    for name, by_label in by_name.items()
+                    for label, t in by_label.items()
+                },
+                "optin_memory": {
+                    f"c{cfg} {name} {label}": [t["memory_allocated"], t["max_memory_allocated"]]
+                    for cfg, by_name in optin.items()
+                    for name, by_label in by_name.items()
+                    for label, t in by_label.items()
+                    if label in ("cold", "wide")
+                },
                 "extension_posts": extension["posts"],
                 "process_http_replicas": process_http["replicas"],
                 "card": card,

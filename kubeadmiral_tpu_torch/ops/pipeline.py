@@ -17,8 +17,10 @@ cluster axis; ``schedule_tick_narrow`` runs them over M candidate
 columns per row with a per-row exactness certificate; ``pack_wire``
 compacts the output planes into K slots per row for the device->host
 copy.  The drift programs (``drift_gate_dense``/``drift_gate_compact``,
-``drift_wcheck``, ``drift_survivor``) classify and re-solve the rows a
-capacity drift can move from the stored planes of the previous tick.
+``drift_wcheck``, ``drift_survivor``, and the three-stream revert's
+``drift_resolve`` and ``drift_replan``) classify
+and re-solve the rows a capacity drift can move from the stored planes
+of the previous tick; ``compress_scores`` keeps a score plane in f16.
 Plane dtypes follow the JAX package one for one.
 """
 
@@ -682,6 +684,211 @@ def drift_survivor(inp: TickInputs, reasons_rows, m: int, i32_keys: bool = False
     out, cert = _narrow_solve(inp, feasible, base_reasons, totals, m, i32_keys)
     sticky_active = inp.sticky & inp.current_mask.any(dim=-1)
     return out, ((cert != 0) & ~sticky_active).to(torch.int8)
+
+
+# -- drift: the three-stream survivor programs ----------------------------
+# The engine's revert of the unified survivor stream sends a gated
+# chunk's survivors through three programs: rows without a fit flip
+# through the sort-free ``drift_resolve``, kinf fit-flip rows through the
+# selection-known ``drift_replan``, finite-K fit-flip rows through the
+# score-only solve (JAX's ``drift_scoreonly``, the same solve as
+# ``drift_survivor``).  Each certifies per row; failures take the slabs.
+
+
+def drift_replan(inp: TickInputs, reasons_rows, scores_rows, m: int):
+    """Selection-known replan of kinf fit-flip survivors [n, C]: the cut
+    cannot engage, so the new selection is the new feasible set from
+    ``_stored_filters``; Divide rows run the top-M planner leg.  Scores
+    are not recomputed: the outputs carry ``scores_rows`` (the stored
+    plane), which no decision of a kinf row reads.  Returns (outputs,
+    cert i8[n]); cert == 1 guarantees the dense tick's placements,
+    replicas and reasons."""
+    c = inp.cluster_valid.shape[0]
+    feasible, base_reasons = _stored_filters(inp, reasons_rows)
+    nfeas = feasible.sum(dim=-1, dtype=torch.int32)
+    k_eff = torch.where(
+        inp.max_clusters < 0, 0, torch.clamp(inp.max_clusters, max=c)
+    )
+    kinf = (inp.max_clusters == _INF) | (k_eff >= nfeas)
+    # A negative maxClusters selects nothing.
+    selected = feasible & (inp.max_clusters >= 0)[:, None]
+    sticky_active = inp.sticky & inp.current_mask.any(dim=-1)
+    weights = _planner_weights(inp, selected)
+    divide_replicas, plan_cert = _plan_topm(inp, selected, weights, m)
+    cert = (
+        (kinf | (inp.max_clusters < 0))
+        & ~sticky_active
+        & (~inp.mode_divide | plan_cert)
+    )
+    out = _finalize(inp, feasible, base_reasons, scores_rows, selected, divide_replicas)
+    return out, cert.to(torch.int8)
+
+
+def drift_resolve(
+    inp: TickInputs,   # gathered survivor rows [n, C] (expanded)
+    prev_feas_rows,    # i8[n, C] stored feasibility rows
+    scores_rows,       # i32[n, C] gate-refreshed score rows (the new totals)
+    reasons_rows,      # i32[n, C] stored reason rows
+    alloc_old_d,       # i64[D, R] old cluster tensors at the changed columns
+    used_old_d,
+    alloc_new_d,       # i64[D, R] new cluster tensors at the changed columns
+    used_new_d,
+    delta_idx,         # i32[D] changed columns (padding: out of range)
+    delta_valid,       # bool[D]
+    m: int,            # candidate slots (the engine's narrow M)
+):
+    """Sort-free re-solve of gate survivors without a fit flip.
+
+    Phase 1 is known: feasibility is the stored plane and the refreshed
+    score plane holds the new totals.  The new top-K lies in the old
+    selection (stored feasible columns without a MAX_CLUSTERS bit), the
+    feasible changed columns and the best D feasible outsiders by the
+    (-total, index) key (unchanged columns keep their order, and an
+    outsider enters only when a changed column leaves): D iterated
+    argmins, no sort.  Select and the planner (zero phantom tail: the
+    selection lies in the slots) run over those at most M columns.
+    Returns (outputs [n, C], cert i8[n]); cert == 1 guarantees the
+    dense tick's outputs; rows with 0 (fit moved at a changed column,
+    kinf, sticky, more than M candidates, planner certificate) take the
+    slab path.  Scatters route out-of-range indices (unused slots, pad
+    delta slots) to a spare column past the grid."""
+    n, c = prev_feas_rows.shape
+    d = delta_idx.shape[0]
+    device = prev_feas_rows.device
+    feas = prev_feas_rows != 0
+    totals = scores_rows
+
+    # Fit must not move at any changed column.
+    fit_old_d = F.resources_fit(inp.request, alloc_old_d, used_old_d)
+    fit_new_d = F.resources_fit(inp.request, alloc_new_d, used_new_d)
+    cert = ~((fit_old_d != fit_new_d) & delta_valid[None, :]).any(dim=1)
+
+    # The old select-stage selection, from the stored planes.
+    sel_stage = feas & ((reasons_rows & RSN.REASON_MAX_CLUSTERS) == 0)
+    nfeas = feas.sum(dim=-1, dtype=torch.int32)
+    k_eff = torch.where(
+        inp.max_clusters < 0, 0, torch.clamp(inp.max_clusters, max=c)
+    )
+    kinf = (inp.max_clusters == _INF) | (inp.max_clusters < 0) | (k_eff >= nfeas)
+    sticky_active = inp.sticky & inp.current_mask.any(dim=-1)
+    k_sel = sel_stage.sum(dim=-1, dtype=torch.int32)
+    cert = cert & ~kinf & ~sticky_active & (k_sel == k_eff)
+
+    # Candidates: old selection | feasible changed columns | best-D
+    # feasible outsiders by the new composite key.
+    didx64 = delta_idx.to(torch.int64)
+    is_delta = torch.zeros(c + 1, dtype=torch.bool, device=device)
+    is_delta[torch.where((didx64 >= 0) & (didx64 < c), didx64, c)] = delta_valid
+    is_delta = is_delta[:c]
+    iota = torch.arange(c, dtype=torch.int64, device=device).expand(n, c)
+    comp = (-totals.to(torch.int64)) * c + iota
+    avail = feas & ~sel_stage & ~is_delta[None, :]
+    compm = torch.where(avail, comp, _CERT_INF)
+    entrant = torch.zeros((n, c), dtype=torch.bool, device=device)
+    # At most one outsider enters per valid changed column.
+    nvd = delta_valid.to(torch.int32).sum()
+    for t in range(d):
+        mval = compm.amin(dim=-1, keepdim=True)
+        pick = (compm == mval) & (mval < _CERT_INF) & (nvd > t)
+        entrant = entrant | pick
+        compm = torch.where(pick, _CERT_INF, compm)
+    cand_mask = sel_stage | (is_delta[None, :] & feas) | entrant
+    n_cand = cand_mask.sum(dim=-1, dtype=torch.int32)
+    cert = cert & (n_cand <= m)
+
+    # The candidates in m ascending slots (column c on unused slots):
+    # slot order is column order, the narrow tie-break contract.
+    pos = torch.cumsum(cand_mask.to(torch.int64), dim=-1) - 1
+    slot = torch.clamp(torch.where(cand_mask, pos, m), max=m)
+    cand = torch.full((n, m + 1), c, dtype=torch.int64, device=device)
+    cand.scatter_(1, slot, iota)
+    cand = cand[:, :m]
+    valid_slot = cand < c
+    cand_c = torch.clamp(cand, max=c - 1)
+
+    def take(plane):
+        return plane.gather(1, cand_c)
+
+    def spread(vals, fill, dtype):
+        grid = torch.full((n, c + 1), fill, dtype=dtype, device=device)
+        grid.scatter_(1, cand, vals.to(dtype))
+        return grid[:, :c]
+
+    fea_s = take(feas) & valid_slot
+    sel_n = select_topk(take(totals), fea_s, inp.max_clusters)
+    selected = spread(sel_n, False, torch.bool)
+
+    # The planner over the same slots, with a zero phantom tail.
+    weights = _planner_weights(inp, selected)
+    comp_true = processing_key(
+        take(weights), take(inp.tiebreak), torch.zeros_like(sel_n)
+    )
+    plan_out, pcert = plan_batch_narrow(
+        PlannerInputs(
+            weight=torch.where(sel_n, take(weights), 0),
+            min_replicas=torch.where(sel_n, take(inp.min_replicas), 0),
+            max_replicas=take(inp.max_replicas),
+            scale_max=take(inp.scale_max),
+            capacity=take(inp.capacity),
+            tiebreak=take(inp.tiebreak),
+            member=sel_n,
+            total=inp.total,
+            current=take(_current_plane(inp)),
+            avoid_disruption=inp.avoid_disruption,
+            keep_unschedulable=inp.keep_unschedulable,
+        ),
+        torch.zeros(n, dtype=torch.int32, device=device),
+        torch.full((n,), -1, dtype=torch.int64, device=device),
+        comp_true,
+    )
+    divide_replicas = spread(plan_out.plan + plan_out.overflow, 0, torch.int64)
+    cert = cert & (~inp.mode_divide | pcert)
+
+    # Filter reasons: the stored bits with resources_fit recomputed
+    # against the new planes (the one filter a drift can move);
+    # _finalize re-derives the select and replica bits.
+    fit_ok = F.resources_fit(inp.request, inp.alloc, inp.used)
+    fit_bit = (
+        inp.filter_enabled[:, F.F_RESOURCES_FIT, None] & ~fit_ok
+    ).to(torch.int32) * RSN.REASON_RESOURCES_FIT
+    base_reasons = (
+        reasons_rows & ~(RSN.SELECT_REASON_MASK | RSN.REASON_RESOURCES_FIT)
+    ) | fit_bit
+    out = _finalize(inp, feas, base_reasons, totals, selected, divide_replicas)
+    return out, cert.to(torch.int8)
+
+
+# -- f16 score planes ------------------------------------------------------
+# An engine may keep its resident score plane as float16 beside a per-row
+# exactness vector: a row is exact iff every score survives the
+# i32 -> f16 -> i32 round trip.  The f16 -> i32 leg saturates (+-inf to
+# the int32 bounds, as XLA converts), so the vector never rests on a
+# conversion C++ leaves undefined; every finite f16 value is an integer
+# int32 holds.
+
+
+def upcast_scores(f16):
+    """Stored f16 scores -> i32, saturating the infinities."""
+    finite = torch.isfinite(f16)
+    back = torch.where(finite, f16, 0).to(torch.int32)
+    back = torch.where(~finite & (f16 > 0), _I32_MAX, back)
+    return torch.where(~finite & (f16 < 0), -_I32_MAX - 1, back)
+
+
+def exact_rows(scores):
+    """i8[n]: 1 where every score of the row round-trips through f16."""
+    back = upcast_scores(scores.to(torch.float16))
+    return (back == scores).all(dim=1).to(torch.int8)
+
+
+def compress_scores(scores, old_exact=None):
+    """i32[B, C] scores -> (f16[B, C], i8[B] exactness).  ``old_exact``
+    is ANDed in: a plane refreshed through an inexact one stays inexact
+    until a recompute stores fresh scores."""
+    exact = exact_rows(scores)
+    if old_exact is not None:
+        exact = exact * old_exact
+    return scores.to(torch.float16), exact
 
 
 # -- drift gate ------------------------------------------------------------

@@ -32,6 +32,11 @@ move are re-solved by the unified survivor program (256 rows or fewer a
 group) or the sub-batch slabs, dynamic-weight rows are checked first,
 and a chunk where most rows move takes the full dispatch.
 
+The JAX engine's opt-in paths are keyword switches of the engine, with
+the JAX engine's defaults (the class docstring): the three-stream
+survivor revert, f16 resident score planes, the dense fetch format, the
+dense solve, int64 select keys, full featurization and buffer donation.
+
 Full dispatches run through the pipelined window (the JAX engine's
 default): up to ``pipeline_depth`` chunks (PIPELINE_DEPTH, 16) are
 queued on the card while the host featurizes the next ones, then the
@@ -92,18 +97,25 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     DRIFT_RECOMPUTE,
     DRIFT_WCHECK,
     NIL_REPLICAS,
+    DRIFT_FITFLIP,
+    DRIFT_REFINE_MAX_COLS,
     PackedRows,
     TickInputs,
+    compress_scores,
     drift_gate_compact,
     drift_gate_dense,
+    drift_replan,
+    drift_resolve,
     drift_survivor,
     drift_wcheck,
+    exact_rows,
     expand_compact,
     pack_wire,
     refresh_scores,
     schedule_tick,
     schedule_tick_narrow,
     unpack_wire,
+    upcast_scores,
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
 from kubeadmiral_tpu_torch.runtime import devprof as devprof_mod
@@ -395,6 +407,14 @@ def _pad_cluster_axis(arr, c_pad: int, fill):
     return np.concatenate([arr, np.full((extra,) + arr.shape[1:], fill, arr.dtype)])
 
 
+def _gather_planes(out, planes: int, idx) -> torch.Tensor:
+    """The given rows of a dispatch's planes as one int32 array for the
+    dense format's delta fetch: selected, replicas, counted, then the
+    score plane (``planes`` >= 4) and the reason plane (5)."""
+    parts = (out.selected, out.replicas, out.counted, out.scores, out.reasons)[:planes]
+    return torch.cat([p.index_select(0, idx).to(torch.int32) for p in parts], dim=1)
+
+
 def _diff_bits(out, prev: tuple, n: int) -> torch.Tensor:
     """i8[n] per-row diff of a tick's first n output rows against the
     previous tick's planes: _DIFF_PLACEMENT when selected, replicas or
@@ -437,6 +457,11 @@ class _CachedChunk:
     prev_feas: Optional[torch.Tensor] = None
     prev_reasons: Optional[torch.Tensor] = None
     prev_nfeas: Optional[torch.Tensor] = None
+    # Under score_f16: prev_out's score plane is float16, and this i8[B]
+    # vector flags the rows whose scores round-trip exactly (missing:
+    # every row inexact); sco_inexact_host caches its inexact rows.
+    prev_sco_exact: Optional[torch.Tensor] = None
+    sco_inexact_host: Optional[np.ndarray] = None
     prev_results: Optional[list] = None
     # Whether prev_results carry score dicts (decoded on a want_scores
     # tick): a tick that wants scores replays them only then.
@@ -484,6 +509,9 @@ class _InFlight:
     want_scores: bool = False
     # Rows the certificate fallback re-solved (forced into the delta).
     fb_rows: Optional[np.ndarray] = None
+    # Under donation: the diff mask, queued at dispatch against the
+    # previous planes it released.
+    mask: Optional[torch.Tensor] = None
 
 
 def _planes(out) -> tuple:
@@ -507,16 +535,52 @@ class SchedulerEngine:
 
     ``metrics`` is the registry each tick reports into (None: a private
     one); ``flight_recorder`` is the decision recorder the drains feed
-    ("default": the process-wide one, None: no recording)."""
+    ("default": the process-wide one, None: no recording).
+
+    The keyword-only switches are the JAX engine's opt-in paths, each
+    defaulting to the JAX engine's default; every one gives the same
+    placements.  ``survivor_unified=False`` reverts the drift survivors
+    to three streams: rows without a fit flip through the sort-free
+    resolve (``drift_resolve``), kinf fit-flip rows through the
+    selection-known replan and finite-K ones through the score-only
+    solve (``replan``).  ``score_f16`` keeps the resident score plane as
+    float16 with a per-row exactness vector; inexact rows leave every
+    path that trusts stored scores.  ``fetch_format="dense"`` fetches
+    the full [B, C] planes (the flight recorder then keeps every
+    cluster's verdict) and runs no survivor program.  ``narrow=False``
+    runs the dense solve at every width.  ``phase1_i32=False`` keeps
+    the narrow select keys int64.  ``delta_feat=False`` sends every
+    changed chunk through the full featurizer and ignores the dirty-row
+    hint.  ``donate`` releases a warm full dispatch's previous output
+    planes once its diff is queued (False: they live until the drain).
+    Each is an attribute, read where it applies."""
 
     def __init__(self, device="cuda", metrics: Optional[Metrics] = None,
-                 flight_recorder="default", devprof="default"):
+                 flight_recorder="default", devprof="default", *,
+                 survivor_unified: bool = True, drift_resolve: bool = True,
+                 replan: bool = True, score_f16: bool = False,
+                 fetch_format: str = "packed", narrow: bool = True,
+                 phase1_i32: bool = True, delta_feat: bool = True,
+                 donate: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "SchedulerEngine: CUDA is not available; pass device='cpu' "
                 "to run on the CPU"
             )
+        if fetch_format not in ("packed", "dense"):
+            raise ValueError(
+                f"fetch_format must be 'packed' or 'dense', got {fetch_format!r}"
+            )
+        self.survivor_unified = bool(survivor_unified)
+        self.drift_resolve = bool(drift_resolve)
+        self.replan = bool(replan)
+        self.score_f16 = bool(score_f16)
+        self.fetch_format = fetch_format
+        self.narrow = bool(narrow)
+        self.phase1_i32 = bool(phase1_i32)
+        self.delta_feat = bool(delta_feat)
+        self.donate = bool(donate)
         # Per-stage wall seconds of the last schedule() call: featurize
         # (host encoding, padding, cache checks, input repairs, drift
         # gate dispatch), device (upload + tick; the weight checks,
@@ -554,14 +618,14 @@ class SchedulerEngine:
         # Global rows whose placement may have changed in the last call
         # ([] none, None unknown: a chunk was fetched whole).
         self.last_changed: Optional[list[int]] = None
-        # Drift-gate row classes (the JAX engine's keys; this engine runs
-        # its default unified survivor stream, so the resolve, replan and
-        # score_only keys stay 0): gated chunks; skip rows (provably
-        # unchanged); wcheck rows (dynamic-weight check) and
-        # wcheck_changed of them; recompute rows sent to the sub-batch
-        # slabs; unified rows settled by the survivor program and
-        # unified_fallback rows failing its certificate; fallback chunks
-        # (most rows moved: the full dispatch).
+        # Drift-gate row classes (the JAX engine's keys): gated chunks;
+        # skip rows (provably unchanged); wcheck rows (dynamic-weight
+        # check) and wcheck_changed of them; recompute rows sent to the
+        # sub-batch slabs; unified rows settled by the survivor program
+        # (resolve, replan and score_only rows by the three-stream
+        # revert's programs) and the *_fallback rows failing their
+        # certificate; fallback chunks (most rows moved: the full
+        # dispatch).
         self.drift_stats = {
             "gated": 0, "skip": 0, "wcheck": 0, "wcheck_changed": 0,
             "recompute": 0, "resolve": 0, "resolve_fallback": 0,
@@ -738,7 +802,9 @@ class SchedulerEngine:
         if m is None:
             self.devprof.observe("tick", schedule_tick(tick_in))
         else:
-            self.devprof.observe("tick_narrow", schedule_tick_narrow(tick_in, m))
+            self.devprof.observe(
+                "tick_narrow", schedule_tick_narrow(tick_in, m, i32_keys=self.phase1_i32)
+            )
         self._sync()
 
     # -- shape policy ----------------------------------------------------
@@ -778,11 +844,13 @@ class SchedulerEngine:
                 return rung
         return eff_chunk
 
-    @staticmethod
-    def _narrow_m(inputs, c_bucket: int) -> Optional[int]:
+    def _narrow_m(self, inputs, c_bucket: int) -> Optional[int]:
         """The chunk's candidate width M, or None for the dense tick: pow2
         over the finite maxClusters bound, floored at NARROW_M; narrow
-        only when M is narrower than the cluster bucket."""
+        only when M is narrower than the cluster bucket (never under
+        ``narrow=False``)."""
+        if not self.narrow:
+            return None
         m = _pow2_bucket(
             max(_finite_bound(inputs.max_clusters), NARROW_M), 8, 1 << 30
         )
@@ -1015,8 +1083,9 @@ class SchedulerEngine:
             )
         ):
             # Identical objects are identical rows (units are immutable),
-            # so only replaced objects are signature-checked.
-            if dirty is None or cached.restored:
+            # so only replaced objects are signature-checked; under
+            # delta_feat=False the dirty-row hint is ignored.
+            if dirty is None or cached.restored or not self.delta_feat:
                 rows_to_check = range(len(chunk))
                 cached.restored = False
             else:
@@ -1038,7 +1107,7 @@ class SchedulerEngine:
                 cached.units = list(chunk)
                 self.cache_stats["hit"] += 1
                 return refreshed, "hit", cached, cached.fmt
-            if len(changed) <= max(1, len(chunk) // 4):
+            if self.delta_feat and len(changed) <= max(1, len(chunk) // 4):
                 sub = self._featurize_rows(
                     [chunk[i] for i in changed], clusters, view, vocab, cached
                 )
@@ -1275,7 +1344,9 @@ class SchedulerEngine:
             self.devprof.observe("tick", out)
             return out, None
         self.narrow_last_m = m
-        out, cert = schedule_tick_narrow(tick_in, m, budget=budget)
+        out, cert = schedule_tick_narrow(
+            tick_in, m, i32_keys=self.phase1_i32, budget=budget
+        )
         self.devprof.observe("tick_narrow", (out, cert))
         return out, cert
 
@@ -1386,7 +1457,7 @@ class SchedulerEngine:
         deltas("engine_fetch_total", self.fetch_stats, before["fetch"], "path")
         bytes_delta = self.fetch_bytes_total - before["bytes"]
         if bytes_delta:
-            m.counter("engine_fetch_bytes_total", bytes_delta, format="packed")
+            m.counter("engine_fetch_bytes_total", bytes_delta, format=self.fetch_format)
         overflow_delta = self.overflow_rows_total - before["overflow"]
         if overflow_delta:
             m.counter("engine_fetch_overflow_rows_total", overflow_delta)
@@ -1434,9 +1505,9 @@ class SchedulerEngine:
         """The engine-shape fingerprint a snapshot must match to be
         restorable, under the JAX engine's keys: the port's geometry
         constants (MEGACHUNK_ROWS stands for both chunk_size and
-        megachunk_rows), one device, i32 scores and the packed wire.  A
-        mismatch rejects the snapshot: restore never reinterprets
-        planes."""
+        megachunk_rows), one device, the fetch format, the narrow solve
+        and the score plane's dtype.  A mismatch rejects the snapshot:
+        restore never reinterprets planes."""
         return {
             "version": SNAPSHOT_STATE_VERSION,
             "chunk_size": MEGACHUNK_ROWS,
@@ -1445,11 +1516,11 @@ class SchedulerEngine:
             "min_bucket": MIN_ROW_BUCKET,
             "min_cluster_bucket": MIN_CLUSTER_BUCKET,
             "canonical_c": CANONICAL_C,
-            "fetch_format": "packed",
-            "narrow": True,
+            "fetch_format": self.fetch_format,
+            "narrow": self.narrow,
             "narrow_m": NARROW_M,
             "mesh": None,
-            "score_f16": False,
+            "score_f16": self.score_f16,
         }
 
     @staticmethod
@@ -1492,8 +1563,10 @@ class SchedulerEngine:
                 or e.stale_out_rows  # device planes disagree with decodes
             ):
                 continue
-            sel, rep, cnt, sco, feas, rsn = self._planes_to_host(
-                e.prev_out + (e.prev_feas, e.prev_reasons)
+            # Under score_f16 the exactness vector rides the same read.
+            vec = (e.prev_sco_exact,) if (self.score_f16 and e.prev_sco_exact is not None) else ()
+            sel, rep, cnt, sco, feas, rsn, *exact = self._planes_to_host(
+                e.prev_out + (e.prev_feas, e.prev_reasons) + vec
             )
             chunks[idx] = {
                 "n": len(e.units),
@@ -1509,6 +1582,11 @@ class SchedulerEngine:
                 "feas": feas,
                 "rsn": rsn,
             }
+            if self.score_f16:
+                # The f16 plane cannot rebuild its exactness vector (the
+                # i32 scores are gone), so the vector rides along; a
+                # missing one restores as every row inexact.
+                chunks[idx]["sco_exact"] = exact[0] if exact else None
             rows += len(e.units)
         if not chunks:
             return None
@@ -1536,8 +1614,9 @@ class SchedulerEngine:
             fams["prev_planes"] += sum(p.nbytes for p in planes if p is not None)
             if e.device_per_object is not None:
                 fams["per_object"] += sum(t.nbytes for t in e.device_per_object.values())
-            if e.prev_nfeas is not None:
-                fams["vectors"] += e.prev_nfeas.nbytes
+            for vec in (e.prev_nfeas, e.prev_sco_exact):
+                if vec is not None:
+                    fams["vectors"] += vec.nbytes
         total = sum(fams.values())
         for family, v in fams.items():
             self.metrics.store("engine_resident_bytes", v, family=family)
@@ -1547,7 +1626,7 @@ class SchedulerEngine:
             "total": total,
             "device_count": 1,
             "per_device": total,
-            "score_dtype": "i32",
+            "score_dtype": "f16" if self.score_f16 else "i32",
             "chunks": len(self._chunk_cache),
         }
 
@@ -1642,6 +1721,10 @@ class SchedulerEngine:
             secs["featurize"] += time.perf_counter() - t0
             if fmt != cs["fmt"]:
                 continue
+            if cs["has_scores"] and self.score_f16:
+                # Lossy rows' score dicts cannot be replayed from an f16
+                # plane: the chunk is solved cold instead.
+                continue
             host_bytes = sum(
                 np.asarray(getattr(inputs, name)).nbytes
                 for name in self._per_object_fields(fmt)
@@ -1683,10 +1766,13 @@ class SchedulerEngine:
 
             entry.prev_out = (
                 put("sel", np.int8), put("rep", np.int32),
-                put("cnt", np.int8), put("sco", np.int32),
+                put("cnt", np.int8),
+                put("sco", np.float16 if self.score_f16 else np.int32),
             )
             entry.prev_feas = put("feas", np.int8)
             entry.prev_reasons = put("rsn", np.int32)
+            if self.score_f16 and cs.get("sco_exact") is not None:
+                entry.prev_sco_exact = put("sco_exact", np.int8)
             # The feasible counts are derived on the host, not stored:
             # the snapshot's format stays the JAX engine's and nothing is
             # launched.
@@ -1889,10 +1975,13 @@ class SchedulerEngine:
                 continue
 
             timings["featurize"] += time.perf_counter() - t0
+            # An f16 score plane cannot replay score dicts exactly: a
+            # chunk whose decode carries scores fetches whole.
             delta_ok = (
                 prev_valid
                 and entry.prev_out is not None
                 and tuple(entry.prev_out[0].shape) == shape
+                and not (self.score_f16 and entry.prev_has_scores)
             )
             chunk_results.append(None)
             chunk_changed.append(None)
@@ -1990,13 +2079,57 @@ class SchedulerEngine:
         )
         self._count_dispatch(fmt, b_pad, c_bucket)
         out, cert = self._tick(device_in, fmt, m, key_max, budget)
+        mask = None
+        if delta_ok and self.donate and not entry.prev_has_scores:
+            # Donation: the diff is queued now and the previous output
+            # planes are released; every drain path stores the fresh
+            # outputs before they are read again.  (A chunk whose decode
+            # carries scores keeps them: a re-dispatch at the drain could
+            # not diff its score rows against the decoded dicts.)
+            mask = _diff_bits(out, self._prev_for_diff(entry), n)
+            entry.prev_out = None
         timings["device"] += time.perf_counter() - t1
         return _InFlight(
             slot=slot, entry=entry, out=out, cert=cert,
             unsettled=None if budget is None else budget.unsettled,
             device_in=device_in, fmt=fmt, n=n, pack_k=pack_k, m=m,
-            key_max=key_max, delta_ok=delta_ok,
+            key_max=key_max, delta_ok=delta_ok, mask=mask,
         )
+
+    def _rediff_late_rows(self, it, late: np.ndarray, names) -> torch.Tensor:
+        """A donated diff after its chunk's re-dispatch: rows the planner
+        had settled within its round budget kept their outputs, and with
+        them their diff bits; the late rows are diffed again against
+        their previous placements, rebuilt from the cached decode (the
+        selected, replicas and counted planes are a function of each
+        row's placement dict over ``names``, the view's columns, which a
+        delta-capable chunk shares with its previous tick; the chunk's
+        decode carries no scores)."""
+        if late.size == 0:
+            return it.mask
+        entry = it.entry
+        c_pad = it.out.selected.shape[1]
+        col = {name: j for j, name in enumerate(names)}
+        sel = np.zeros((late.size, c_pad), np.int8)
+        rep = np.zeros((late.size, c_pad), np.int32)
+        cnt = np.zeros((late.size, c_pad), np.int8)
+        for i, row in enumerate(late.tolist()):
+            for name, reps in entry.prev_results[row].clusters.items():
+                j = col[name]
+                sel[i, j] = 1
+                rep[i, j] = int(NIL_REPLICAS) if reps is None else reps
+                cnt[i, j] = reps is not None
+        self.upload_bytes["object"] += sel.nbytes + rep.nbytes + cnt.nbytes
+        idx = self._index(late)
+        out = it.out
+        moved = (
+            (out.selected.index_select(0, idx) != tensor(sel, self.device))
+            | (out.replicas.index_select(0, idx) != tensor(rep, self.device))
+            | (out.counted.index_select(0, idx) != tensor(cnt, self.device))
+        ).any(dim=1)
+        mask = it.mask.clone()
+        mask[idx] = moved.to(torch.int8) * _DIFF_PLACEMENT
+        return mask
 
     def _drain_window(self, items: list, chunk_results, chunk_changed, view, timings) -> None:
         """Drain the in-flight window with batched reads (the JAX
@@ -2006,10 +2139,15 @@ class SchedulerEngine:
         pack, read and decode the wires.  Empties ``items``."""
         if not items:
             return
-        self._settle_window(items, timings)
+        single = len(items) == 1
+        self._settle_window(items, view, timings)
         t0 = time.perf_counter()
         diffed = [it for it in items if it.delta_ok]
-        masks = self._read_all([_diff_bits(it.out, it.entry.prev_out, it.n) for it in diffed])
+        masks = self._read_all([
+            it.mask if it.mask is not None
+            else _diff_bits(it.out, self._prev_for_diff(it.entry), it.n)
+            for it in diffed
+        ])
         timings["fetch"] += time.perf_counter() - t0
         mask_of = {id(it): mask for it, mask in zip(diffed, masks)}
         delta_items, full_items = [], []
@@ -2032,17 +2170,22 @@ class SchedulerEngine:
                 full_items.append(it)
             else:
                 delta_items.append((it, idx))
-        self._drain_window_packed(delta_items, full_items, chunk_results, chunk_changed,
-                                  view, timings)
+        if self.fetch_format == "packed":
+            self._drain_window_packed(delta_items, full_items, chunk_results, chunk_changed,
+                                      view, timings)
+        else:
+            self._drain_window_dense(delta_items, full_items, chunk_results, chunk_changed,
+                                     view, timings, single)
         items.clear()
 
-    def _settle_window(self, items: list, timings) -> None:
+    def _settle_window(self, items: list, view, timings) -> None:
         """Resolve a window's certificates and planner budgets before any
         plane leaves the card.  Each chunk's i8[B] flags (bit 0 its
         narrow certificate, bit 1 a planner row still going after the
         round budget) are read in one copy.  A chunk with an
         unsettled row is dispatched again with the checked round loop
-        (counted in ``planner_reruns``) and its certificate read alone;
+        (counted in ``planner_reruns``; a donated diff then redone for its
+        late rows, ``_rediff_late_rows``) and its certificate read alone;
         then uncertified rows are re-solved dense and written back
         (_apply_cert_fallback), their rows kept in ``fb_rows``."""
         flagged, devs = [], []
@@ -2063,6 +2206,10 @@ class SchedulerEngine:
                 self.planner_reruns += 1
                 self.dispatches_total += 1
                 it.out, it.cert = self._tick(it.device_in, it.fmt, it.m, it.key_max)
+                if it.mask is not None:
+                    it.mask = self._rediff_late_rows(
+                        it, np.nonzero(flag[: it.n] & 2)[0], view.names
+                    )
                 timings["device"] += time.perf_counter() - t0
                 if it.cert is None:
                     continue
@@ -2133,6 +2280,121 @@ class SchedulerEngine:
                 )
                 chunk_changed[it.slot] = None
         timings["decode"] += time.perf_counter() - t0
+
+    def _drain_window_dense(
+        self, delta_items, full_items, chunk_results, chunk_changed, view, timings,
+        single: bool,
+    ) -> None:
+        """The dense format's drain (the JAX engine's dense window drain,
+        and its sequential fetch for a window of one): each delta
+        chunk's changed rows gathered as int32 planes side by side
+        (selected, replicas, counted; the scores when the cached decode
+        carries them; scores and reasons for the flight recorder), the
+        gathers of one plane count padded to one pow2 row count of at
+        least 16; a whole chunk read plane by plane at its padded shape
+        (scores on a want_scores tick or for the recorder, reasons for
+        the recorder — with a window of one, only for a cache entry).
+        Every read is queued before the first wait."""
+        t0 = time.perf_counter()
+        record = self._tick_rec is not None
+        by_planes: dict[int, list] = {}
+        for it, idx in delta_items:
+            self.fetch_stats["delta"] += 1
+            planes = 5 if record else (4 if it.entry.prev_has_scores else 3)
+            by_planes.setdefault(planes, []).append((it, idx))
+        gathers = []  # (item, rows, planes, device gather)
+        for planes, group in by_planes.items():
+            k = max(_pow2_bucket(idx.size, 16, 1 << 30) for _it, idx in group)
+            for it, idx in group:
+                gidx = np.zeros(k, np.int64)
+                gidx[: idx.size] = idx
+                dev = _gather_planes(it.out, planes, self._index(gidx))
+                self.devprof.observe("gather", dev)
+                gathers.append((it, idx, planes, dev))
+        fulls = []  # (item, device planes)
+        for it in full_items:
+            rec_it = record and (it.entry is not None or not single)
+            out = it.out
+            planes = [out.selected, out.replicas, out.counted]
+            if it.want_scores or rec_it:
+                planes.append(out.scores)
+            if rec_it:
+                planes.append(out.reasons)
+            fulls.append((it, planes))
+        arrs = self._read_all([g[3] for g in gathers] + [p for _it, ps in fulls for p in ps])
+        timings["fetch"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for (it, idx, planes, _dev), arr in zip(gathers, arrs):
+            chunk_results[it.slot], chunk_changed[it.slot] = self._apply_dense_delta(
+                it.entry, it.out, idx, arr[: idx.size], planes, view
+            )
+        pos = len(gathers)
+        for it, ps in fulls:
+            got = arrs[pos : pos + len(ps)]
+            pos += len(ps)
+            chunk_results[it.slot] = self._apply_dense_full(
+                it.entry, it.out, got, it.n, view, it.want_scores
+            )
+            chunk_changed[it.slot] = None
+        timings["decode"] += time.perf_counter() - t0
+
+    def _apply_dense_delta(self, entry, out, idx, arr, planes: int, view):
+        """Decode gathered dense rows (scores if the cached decode carries
+        them), merge them into the cached decode and record them with
+        their full reason rows; returns (merged, changed rows)."""
+        c_pad = arr.shape[1] // planes
+        sco = arr[:, 3 * c_pad : 4 * c_pad] if planes >= 4 else None
+        rsn = arr[:, 4 * c_pad : 5 * c_pad] if planes >= 5 else None
+        results = self._decode_rows(
+            arr[:, :c_pad], arr[:, c_pad : 2 * c_pad], arr[:, 2 * c_pad : 3 * c_pad],
+            view.names, sco if entry.prev_has_scores else None,
+        )
+        idx_rows = idx.tolist()
+        merged = list(entry.prev_results)
+        for row, res in zip(idx_rows, results):
+            merged[row] = res
+        self._record_decisions(entry, idx_rows, results, rsn, sco, view, self._program(entry, out))
+        self._store_prev(entry, out)
+        entry.prev_results = merged
+        entry.prev_view = view
+        return merged, idx_rows
+
+    def _apply_dense_full(self, entry, out, planes: list, n: int, view, want_scores: bool):
+        """Decode a whole chunk's dense planes ([selected, replicas,
+        counted] and, when read, scores and reasons); with an entry the
+        outputs and decode are stored, as ``_apply_packed_full`` does."""
+        self.fetch_stats["full"] += 1
+        sel, rep, cnt = planes[:3]
+        sco = planes[3] if len(planes) > 3 else None
+        rsn = planes[4] if len(planes) > 4 else None
+        results = self._decode_rows(
+            sel[:n], rep[:n], cnt[:n], view.names,
+            sco[:n] if (sco is not None and want_scores) else None,
+        )
+        if entry is not None:
+            self._record_decisions(
+                entry, range(n), results, None if rsn is None else rsn[:n],
+                None if sco is None else sco[:n], view, self._program(entry, out),
+            )
+            self._store_prev(entry, out)
+            entry.prev_results = results
+            entry.prev_has_scores = want_scores
+            entry.prev_view = view
+        return results
+
+    def _record_decisions(self, entry, rows, results, reasons, scores, view, program: str):
+        """Feed the flight recorder dense rows already read (LOCAL chunk
+        rows): every cluster's reason bits ride along, so /debug/explain
+        names each cluster's verdict.  Nothing without reasons."""
+        rec = self._tick_rec
+        if rec is None or reasons is None:
+            return
+        rec.record_rows(
+            [entry.units[r].key for r in rows],
+            [res.clusters for res in results],
+            reasons, scores, view.names, program=program,
+        )
 
     # -- drift gate ----------------------------------------------------------
     @staticmethod
@@ -2269,7 +2531,10 @@ class SchedulerEngine:
 
     def _dispatch_drift_gate(self, entry, fmt: str, c_bucket: int, info: dict, vocab) -> dict:
         """Queue one chunk's drift gate and the copy of its row mask (read
-        in _drain_drift_gates; nothing here waits on the device)."""
+        in _drain_drift_gates; nothing here waits on the device).  The
+        gate reads an i32 score plane: a stored f16 one is upcast, and
+        the copy is what the drain refreshes and compresses again.  The
+        delta slots' device copies ride along for the resolve stream."""
         b_pad = entry.padded_shape[0]
         if entry.stale_rows:
             # Backstop: rows patched since the last upload whose eager
@@ -2281,11 +2546,16 @@ class SchedulerEngine:
         )
         self.upload_bytes["cluster"] += sum(a.nbytes for a in slices)
         dev = self.device
+        delta = tuple(tensor(a, dev) for a in slices) + tuple(
+            tensor(info[k], dev) for k in ("didx", "dvalid", "dcpu")
+        )
+        scores = entry.prev_out[3]
+        if scores.dtype == torch.float16:
+            scores = self._upcast_scores(scores)
         args = (
             entry.prev_feas,
-            entry.prev_out[3],
-            *(tensor(a, dev) for a in slices),
-            *(tensor(info[k], dev) for k in ("didx", "dvalid", "dcpu")),
+            scores,
+            *delta,
             tensor(self._fin_rows(entry, b_pad), dev),
             self._ensure_nfeas(entry),
         )
@@ -2302,6 +2572,8 @@ class SchedulerEngine:
             "mask": self._start_read(mask),
             "new_cols": new_cols,
             "cols": self._index(info["cols"]),
+            "scores": scores,
+            "delta": delta,
         }
 
     @staticmethod
@@ -2317,6 +2589,46 @@ class SchedulerEngine:
             i += size
         return out
 
+    def _survivor_inputs(self, entry, fmt: str, vocab, c_bucket: int, cluster_dev):
+        """(device inputs, per-object fields, key bound) of a gated
+        chunk, for the survivor programs' row gathers."""
+        device_in = self._assemble(entry.device_per_object, fmt, vocab, c_bucket, cluster_dev)
+        return device_in, self._per_object_fields(fmt), self._key_max(entry.inputs, fmt)
+
+    def _gather_group(self, survivor_in, fmt: str, seg: list, g: int):
+        """(row index, expanded inputs) of one survivor group of ``g``
+        rows; padding repeats the group's first row (rows are
+        independent, and only the first len(seg) are read)."""
+        device_in, per_object, key_max = survivor_in
+        idx = np.full(g, seg[0], np.int64)
+        idx[: len(seg)] = seg
+        gidx = self._index(idx)
+        sub = device_in._replace(
+            **{name: getattr(device_in, name).index_select(0, gidx) for name in per_object}
+        )
+        return gidx, (expand_compact(sub, key_max) if fmt == "compact" else sub)
+
+    def _survivor_job(self, pi: int, entry, seg, out, cert, pack_k: int, kind: str,
+                      program: str) -> dict:
+        """A queued survivor group for _drain_drift_resolve: its outputs'
+        wire packed at ``pack_k``, in one ledger record under
+        ``program`` with the solve (the JAX programs fuse the pack)."""
+        wire = pack_wire(out.selected, out.replicas, out.counted, out.scores, out.reasons, pack_k)
+        self.devprof.observe(program, (out, cert, wire))
+        return {"pi": pi, "entry": entry, "rows": seg, "out": out, "cert": cert,
+                "wire": wire, "pack_k": pack_k, "kind": kind}
+
+    def _survivor_ready(self, entry) -> bool:
+        """Whether a gated chunk's stored planes can feed a survivor
+        program (the packed wire only)."""
+        return (
+            self.fetch_format == "packed"
+            and entry.prev_reasons is not None
+            and entry.device_per_object is not None
+            and entry.prev_feas is not None
+            and entry.prev_reasons.shape == entry.prev_feas.shape
+        )
+
     def _dispatch_drift_survivors(
         self, pi: int, entry, fmt: str, rows: set, cluster_dev, vocab, c_bucket: int,
     ) -> list[dict]:
@@ -2325,47 +2637,109 @@ class SchedulerEngine:
         rows are gathered, expanded and solved by ``drift_survivor``, and
         the wire packed at K = min(M, C).  [] when the chunk cannot take
         the path; certificate failures stay in the recompute set."""
-        if (
-            entry.prev_reasons is None
-            or entry.device_per_object is None
-            or entry.prev_feas is None
-            or entry.prev_reasons.shape != entry.prev_feas.shape
-        ):
+        if not self._survivor_ready(entry):
             return []
         m = self._narrow_m(entry.inputs, c_bucket)
         if m is None or not rows:
             return []
         rows = sorted(rows)
         pack_k = min(m, c_bucket)
-        device_in = self._assemble(entry.device_per_object, fmt, vocab, c_bucket, cluster_dev)
-        per_object = self._per_object_fields(fmt)
-        key_max = self._key_max(entry.inputs, fmt)
+        survivor_in = self._survivor_inputs(entry, fmt, vocab, c_bucket, cluster_dev)
         self.survivor_stats["rows"] += len(rows)
         jobs = []
         for seg, g in self._survivor_groups(rows):
-            # Padding repeats the group's first row; only seg is read.
-            idx = np.full(g, seg[0], np.int64)
-            idx[: len(seg)] = seg
-            gidx = self._index(idx)
-            sub = device_in._replace(
-                **{name: getattr(device_in, name).index_select(0, gidx) for name in per_object}
-            )
+            gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
             out, cert = drift_survivor(
-                expand_compact(sub, key_max) if fmt == "compact" else sub,
-                entry.prev_reasons.index_select(0, gidx),
-                m,
-                i32_keys=True,
+                inp, entry.prev_reasons.index_select(0, gidx), m, i32_keys=self.phase1_i32
             )
-            self.devprof.observe("survivor", (out, cert))
-            wire = pack_wire(
-                out.selected, out.replicas, out.counted, out.scores, out.reasons, pack_k
-            )
-            self.devprof.observe("pack", wire)
             self.survivor_stats["groups"] += 1
             self.survivor_stats["padded_rows"] += g
             self.dispatches_total += 1
-            jobs.append({"pi": pi, "entry": entry, "rows": seg, "out": out,
-                         "cert": cert, "wire": wire, "pack_k": pack_k})
+            jobs.append(
+                self._survivor_job(pi, entry, seg, out, cert, pack_k, "unified", "survivor")
+            )
+        return jobs
+
+    def _dispatch_drift_resolve(
+        self, pi: int, entry, fmt: str, gate: dict, mask: np.ndarray, rec: set,
+        forced: set, cluster_dev, vocab, c_bucket: int,
+    ) -> list[dict]:
+        """The three-stream revert's sort-free resolve over a gated
+        chunk's recompute rows without a fit flip, from the refreshed
+        score plane: [] when ``drift_resolve`` is off, the chunk cannot
+        take it (dense fetch, f16 scores, more than
+        DRIFT_REFINE_MAX_COLS delta slots, no narrow M) or has no such
+        row.  Each group's wire is packed at K = min(M, C)."""
+        if not self.drift_resolve or self.score_f16 or not self._survivor_ready(entry):
+            return []
+        delta = gate["delta"]
+        if delta[4].shape[0] > DRIFT_REFINE_MAX_COLS:
+            return []
+        m = self._narrow_m(entry.inputs, c_bucket)
+        if m is None:
+            return []
+        fitflip = set(np.nonzero(mask & DRIFT_FITFLIP)[0].tolist())
+        rows = sorted(rec - fitflip - forced)
+        if not rows:
+            return []
+        pack_k = min(m, c_bucket)
+        survivor_in = self._survivor_inputs(entry, fmt, vocab, c_bucket, cluster_dev)
+        jobs = []
+        for seg, g in self._survivor_groups(rows):
+            gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
+            self.dispatches_total += 1
+            out, cert = drift_resolve(
+                inp,
+                entry.prev_feas.index_select(0, gidx),
+                entry.prev_out[3].index_select(0, gidx),
+                entry.prev_reasons.index_select(0, gidx),
+                *delta[:6],
+                m,
+            )
+            jobs.append(self._survivor_job(pi, entry, seg, out, cert, pack_k, "resolve", "resolve"))
+        return jobs
+
+    def _dispatch_drift_replans(
+        self, pi: int, entry, fmt: str, mask: np.ndarray, rec: set, forced: set,
+        cluster_dev, vocab, c_bucket: int,
+    ) -> list[dict]:
+        """The three-stream revert's fit-flip survivors of a gated chunk:
+        kinf rows (maxClusters unlimited or negative) through the
+        selection-known ``drift_replan``, finite-K rows through the
+        score-only solve (``drift_survivor``), in _survivor_groups.  []
+        when ``replan`` is off, the chunk cannot take it (dense fetch,
+        f16 scores, no narrow M) or has no such row."""
+        if not self.replan or self.score_f16 or not self._survivor_ready(entry):
+            return []
+        m = self._narrow_m(entry.inputs, c_bucket)
+        if m is None:
+            return []
+        fitflip = set(np.nonzero(mask & DRIFT_FITFLIP)[0].tolist())
+        rows = sorted((rec & fitflip) - forced)
+        if not rows:
+            return []
+        mc = np.asarray(entry.inputs.max_clusters)
+        kinf_host = (mc == INT32_INF) | (mc < 0)
+        pack_k = min(m, c_bucket)
+        survivor_in = self._survivor_inputs(entry, fmt, vocab, c_bucket, cluster_dev)
+        jobs = []
+        for scored in (False, True):
+            path_rows = [r for r in rows if bool(kinf_host[r]) != scored]
+            for seg, g in self._survivor_groups(path_rows):
+                gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
+                self.dispatches_total += 1
+                reasons = entry.prev_reasons.index_select(0, gidx)
+                if scored:
+                    # JAX's drift_scoreonly: the unified survivor's solve.
+                    out, cert = drift_survivor(inp, reasons, m, i32_keys=self.phase1_i32)
+                else:
+                    out, cert = drift_replan(
+                        inp, reasons, entry.prev_out[3].index_select(0, gidx), m
+                    )
+                jobs.append(self._survivor_job(
+                    pi, entry, seg, out, cert, pack_k,
+                    *(("score_only", "scoreonly") if scored else ("replan", "replan")),
+                ))
         return jobs
 
     def _repair_entry_rows(self, entry, out, src_pos, dst_rows) -> bool:
@@ -2390,7 +2764,8 @@ class SchedulerEngine:
         certificates, one for the wires), decode the certified rows,
         merge them into the cached decodes and write them into the prev
         planes.  Rows failing the certificate stay in their chunk's
-        recompute set."""
+        recompute set.  Each job counts under its kind's drift_stats
+        keys (unified, resolve, replan, score_only)."""
         t0 = time.perf_counter()
         certs = self._read_all([job["cert"] for job in jobs])
         wires = self._read_all([job["wire"] for job in jobs])
@@ -2398,11 +2773,13 @@ class SchedulerEngine:
         for job, cert, wire in zip(jobs, certs, wires):
             t0 = time.perf_counter()
             entry, rows, out, k = job["entry"], job["rows"], job["out"], job["pack_k"]
+            kind = job["kind"]
             nr = len(rows)
             ok_pos = np.nonzero(cert[:nr] != 0)[0]
-            self.drift_stats["unified"] += int(ok_pos.size)
-            self.drift_stats["unified_fallback"] += int(nr - ok_pos.size)
-            self.survivor_stats["fallback_rows"] += int(nr - ok_pos.size)
+            self.drift_stats[kind] += int(ok_pos.size)
+            self.drift_stats[kind + "_fallback"] += int(nr - ok_pos.size)
+            if kind == "unified":
+                self.survivor_stats["fallback_rows"] += int(nr - ok_pos.size)
             res_rows = [rows[p] for p in ok_pos.tolist()]
             plans[job["pi"]][3] -= set(res_rows)
             if not ok_pos.size:
@@ -2426,7 +2803,7 @@ class SchedulerEngine:
             for r, res in zip(res_rows, results):
                 merged[r] = res
             entry.prev_results = merged
-            self._record_packed(entry, res_rows, results, packed, view, f"{entry.fmt}:unified")
+            self._record_packed(entry, res_rows, results, packed, view, f"{entry.fmt}:{kind}")
             if not self._repair_entry_rows(entry, out, ok_pos, res_rows):
                 entry.stale_out_rows = sorted(set(entry.stale_out_rows or ()) | set(res_rows))
             plan_resolved.setdefault(job["pi"], []).extend(res_rows)
@@ -2438,14 +2815,17 @@ class SchedulerEngine:
     ) -> None:
         """Settle the gated chunks.  Masks are read in dispatch order (the
         read of chunk i waits only on gate i); each read refreshes the
-        chunk's stored score plane at the changed columns, queues the
-        weight checks (fixed 256/128/64-row groups) and the survivor
-        program over the recompute rows.  Then the survivors and weight
-        checks are read; weight-changed rows, 256 or fewer a chunk, take
-        a second survivor wave.  Each chunk then skips, keeps the
-        resolved rows (delta), sends its remaining rows to the sub-batch
-        slabs, or, when more than half its rows move, takes the full
-        dispatch."""
+        chunk's stored score plane at the changed columns (under
+        score_f16 the refreshed plane is compressed again, its inexact
+        rows forced into the recompute set first), queues the weight
+        checks (fixed 256/128/64-row groups) and the survivor program
+        over the recompute rows (the three-stream revert: resolve, then
+        replan and score-only).  Then the survivors and weight checks
+        are read; with the unified stream, weight-changed rows, 256 or
+        fewer a chunk, take a second survivor wave.  Each chunk then
+        skips, keeps the resolved rows (delta), sends its remaining rows
+        to the sub-batch slabs, or, when more than half its rows move,
+        takes the full dispatch."""
         self.metrics.store("engine_gate_inflight", len(items))
         jobs: list[dict] = []
         plans: list[list] = []  # [slot, entry, n, recompute rows, fmt, b_pad, pack_k]
@@ -2460,13 +2840,21 @@ class SchedulerEngine:
             timings["fetch"] += dt
             t0 = time.perf_counter()
             self.drift_stats["gated"] += 1
+            # Rows whose stored planes or device inputs could not be
+            # brought up to date are gate-blind: recompute them.  So are
+            # rows whose f16 scores are lossy (read before the refreshed
+            # plane replaces their exactness vector).
+            forced = set()
+            if self.score_f16:
+                forced.update(int(r) for r in self._sco_inexact_rows(entry) if r < n)
             # Skipped rows keep exact stored totals; recomputed rows are
             # overwritten by their write-back after this.
-            refresh_scores(entry.prev_out[3], gate["cols"], gate["new_cols"])
+            refresh_scores(gate["scores"], gate["cols"], gate["new_cols"])
+            if self.score_f16:
+                entry.prev_out = entry.prev_out[:3] + (
+                    self._compress_scores(entry, gate["scores"], and_old=True),
+                )
             rec = set(np.nonzero(mask & DRIFT_RECOMPUTE)[0].tolist())
-            # Rows whose stored planes or device inputs could not be
-            # brought up to date are gate-blind: recompute them.
-            forced = set()
             if entry.stale_out_rows:
                 forced.update(r for r in entry.stale_out_rows if r < n)
             if entry.stale_rows:
@@ -2493,11 +2881,23 @@ class SchedulerEngine:
                     )
                     self.devprof.observe("wcheck", flags)
                     wcheck_jobs.append((pi, np.asarray(seg), flags))
-            jobs.extend(
-                self._dispatch_drift_survivors(
-                    pi, entry, fmt, rec - forced, newc, vocab, c_bucket
+            if self.survivor_unified:
+                jobs.extend(
+                    self._dispatch_drift_survivors(
+                        pi, entry, fmt, rec - forced, newc, vocab, c_bucket
+                    )
                 )
-            )
+            else:
+                jobs.extend(
+                    self._dispatch_drift_resolve(
+                        pi, entry, fmt, gate, mask, rec, forced, newc, vocab, c_bucket
+                    )
+                )
+                jobs.extend(
+                    self._dispatch_drift_replans(
+                        pi, entry, fmt, mask, rec, forced, newc, vocab, c_bucket
+                    )
+                )
             timings["device"] += time.perf_counter() - t1
 
         if jobs:
@@ -2516,13 +2916,13 @@ class SchedulerEngine:
             dt = time.perf_counter() - t0
             timings["gate_wait"] += dt
             timings["fetch"] += dt
-            # Weight-changed rows (kinf, no fit flip) take the survivor
-            # program when a chunk has one group's worth; a larger set
-            # fills a slab better.
+            # Weight-changed rows (kinf, no fit flip) take the unified
+            # survivor program when a chunk has one group's worth; a
+            # larger set fills a slab better.
             t1 = time.perf_counter()
             wave2: list[dict] = []
             for pi, rows_c in changed_by_pi.items():
-                if len(rows_c) > 256:
+                if not self.survivor_unified or len(rows_c) > 256:
                     continue
                 entry, fmt = plans[pi][1], plans[pi][4]
                 wave2.extend(
@@ -2569,6 +2969,7 @@ class SchedulerEngine:
             delta_ok = (
                 entry.prev_out is not None
                 and tuple(entry.prev_out[0].shape) == (b_pad, c_bucket)
+                and not (self.score_f16 and entry.prev_has_scores)
             )
             self._full_dispatch(
                 window, slot, entry, entry.inputs, "hit", fmt, n, b_pad, pack_k,
@@ -2743,8 +3144,29 @@ class SchedulerEngine:
         nsel_all = []
         rec = self._tick_rec
         rec_parts = []  # per slab: the recorder's fields off its wire
+        rec_dense = []  # per slab (dense format): its reason and score rows
         for n, out in slabs:
             t2 = time.perf_counter()
+            if self.fetch_format == "dense":
+                # The slab's rows as int32 planes, pow2-bucketed rows.
+                n_planes = 5 if rec is not None else (4 if want_scores else 3)
+                gidx = np.zeros(_pow2_bucket(n, 16, 1 << 30), np.int64)
+                gidx[:n] = np.arange(n)
+                dev = _gather_planes(out, n_planes, self._index(gidx))
+                self.devprof.observe("gather", dev)
+                arr = self._read_np(dev)[:n]
+                c_pad = arr.shape[1] // n_planes
+                sco = arr[:, 3 * c_pad : 4 * c_pad] if n_planes >= 4 else None
+                if n_planes == 5:
+                    rec_dense.append((arr[:, 4 * c_pad :], sco))
+                t3 = time.perf_counter()
+                timings["fetch"] += t3 - t2
+                decoded.extend(self._decode_rows(
+                    arr[:, :c_pad], arr[:, c_pad : 2 * c_pad], arr[:, 2 * c_pad : 3 * c_pad],
+                    view.names, sco if want_scores else None,
+                ))
+                timings["decode"] += time.perf_counter() - t3
+                continue
             planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
             wire = pack_wire(*(p[:n] for p in planes), pack_k)
             self.devprof.observe("pack", wire)
@@ -2768,7 +3190,10 @@ class SchedulerEngine:
             timings["decode"] += time.perf_counter() - t3
 
         t3 = time.perf_counter()
-        nsel_all = np.concatenate(nsel_all)
+        nsel_all = np.concatenate(nsel_all) if nsel_all else None
+        if rec_dense:
+            rec_reasons = np.concatenate([p[0] for p in rec_dense])
+            rec_scores = np.concatenate([p[1] for p in rec_dense])
         if rec_parts:
             rec_counts = np.concatenate([p[0] for p in rec_parts])
             rec_feas = np.concatenate([p[1] for p in rec_parts])
@@ -2792,7 +3217,13 @@ class SchedulerEngine:
                     reason_counts=rec_counts[span], feasible_n=rec_feas[span],
                     topk_idx=rec_ti[span], topk_scores=rec_ts[span],
                 )
-            self._observe_nsel(entry, nsel_all[span], c_bucket)
+            if rec_dense:
+                self._record_decisions(
+                    entry, changed_rows, decoded[span], rec_reasons[span],
+                    rec_scores[span], view, f"{fmt}:sub",
+                )
+            if nsel_all is not None:
+                self._observe_nsel(entry, nsel_all[span], c_bucket)
             entry.prev_results = merged
             entry.prev_view = view
             if inputs_stale:
@@ -2899,8 +3330,9 @@ class SchedulerEngine:
 
     def _scatter_prev_rows(self, entry, out, src, dst) -> None:
         """Write rows ``src`` of a dispatch's outputs into rows ``dst`` of
-        the entry's six prev planes in place, and their feasible counts
-        into prev_nfeas."""
+        the entry's six prev planes in place (fresh scores cast into an
+        f16 plane, their rows' exactness reset from the round trip), and
+        their feasible counts into prev_nfeas."""
         nfeas = self._ensure_nfeas(entry)
         planes = entry.prev_out + (entry.prev_feas, entry.prev_reasons)
         out_planes = (
@@ -2908,20 +3340,79 @@ class SchedulerEngine:
             out.feasible, out.reasons,
         )
         for plane, out_plane in zip(planes, out_planes):
-            plane.index_copy_(0, dst, out_plane.index_select(0, src))
+            plane.index_copy_(0, dst, out_plane.index_select(0, src).to(plane.dtype))
         nfeas.index_copy_(
             0, dst, (out.feasible.index_select(0, src) != 0).sum(dim=1, dtype=torch.int32)
         )
+        if self.score_f16:
+            exact = self._ensure_sco_exact_vec(entry)
+            exact.index_copy_(0, dst, exact_rows(out.scores.index_select(0, src)))
+            entry.sco_inexact_host = None
         self.devprof.observe("repair", nfeas)
 
     def _store_prev(self, entry, out) -> None:
         """Adopt a dispatch's six output planes as the entry's prev state,
-        with their feasible counts."""
-        entry.prev_out = (out.selected, out.replicas, out.counted, out.scores)
+        with their feasible counts; under score_f16 the score plane is
+        stored compressed, with its exactness vector."""
+        sco = self._compress_scores(entry, out.scores) if self.score_f16 else out.scores
+        entry.prev_out = (out.selected, out.replicas, out.counted, sco)
         entry.prev_feas = out.feasible
         entry.prev_reasons = out.reasons
         self._store_nfeas(entry, out.feasible)
         entry.stale_out_rows = None
+
+    # -- f16 score planes ----------------------------------------------------
+    def _compress_scores(self, entry, scores, and_old: bool = False) -> torch.Tensor:
+        """Store an i32 score plane's exactness vector on the entry and
+        return the plane as f16; ``and_old`` ANDs the entry's previous
+        vector in (a gate refresh writes through the stored plane)."""
+        self.dispatches_total += 1
+        old = entry.prev_sco_exact if and_old else None
+        f16, exact = compress_scores(scores, old)
+        self.devprof.observe("score_pack", (f16, exact))
+        entry.prev_sco_exact = exact
+        entry.sco_inexact_host = None
+        return f16
+
+    def _upcast_scores(self, f16) -> torch.Tensor:
+        """A stored f16 score plane as i32 (exact rows bit for bit)."""
+        self.dispatches_total += 1
+        up = upcast_scores(f16)
+        self.devprof.observe("score_pack", up)
+        return up
+
+    def _prev_for_diff(self, entry) -> tuple:
+        """The prev planes in the dtypes the diff compares: an f16 score
+        plane upcast (inexact rows then flag as score-changed, which only
+        a decode carrying scores reads, and such a chunk fetches whole)."""
+        prev = entry.prev_out
+        if prev[3].dtype != torch.float16:
+            return prev
+        return prev[:3] + (self._upcast_scores(prev[3]),)
+
+    def _sco_inexact_rows(self, entry) -> np.ndarray:
+        """The rows whose stored f16 scores are lossy (a read of the
+        exactness vector, cached until it changes); no vector: every
+        row."""
+        if entry.sco_inexact_host is None:
+            if entry.prev_sco_exact is None:
+                b = entry.prev_out[0].shape[0] if entry.prev_out is not None else 0
+                rows = np.arange(b, dtype=np.int64)
+            else:
+                rows = np.nonzero(self._read_np(entry.prev_sco_exact) == 0)[0].astype(np.int64)
+            entry.sco_inexact_host = rows
+        return entry.sco_inexact_host
+
+    def _ensure_sco_exact_vec(self, entry) -> torch.Tensor:
+        """The entry's exactness vector for a row repair; a missing one
+        starts all-zero (every row inexact: extra recomputes only)."""
+        b_pad = entry.prev_out[0].shape[0]
+        vec = entry.prev_sco_exact
+        if vec is None or tuple(vec.shape) != (b_pad,):
+            vec = torch.zeros(b_pad, dtype=torch.int8, device=self.device)
+            entry.prev_sco_exact = vec
+            entry.sco_inexact_host = None
+        return vec
 
     @staticmethod
     def _store_nfeas(entry, feas) -> None:

@@ -194,6 +194,21 @@ def drift_zero(clusters, index=0):
     return out
 
 
+def drift_fitflip(clusters, count=4):
+    """A fresh cluster list in which the ``count`` clusters with the
+    least available cpu and the ``count`` with the most keep a quarter
+    of it (memory unchanged): at the former, rows whose cpu request lies
+    between the quarter and the whole stop fitting (fit flips); at the
+    latter every row still fits but their resource scores fall (rows
+    with a finite maxClusters may drop them from their selection)."""
+    out = list(clusters)
+    order = sorted(range(len(out)), key=lambda j: (out[j].available.get("cpu", 0), j))
+    for j in sorted(set(order[:count]) | set(order[-count:])):
+        avail = out[j].available
+        out[j] = dataclasses.replace(out[j], available={**avail, "cpu": avail.get("cpu", 0) // 4})
+    return out
+
+
 def drift_wide(clusters, count=None):
     """A fresh cluster list with the available resources of the first
     ``count`` clusters halved; by default len(clusters) // 4 + 1, more

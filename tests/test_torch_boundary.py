@@ -14,9 +14,13 @@
   dispatch ledger; ``devprof=None`` gives a disabled one.
 * ``phase1`` on CPU tensors runs the plain version and never touches
   the kernel build; its launch counter stays 0.
+* ``SchedulerEngine``'s opt-in switches are keyword arguments whose
+  defaults are the JAX engine's defaults (its environment switches
+  unset), kept as attributes; a wrong fetch format raises.
 """
 
 import ast
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -315,3 +319,34 @@ def test_phase1_on_cpu_never_builds_the_kernel(monkeypatch):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert phase1_mod.phase1.launches == 0
+
+
+# The JAX engine's environment switches behind the port's keywords.
+JAX_SWITCH_ENV = (
+    "KT_SURVIVOR_UNIFIED", "KT_DRIFT_RESOLVE", "KT_REPLAN", "KT_SCORE_F16",
+    "KT_FETCH_FORMAT", "KT_NARROW", "KT_PHASE1_I32", "KT_DELTA_FEAT", "KT_DONATE",
+)
+
+
+def test_engine_switches_take_the_jax_defaults(monkeypatch):
+    from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
+
+    for var in JAX_SWITCH_ENV:
+        monkeypatch.delenv(var, raising=False)
+    params = inspect.signature(SchedulerEngine.__init__).parameters.values()
+    defaults = {p.name: p.default for p in params if p.kind is p.KEYWORD_ONLY}
+    assert set(defaults) == {
+        "survivor_unified", "drift_resolve", "replan", "score_f16", "fetch_format",
+        "narrow", "phase1_i32", "delta_feat", "donate",
+    }
+    ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None)
+    port = SchedulerEngine(device="cpu")
+    for name, value in defaults.items():
+        assert getattr(ref, name) == value == getattr(port, name), name
+    flipped = SchedulerEngine(device="cpu", **{
+        name: ("dense" if name == "fetch_format" else not value)
+        for name, value in defaults.items()
+    })
+    assert all(getattr(flipped, name) != value for name, value in defaults.items())
+    with pytest.raises(ValueError, match="fetch_format"):
+        SchedulerEngine(device="cpu", fetch_format="wide")

@@ -9,7 +9,10 @@ snapshot launching nothing, a stale one through the drift gate, and a
 kill-matrix round (``testing/restart_driver.py`` on ``--device cuda``);
 the control plane with sync writing to the members, and the streaming
 front end's flushes (the dirty-row hint on the card), each equal to
-the CPU engine's.
+the CPU engine's; the three-stream survivor programs and the f16
+score compressor on CUDA tensors against their CPU results, and the
+engine under each opt-in switch on the card against the CPU engine
+with the same switch.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -31,6 +34,7 @@ import torch
 
 from kubeadmiral_tpu_torch.convert import to_device, to_numpy
 from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
+from kubeadmiral_tpu_torch.ops import pipeline as P
 from kubeadmiral_tpu_torch.ops.pipeline import schedule_tick
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
@@ -46,6 +50,7 @@ from kubeadmiral_tpu_torch.testing.worlds import (
     build_world,
     churn,
     drift,
+    drift_fitflip,
     drift_wide,
     drift_zero,
     webhook,
@@ -414,3 +419,82 @@ def test_stream_on_card_matches_cpu(cuda):
     assert hints[0] is None and all(h is not None for h in hints[1:])
     assert launches[0] >= 1 and all(n >= 1 for n in launches[1:]), launches
     assert len(card.units) > len(units)  # the arrivals grew the placeholder block
+
+
+def test_optin_programs_on_card_match_cpu(cuda):
+    """drift_resolve (three changed columns in eight delta slots),
+    drift_replan, the score-only solve (drift_survivor) and the f16
+    compressor and upcast on CUDA tensors against the same calls on CPU
+    tensors: every plane bit for bit."""
+    b, c, d = 64, 40, 8
+    old = random_tick_inputs(b, c, 3, webhook=True, invalid=2, seed=21)
+    rng = np.random.default_rng(21)
+    cols = np.sort(rng.choice(np.nonzero(old.cluster_valid)[0], 3, replace=False))
+    used = np.array(old.used)
+    used[cols] = used[cols] * 9 // 10
+    new = old._replace(used=used)
+    prev = to_numpy(schedule_tick(to_device(old, "cpu")))
+    didx = np.full(d, 1 << 30, np.int32)
+    didx[:3] = cols
+    dvalid = np.zeros(d, bool)
+    dvalid[:3] = True
+
+    def sl(a):
+        out = np.zeros((d,) + np.asarray(a).shape[1:], np.asarray(a).dtype)
+        out[:3] = np.asarray(a)[cols]
+        return out
+
+    delta = (sl(old.alloc), sl(old.used), sl(new.alloc), sl(new.used), didx, dvalid)
+    planes = np.array(prev.scores)
+    planes[1, 2], planes[3, 4], planes[5] = 2049, 70_000, 3000
+
+    def run(device):
+        t = lambda x: torch.as_tensor(np.ascontiguousarray(x)).to(device)  # noqa: E731
+        inp = to_device(new, device)
+        outs = [
+            P.drift_resolve(inp, t(prev.feasible), t(prev.scores), t(prev.reasons),
+                            *(t(a) for a in delta), 16),
+            P.drift_replan(inp, t(prev.reasons), t(prev.scores), 16),
+            P.drift_survivor(inp, t(prev.reasons), 16, True),
+        ]
+        f16, exact = P.compress_scores(t(planes))
+        flat = [x for out, cert in outs for x in (*out, cert)]
+        return [x.cpu().numpy() for x in flat + [f16.view(torch.int16), exact,
+                                                 P.upcast_scores(f16)]]
+
+    for g, w in zip(run(cuda), run("cpu")):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+OPTIN_SWITCHES = [
+    {"survivor_unified": False},
+    {"score_f16": True},
+    {"fetch_format": "dense"},
+    {"narrow": False},
+    {"phase1_i32": False},
+    {"delta_feat": False},
+    {"donate": False},
+]
+
+
+@pytest.mark.parametrize("switches", OPTIN_SWITCHES, ids=lambda sw: ",".join(sw))
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_optin_engines_on_card_match_cpu(cuda, config, switches, monkeypatch):
+    """Each opt-in switch on an engine on the card and on the CPU through
+    cold, churn, fit-flip drift and back: equal results, counters and
+    changed rows every tick."""
+    units, clusters, _ = build_world(700, 600, config, seed=5)
+    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
+    gpu = SchedulerEngine(**switches)
+    cpu = SchedulerEngine(device="cpu", **switches)
+    churned = churn(np.random.default_rng(0), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters),
+        ("fitflip", churned, drift_fitflip(clusters)), ("back", churned, clusters),
+    ):
+        got, want = gpu.schedule(batch, cl), cpu.schedule(batch, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats",
+                     "narrow_stats", "featurize_rows"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+        assert gpu.last_changed == cpu.last_changed, kind

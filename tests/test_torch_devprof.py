@@ -16,7 +16,9 @@
   the kinds the port has no program for (NO_PROGRAM, ROADMAP queue 3
   item 5) and its ``tiebreak`` records, one per compact dispatch (the
   port builds the FNV plane inside each dispatch; JAX builds it at
-  upload and patches it).
+  upload and patches it); the same for a fit-flip drift tick of the
+  three-stream survivor revert (``resolve``, ``replan``, ``scoreonly``)
+  and for the ticks of an f16 engine (``score_pack``).
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_drift_replan import _fitflip_world, _quarter_cpu
 from test_engine_cache import make_world
 from test_torch_engine import _port
 
@@ -40,7 +43,7 @@ from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics
 
 # JAX program kinds the port has no program for.
-NO_PROGRAM = ("resolve", "replan", "scoreonly", "score_pack", "nfeas", "zeros", "stack")
+NO_PROGRAM = ("nfeas", "zeros", "stack")
 
 
 # -- the chain model ------------------------------------------------------------
@@ -399,3 +402,48 @@ def test_tick_kinds_against_jax(monkeypatch, depth):
     assert seen["noop"] == set()
     assert {"gate", "wcheck"} <= seen["drift"]
     assert {"repair", "patch"} <= seen["churn"]
+
+
+@pytest.mark.parametrize(
+    "switches,env",
+    [({"survivor_unified": False}, {"KT_SURVIVOR_UNIFIED": "0"}),
+     ({"score_f16": True}, {"KT_SCORE_F16": "1"})],
+    ids=["three-stream", "f16"],
+)
+def test_optin_tick_kinds_against_jax(monkeypatch, switches, env):
+    """The per-tick kinds of a three-stream engine's drift tick (its
+    resolve, replan and score-only programs, each with its fused wire
+    pack) and of an f16 engine's ticks (``score_pack``: compress at
+    every store, upcast for each diff and gate; the unified survivor
+    groups with their packs) equal the JAX engine's with the same
+    switch."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("KT_PIPELINE_DEPTH", "16")
+    units, clusters = _fitflip_world()
+    kw = dict(chunk_size=128, min_bucket=32, min_cluster_bucket=8, narrow_m=16)
+    jax_ledger = jax_devprof.DispatchLedger(enabled=True)
+    ref = JaxEngine(mesh=None, flight_recorder=None, devprof=jax_ledger, **kw)
+    port = _port(monkeypatch, **kw)
+    port.devprof = ledger = DispatchLedger(enabled=True)
+    for name, value in switches.items():
+        setattr(port, name, value)
+    seen = {}
+    # Fit flips at member 3, rank moves at member 7 (fully free).
+    drifted = [
+        dataclasses.replace(c, available=dict(c.allocatable)) if j == 7 else c
+        for j, c in enumerate(_quarter_cpu(clusters, 3))
+    ]
+    for label, cl in (("cold", clusters), ("drift", drifted), ("back", clusters)):
+        port.schedule(units, cl)
+        ref.schedule(units, cl)
+        got = _kinds(ledger, port.last_tick_id)
+        want = _kinds(jax_ledger, ref.last_tick_id) - set(NO_PROGRAM)
+        if got & {"tick", "tick_narrow"} or "scoreonly" in got:
+            want.add("tiebreak")
+        assert got == want, (label, got, want)
+        seen[label] = got
+    if "score_f16" in switches:
+        assert all("score_pack" in kinds for kinds in seen.values())
+    else:
+        assert {"resolve", "replan", "scoreonly"} <= seen["drift"], seen["drift"]

@@ -328,6 +328,57 @@ def test_payload_equals_jax(world, depth, monkeypatch):
     assert port.drift_stats["gated"] >= 1
 
 
+def test_f16_payload_equals_jax(monkeypatch):
+    """Under f16 score planes (the JAX engine's KT_SCORE_F16): the
+    payload carries the f16 plane and the exactness vector, equal to the
+    JAX engine's, through cold, churn, drift and fit-flip ticks; the
+    config says so."""
+    make, kw = WORLDS["narrow"]
+    monkeypatch.setenv("KT_SCORE_F16", "1")
+    ref = JaxEngine(
+        mesh=None, flight_recorder=None, devprof=None,
+        megachunk_rows=kw["chunk_size"], **kw,
+    )
+    port = _port(monkeypatch, **kw)
+    port.score_f16 = True
+    units, clusters = make()
+    churned = list(units)
+    churned[5] = dataclasses.replace(churned[5], desired_replicas=61)
+    drifted = [halve_available(c) if j == 0 else c for j, c in enumerate(clusters)]
+    for us, cs in ((units, clusters), (churned, clusters), (churned, drifted),
+                   (churned, _quarter_cpu(drifted, 3))):
+        assert clusters_eq(port.schedule(us, cs), ref.schedule(us, cs))
+        got, want = port.snapshot_state(), ref.snapshot_state()
+        assert got["config"] == want["config"] and got["config"]["score_f16"] is True
+        assert got["chunks"].keys() == want["chunks"].keys()
+        for idx, w in want["chunks"].items():
+            g = got["chunks"][idx]
+            assert g.keys() == w.keys(), idx
+            assert g["sco"].dtype == w["sco"].dtype == np.float16
+            assert np.array_equal(g["sco"].view(np.uint16), w["sco"].view(np.uint16)), idx
+            assert np.array_equal(g["sco_exact"], w["sco_exact"]), idx
+            for key in ("sel", "rep", "cnt", "feas", "rsn"):
+                assert np.array_equal(g[key], w[key]), (idx, key)
+
+
+@pytest.mark.parametrize("f16_side", ["giver", "taker"])
+def test_f16_snapshot_restores_only_into_an_f16_engine(f16_side):
+    """A snapshot of an f16 engine is rejected by a default engine, and
+    a default engine's by an f16 engine; an f16 engine takes its own."""
+    units, clusters = small_world()
+    giver = engine(score_f16=f16_side == "giver")
+    giver.schedule(units, clusters)
+    snap = pickle.loads(pickle.dumps(giver.snapshot_state()))
+    taker = engine(score_f16=f16_side == "taker")
+    taker.stage_restore(snap)
+    assert clusters_eq(taker.schedule(units, clusters), giver.schedule(units, clusters))
+    assert taker.restore_info["result"] == "rejected"
+    same = engine(score_f16=f16_side == "giver")
+    same.stage_restore(snap)
+    same.schedule(units, clusters)
+    assert same.restore_info["result"] == "loaded" and same.restore_info["fresh"]
+
+
 # -- the JAX control plane drives the port's engine ------------------------
 class TestJaxControlPlane:
     def test_jax_snapshot_manager_captures_and_restores_port_engine(self, tmp_path):
