@@ -51,18 +51,17 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    C5_BUDGET_OBJECTS objects), each checked as in 7
    and equal to 7's placements (a ``turns c5 depth`` line: wall ms,
    stages, launches, peak memory, dispatch syncs, fetch bytes per tick);
-   then cold ticks at depth 16 with the planner's round budget
-   (``PLANNER_ROUNDS``) at 1, 2, 2, 1 (c5: 1, 2, over its first
-   C5_BUDGET_OBJECTS objects), each checked as in 7 and
-   equal to 7's placements (a ``turns c5 planner rounds`` line: wall,
+   then, at c3 only, cold ticks at depth 16 with the planner's round
+   budget (``PLANNER_ROUNDS``) at 1, 2, 2, 1, each checked as in 7 and
+   equal to 7's placements (a ``turns c3 planner rounds`` line: wall,
    device and device + fetch ms, re-dispatches, syncs); the ``syncs``
    line: the synchronising operations of one chunk's dispatch
    (c5 and c3, window and sequential) under
    ``torch.cuda.set_sync_debug_mode("warn")``, with their sites;
-8. runs the dense tick through the engine (NARROW_M patched to the
+8. runs the dense tick through the engine (``narrow_m`` set to the
    cluster bucket) at a cut depth — c3 whole, the first 20k c5 objects —
    requires one launch per chunk and placements equal to the narrow
-   path's; then the first chunk of each world with NARROW_M = 8 (M = 32),
+   path's; then the first chunk of each world with ``narrow_m=8`` (M = 32),
    where rows fail the certificate: requires a fallback dispatch (two
    launches) and placements equal to the narrow path's; at c3 a second
    dense and a second narrow tick follow, so the two paths run in turns
@@ -154,6 +153,24 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    conversion of the default engine's i32 plane; ``optin c3 <config>
    <tick>`` lines (wall ms, launches, drift_stats, survivor_stats, fetch
    paths and bytes, ledger kinds, memory_allocated and its peak);
+10a''. the mesh phase (``mesh_phase``): c3 through MESH_TICKS (cold,
+   no-op, 1 % churn, a drift and back, a fit-flip and back) on the
+   default engine, then on engines over meshes of MESH_SIZES (2, 4)
+   logical devices on cuda:0 (each objects shard solving its rows on a
+   stream of its own), then the three-stream and f16 engines over a mesh
+   of 2 through cold, churn, the drift and back and the fit-flip: every
+   tick's results equal the default engine's (a meshed default engine's
+   counters too), every tick program call launches once (N a
+   chunk on the cold tick), the ledger's records lie on the ``mesh<N>``
+   lane, ``resident_state_bytes`` books the whole set on cuda:0 (the
+   engine joins every shard's outputs there); the kernel on one shard
+   of a mesh of 2 (``phase1 c3-mesh2-shard``); ``mesh c3 <engine>
+   <tick>`` lines; then the census phase (``census_phase``):
+   ``validate`` at 8,192 x 256, the c5 projection against the c5 cold
+   tick's engine (``census_live``: previous planes to the byte, the
+   vectors equal) and ``decide`` at c6 against 16 GiB and the card's
+   memory, in the port's layout (no mesh helps) and the JAX engine's
+   rows layout (modelled); a ``census`` line;
 10b. the control phase (``control_phase``): the control plane
    (``testing/cpworld.py``, ``bench_e2e.py``'s world at
    CONTROL_SHAPE = 10,000 Deployments x 500 member clusters, with its
@@ -227,6 +244,12 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    Deployments and 20 clusters through the scheduler's webhook
    evaluator: results and scores equal the in-process stand-in's tick,
    one POST per plugin; an ``extension`` line;
+10f. the native phase (``native_phase``; the library is built at the
+   start, ``native_build``, and the FNV library must build):
+   ``copy_json`` and ``stable_json_hash`` over every NATIVE_SAMPLE_EVERY-th
+   host object of the control world, native against pure Python in
+   turns, equal; the control cold round's
+   walls by controller kind beside REFERENCE_CONTROL_*; a ``native`` line;
 11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -234,11 +257,13 @@ Any failed check exits nonzero without the final line, and every
 subprocess it started is stopped.  Without CUDA it exits 2 before doing
 anything.  Usage: ``python3 chip_smoke.py``.
 
-Two phases are cut to make room for the HTTP phase within the time
-limit: c5's depth turns run over its first C5_BUDGET_OBJECTS objects
-(as its budget turns), and c5's budget turns run C5_TURN_BUDGETS (1, 2)
-(c3 keeps TURN_BUDGETS).  The opt-in phase's c5 engines run over the
-world's first C5_OPTIN_OBJECTS objects.
+Phases are cut to fit the time limit: c5's depth turns run over its
+first C5_BUDGET_OBJECTS objects, and the planner-round budget turns run
+at c3 only (c5's were dropped for the mesh, census and native phases;
+c3's check the same equality).  The opt-in phase's c5 engines run over
+the world's first C5_OPTIN_OBJECTS objects.  The worlds are frozen out
+of the garbage collector once built (``gc.freeze``): they live until the
+control phase, and every collection would otherwise walk them.
 """
 
 from __future__ import annotations
@@ -267,7 +292,7 @@ CONV_OPS_PER_S = 67e12 / 16
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
 C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
 C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
-C5_BUDGET_OBJECTS = 50000  # c5 depth of the depth turns and the planner-round budget turns
+C5_BUDGET_OBJECTS = 50000  # c5 depth of the depth turns
 FALLBACK_OBJECTS = 4096    # depth of the forced-fallback run (one chunk)
 FALLBACK_NARROW_M = 8      # M = 32 over maxClusters <= 19: many rows fail the cert
 
@@ -946,19 +971,13 @@ def ledger_overhead() -> dict:
 
 
 def run_with_narrow_m(label: str, units, clusters, narrow_m: int) -> dict:
-    """run_tick on a fresh engine with the engine's NARROW_M constant
-    patched for the call."""
-    from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
+    """run_tick on a fresh engine built with ``narrow_m``."""
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 
-    saved = engine_mod.NARROW_M
-    engine_mod.NARROW_M = narrow_m
-    try:
-        return run_tick(
-            f"{label} (NARROW_M={narrow_m}, {len(units)} objects)",
-            engine_mod.SchedulerEngine(), units, clusters,
-        )
-    finally:
-        engine_mod.NARROW_M = saved
+    return run_tick(
+        f"{label} (narrow_m={narrow_m}, {len(units)} objects)",
+        SchedulerEngine(narrow_m=narrow_m), units, clusters,
+    )
 
 
 def turns_c3(units, clusters, got, narrow: dict, dense: dict) -> dict:
@@ -1029,11 +1048,9 @@ def turns_depth(cfg: str, units, clusters, got) -> dict:
     return arms
 
 
-# The window's planner round budget in turns (fresh engines, depth 16);
-# c5 runs the first two turns only (C5_TURN_BUDGETS), to make room in
-# the time limit for the HTTP phase.
+# The window's planner round budget in turns (fresh engines, depth 16),
+# at c3 only.
 TURN_BUDGETS = (1, 2, 2, 1)
-C5_TURN_BUDGETS = (1, 2)
 
 
 def turns_budget(cfg: str, units, clusters, got, budgets=TURN_BUDGETS) -> dict:
@@ -2030,6 +2047,275 @@ def optin_phase(cfg: str, units, clusters) -> dict:
         gc.unfreeze()
 
 
+# The mesh phase: c3 over meshes of 2 and 4 logical devices on one card.
+MESH_SIZES = (2, 4)
+MESH_TICKS = ("cold", "noop", "churn", "drift", "back", "fitflip", "back from fitflip")
+# Opt-in engines under a mesh of 2, through the drift ticks (after the
+# cold and churn ticks that fill their caches).
+MESH_OPTIN = (("three-stream", {"survivor_unified": False}), ("f16", {"score_f16": True}))
+MESH_OPTIN_TICKS = ("cold", "churn", "drift", "back", "fitflip")
+
+
+def mesh_phase(units, clusters) -> dict:
+    """The objects-axis mesh on the card: the c3 world through
+    MESH_TICKS on the default engine, then on engines over meshes of
+    MESH_SIZES logical devices on cuda:0 (each objects shard runs its
+    rows of every row-wise program on a stream of its own), then the
+    MESH_OPTIN engines over a mesh of 2 through MESH_OPTIN_TICKS.  Every
+    tick's results equal the default engine's, and a meshed default
+    engine's cache, fetch, drift, survivor and narrow counters too; the no-op tick launches nothing; every
+    tick program call launches the kernel once (launches = recorded
+    narrow + dense calls) and the cold tick calls it N times a chunk; a
+    meshed tick's ledger records lie on the ``mesh<N>`` lane only;
+    ``resident_state_bytes`` books the default engine's bytes (an opt-in
+    engine's own), all of them on cuda:0, where the engine joins every
+    shard's outputs.  Then the kernel against its plain version on the first
+    shard of the first chunk of a mesh of 2.  Each tick logs its wall
+    ms, launches, ledger lanes, resident bytes and memory peak."""
+    import torch
+
+    from kubeadmiral_tpu_torch.parallel.mesh import make_mesh, row_bounds
+    from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.worlds import churn, drift, drift_fitflip
+
+    churned = churn(np.random.default_rng(0), units)
+    worlds = {
+        "cold": (units, clusters), "noop": (units, clusters), "churn": (churned, clusters),
+        "drift": (churned, drift(clusters)), "back": (churned, clusters),
+        "fitflip": (churned, drift_fitflip(clusters)), "back from fitflip": (churned, clusters),
+    }
+    same = ("cache", "fetch_paths", "drift_stats", "survivor_stats", "narrow_stats",
+            "changed_rows")
+
+    def run(name, n, labels, switches):
+        ledger = DispatchLedger()
+        mesh = None if n == 1 else make_mesh([torch.device("cuda", 0)] * n)
+        engine = SchedulerEngine(flight_recorder=None, devprof=ledger, mesh=mesh, **switches)
+        out = {}
+        for label in labels:
+            got, tick, _ = counted_tick(engine, *worlds[label])
+            tick.pop("drains", None)
+            by_device = ledger.tick_summary(engine.last_tick_id)["by_device"]
+            tick["ledger_lanes"] = {lane: v["n"] for lane, v in by_device.items()}
+            resident = engine.resident_state_bytes()
+            tick["resident"] = {
+                k: resident[k] for k in ("total", "per_device", "device_count", "by_device")
+            }
+            out[label] = (got, tick)
+        if n > 1:
+            out["_geometry"] = engine._tick_geometry(len(clusters))
+        del engine
+        torch.cuda.empty_cache()
+        return out
+
+    def check(name, n, label, got, tick, want, base, switches):
+        assert_results_equal(f"mesh c3 {name} {label} vs default", got, want)
+        # An opt-in engine takes its own paths: its results only.
+        for key in () if switches else same:
+            if tick[key] != base[key]:
+                raise AssertionError(f"mesh c3 {name} {label}: {key} {tick[key]} != {base[key]}")
+        calls = tick["narrow_dispatches"] + tick["dense_dispatches"]
+        if tick["phase1_launches"] != calls:
+            raise AssertionError(f"mesh c3 {name} {label}: {tick['phase1_launches']} launches "
+                                 f"for {calls} tick program calls")
+        if label == "noop" and tick["phase1_launches"]:
+            raise AssertionError(f"mesh c3 {name} noop launched: {tick}")
+        lanes = set(tick["ledger_lanes"])
+        if tick["ledger_lanes"] and lanes != {f"mesh{n}"}:
+            raise AssertionError(f"mesh c3 {name} {label}: ledger lanes {lanes}")
+        # An opt-in engine holds other planes (f16 scores): where they lie only.
+        r, r0 = tick["resident"], base["resident"]
+        if (not switches and r["total"] != r0["total"]) or r["device_count"] != n or (
+            len(r["by_device"]) > 1 or r["per_device"] != r["total"]
+        ):
+            raise AssertionError(f"mesh c3 {name} {label}: resident {r} against {r0}")
+
+    keys = ("tick_ms", "phase1_launches", "narrow_dispatches", "dense_dispatches",
+            "fetch_paths", "drift_stats", "survivor_stats", "dispatch_syncs",
+            "ledger_lanes", "resident", "memory_allocated", "max_memory_allocated")
+    gc.freeze()
+    try:
+        base = run("default", 1, MESH_TICKS, {})
+        want = {label: got for label, (got, _t) in base.items()}
+        base_ticks = {label: tick for label, (_g, tick) in base.items()}
+        del base
+        out = {"default": {}}
+        for label, tick in base_ticks.items():
+            out["default"][label] = {k: tick[k] for k in keys}
+            log(f"mesh c3 default {label}: {json.dumps(out['default'][label])}")
+        chunks = base_ticks["cold"]["narrow_dispatches"]
+        runs = [(f"mesh{n}", n, MESH_TICKS, {}) for n in MESH_SIZES]
+        runs += [(f"mesh2 {name}", 2, MESH_OPTIN_TICKS, sw) for name, sw in MESH_OPTIN]
+        for name, n, labels, switches in runs:
+            t0 = time.perf_counter()
+            ticks = run(name, n, labels, switches)
+            geometry = ticks.pop("_geometry")
+            out[name] = {}
+            for label, (got, tick) in ticks.items():
+                check(name, n, label, got, tick, want[label], base_ticks[label], switches)
+                out[name][label] = {k: tick[k] for k in keys}
+                log(f"mesh c3 {name} {label}: {json.dumps(out[name][label])}")
+            cold = ticks["cold"][1]
+            if cold["narrow_dispatches"] != n * chunks:
+                raise AssertionError(f"mesh c3 {name} cold: {cold['narrow_dispatches']} narrow "
+                                     f"calls for {chunks} chunks over {n} shards")
+            log(f"mesh c3 {name}: {time.perf_counter() - t0:.2f} s, geometry {geometry}")
+        del want
+    finally:
+        gc.unfreeze()
+    # The kernel on one shard: the first half of the first chunk's rows.
+    gpu = SchedulerEngine()
+    inp, _, _ = chunk_tick_inputs(gpu, units, clusters)
+    b = inp.total.shape[0]
+    lo, hi = row_bounds(b, 2)[0]
+    shard = inp._replace(**{k: v[lo:hi] for k, v in inp._asdict().items() if v.shape[:1] == (b,)})
+    out["kernel"] = check_phase1("c3-mesh2-shard", shard, timed=True)
+    del inp, shard, gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def census_live(engine, units, clusters) -> dict:
+    """The census's c5 projection against the c5 engine just after its
+    cold tick (no new tick): its previous planes equal to the byte, and
+    its [B] vectors; the card's share of the previous planes equal to
+    the model's per-device share."""
+    from kubeadmiral_tpu_torch.runtime import census
+
+    live = engine.resident_state_bytes()
+    model = census.project(len(units), len(clusters), 1, score_f16=engine.score_f16)
+    row = {
+        "live": live["by_family"], "model": model["by_family"],
+        "geometry": model["geometry"], "live_per_device": live["per_device"],
+        "model_per_device": model["per_device"],
+    }
+    for family in ("prev_planes", "vectors"):
+        if live["by_family"][family] != model["by_family"][family]:
+            raise AssertionError(f"census c5 {family}: live {live['by_family'][family]}, "
+                                 f"model {model['by_family'][family]}")
+    row["live_prev_planes_by_device"] = live["prev_planes_by_device"]
+    if max(live["prev_planes_by_device"].values()) != model["prev_planes_per_device"]:
+        raise AssertionError(f"census c5 per device: live {live['prev_planes_by_device']}, "
+                             f"model {model['prev_planes_per_device']}")
+    log(f"census c5 live: {json.dumps(row)}")
+    return row
+
+
+def census_phase(c5: dict) -> dict:
+    """The memory census on the card: ``validate`` at 8,192 x 256 (the
+    live engine's previous planes against the model, within the JAX
+    module's 15 %, in all and on the busiest device), the c5 check made
+    after the c5 cold tick, and ``decide`` at c6 (1M x 10k, one device)
+    against 16 GiB and against the card's memory
+    (``torch.cuda.mem_get_info``), in the port's layout, where the
+    verdict must name no device count (the engine joins every shard's
+    planes on its device), and in the JAX engine's rows layout, which
+    the port does not build (modelled, for comparison)."""
+    import torch
+
+    from kubeadmiral_tpu_torch.runtime import census
+
+    v = census.validate(8192, 256)
+    if not v["ok"]:
+        raise AssertionError(f"census validate: {v}")
+    total = torch.cuda.mem_get_info()[1]
+    c6 = {
+        f"{budget} {layout}": census.decide(1_000_000, 10_000, 1, budget_bytes=b,
+                                            layout=layout)
+        for budget, b in (("16GiB", census.BUDGET_BYTES), ("card", total))
+        for layout in census.LAYOUTS
+    }
+    for key, d in c6.items():
+        if d["layout"] == "joined" and d["min_devices"] not in (None, 1):
+            raise AssertionError(f"census c6 {key}: the port's layout names a split: {d}")
+    row = {
+        "validate": {k: v[k] for k in ("shape", "model_prev_planes", "live_prev_planes",
+                                       "prev_planes_err_pct", "model_prev_planes_per_device",
+                                       "live_prev_planes_per_device", "per_device_err_pct",
+                                       "ok")},
+        "c5": c5,
+        "card_bytes": total,
+        "c6": {k: {kk: d[kk] for kk in ("verdict", "min_devices", "per_device_i32",
+                                        "per_device_f16", "budget_bytes")}
+               for k, d in c6.items()},
+    }
+    log(f"census: {json.dumps(row)}")
+    return row
+
+
+# A reference run of the control phase on the H100 80GB HBM3 at 700 W
+# with the host library in pure Python (PERF.md): the cold round's wall
+# and its sync controller's.
+REFERENCE_CONTROL_COLD_S = 96.58
+REFERENCE_CONTROL_SYNC_S = 29.40
+
+
+def native_build() -> dict:
+    """Load the native host library (built with g++ at first use): the
+    FNV hashing library must build; the copy extension takes the pure
+    Python path where this machine lacks Python's headers."""
+    from kubeadmiral_tpu_torch import native
+
+    native.load()
+    native.load_fastcopy()
+    status = native.status()
+    if status["fnvhash"]["path"] != "native":
+        raise AssertionError(f"native: the FNV library did not build: {status}")
+    log(f"native build: {json.dumps(status)}")
+    return status
+
+
+NATIVE_SAMPLE_EVERY = 8  # the native phase times every 8th host object
+
+
+def native_phase(control: dict) -> dict:
+    """The native host library against its pure-Python paths over every
+    NATIVE_SAMPLE_EVERY-th host object of the control world:
+    ``copy_json`` and ``stable_json_hash``, each timed in turns (native,
+    Python, Python, native) with the collector off and the script's heap
+    frozen (a collection inside a pass would walk every earlier phase's
+    objects), the values equal; then the control phase's cold-round
+    walls by controller kind beside the pure-Python reference run's."""
+    from kubeadmiral_tpu_torch import native
+    from kubeadmiral_tpu_torch.utils import hashing, unstructured
+
+    objects = control.pop("host_objects")[::NATIVE_SAMPLE_EVERY]
+    pairs = {
+        "copy_json": (unstructured.copy_json, unstructured._copy_json_py),
+        "stable_json_hash": (hashing.stable_json_hash, hashing.stable_json_hash_py),
+    }
+    turns = {}
+    gc.freeze()
+    gc.disable()
+    try:
+        for name, (fast, plain) in pairs.items():
+            outs, ms = {}, {"native": [], "python": []}
+            for path, fn in (("native", fast), ("python", plain), ("python", plain),
+                             ("native", fast)):
+                t0 = time.perf_counter()
+                outs[path] = [fn(o) for o in objects]
+                ms[path].append((time.perf_counter() - t0) * 1e3)
+            if outs["native"] != outs["python"]:
+                raise AssertionError(f"native: {name} differs from the pure-Python path")
+            turns[name] = ms
+            del outs
+    finally:
+        gc.enable()
+        gc.unfreeze()
+    cold = control["rounds"]["cold"]
+    row = {
+        "status": native.status(),
+        "objects": len(objects),
+        "turns_ms": turns,
+        "control_cold_wall_s": cold["wall_s"],
+        "control_cold_walls_s": {k: cold["walls_s"].get(k) for k in ("federate", "override", "sync")},
+        "reference": {"cold_wall_s": REFERENCE_CONTROL_COLD_S, "sync_s": REFERENCE_CONTROL_SYNC_S},
+    }
+    log(f"native: {json.dumps(row)}")
+    return row
+
+
 CONTROL_SHAPE = (10_000, 500)  # bench_e2e.py at config-#3 scale (BASELINE.md:64)
 
 
@@ -2205,6 +2491,10 @@ def control_phase(beside=None) -> dict:
     }
     del first_inputs
     panics = plane.panics()
+    # The host store's objects, for the native phase's timings.
+    host_objects = [
+        obj for per in plane.host.dump()["objects"].values() for obj in per.values()
+    ]
     engine_ticks = plane.engine.tick_seq
     if any(stage_launches.values()):
         raise AssertionError(f"control: controllers other than the scheduler launched {stage_launches}")
@@ -2268,7 +2558,7 @@ def control_phase(beside=None) -> dict:
     log(f"control summary: {json.dumps(summary)}")
     return {"rounds": out, "summary": summary, "kernel": kernel,
             "sync_launches": stage_launches["sync"], "stage_launches": stage_launches,
-            "beside": side.get("result")}
+            "beside": side.get("result"), "host_objects": host_objects}
 
 
 PROCESS_ARGS = (
@@ -2892,9 +3182,16 @@ def main() -> int:
     log(f"phase1 build (ptxas -v):\n{phase1_mod.build_log().strip()}")
     div = division_sass(phase1_mod.build())
     log(f"phase1 short division sites (SASS): {json.dumps(div)}")
+    t0 = time.perf_counter()
+    native_status = native_build()
+    log(f"phase native build: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     worlds = {cfg: build_world(*SHAPES[cfg], config=cfg, seed=0) for cfg in ("3", "5")}
+    # Most of the heap the collector tracks; the phases that freeze
+    # their own heap unfreeze these with it.
+    gc.collect()
+    gc.freeze()
     log(f"phase worlds: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -2967,6 +3264,10 @@ def main() -> int:
         if tick["narrow_m"] is None:
             raise AssertionError(f"c{cfg}: the engine did not take the narrow path")
         tick["ledger"] = ledger_check(f"c{cfg} cold", engine, tick, tick["fallback_dispatches"])
+        if cfg == "5":
+            t1 = time.perf_counter()
+            census_c5 = census_live(engine, units, clusters)
+            census_s = time.perf_counter() - t1
         got = tick.pop("results")
         ticks[cfg] = tick
         if cfg == "5" and tick["fetch_bytes"] != C5_COLD_FETCH_BYTES:
@@ -2983,15 +3284,15 @@ def main() -> int:
         log(f"phase e2e-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
         # The window against the sequential dispatch, in turns; c5 over
-        # its first C5_BUDGET_OBJECTS objects, as the budget turns.
+        # its first C5_BUDGET_OBJECTS objects.
         t0 = time.perf_counter()
         depth = len(units) if cfg == "3" else C5_BUDGET_OBJECTS
         depth_turns[cfg] = turns_depth(cfg, units[:depth], clusters, got[:depth])
         log(f"phase turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        turns_budget(cfg, units[:depth], clusters, got[:depth],
-                     TURN_BUDGETS if cfg == "3" else C5_TURN_BUDGETS)
-        log(f"phase budget-turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
+        if cfg == "3":
+            t0 = time.perf_counter()
+            turns_budget(cfg, units, clusters, got, TURN_BUDGETS)
+            log(f"phase budget-turns-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
         # The dense tick through the engine: M patched to the cluster
         # bucket.  Cut depth at c5 (first C5_DENSE_OBJECTS objects).
@@ -2999,7 +3300,7 @@ def main() -> int:
         depth = len(units) if cfg == "3" else C5_DENSE_OBJECTS
         dense = run_with_narrow_m(f"c{cfg} dense", units[:depth], clusters, tick["c_bucket"])
         if dense["narrow_m"] is not None or dense["fallback_dispatches"] != 0:
-            raise AssertionError(f"c{cfg}: NARROW_M at the bucket did not take the dense path")
+            raise AssertionError(f"c{cfg}: narrow_m at the bucket did not take the dense path")
         assert_results_equal(f"c{cfg} dense vs narrow", dense.pop("results"), got[:depth])
         dense_ticks[cfg] = dense
 
@@ -3075,6 +3376,17 @@ def main() -> int:
         optin[cfg] = optin_phase(cfg, *worlds[cfg][:2])
         log(f"phase optin-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
+    # The objects-axis mesh at c3, then the memory census.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(*worlds["3"][:2])
+    log(f"phase mesh-c3: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    census_row = census_phase(census_c5)
+    torch.cuda.empty_cache()
+    log(f"phase census: {time.perf_counter() - t0 + census_s:.2f} s")
+
     # The control plane (the manager's controllers) over the card's engine.
     t0 = time.perf_counter()
     del worlds, units, clusters
@@ -3087,6 +3399,10 @@ def main() -> int:
     )
     process, process_http = control["beside"]["memory"], control["beside"]["http"]
     log(f"phase control and process: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native_row = native_phase(control)
+    log(f"phase native: {time.perf_counter() - t0:.2f} s")
+    gc.collect()
     t0 = time.perf_counter()
     http = http_phase_finish(http_proc, http_work)
     log(f"phase http: {time.perf_counter() - t0:.2f} s (its twin, the wait, the kernel check)")
@@ -3120,7 +3436,7 @@ def main() -> int:
                               surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
                               control["kernel"]["cold_chunk"], control["kernel"]["churn"],
                               control["kernel"]["migrate"], http["kernel"],
-                              streams["5"]["kernel"], streams["3"]["kernel"])
+                              streams["5"]["kernel"], streams["3"]["kernel"], mesh["kernel"])
                 ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -3293,6 +3609,26 @@ def main() -> int:
                     for label, t in by_label.items()
                     if label in ("cold", "wide")
                 },
+                # The mesh phase: launches per tick and engine (each
+                # objects shard launches its rows), and the kernel on
+                # one shard of a mesh of 2.
+                "launches_mesh_c3": {
+                    f"{name} {label}": t["phase1_launches"]
+                    for name, by_label in mesh.items() if name != "kernel"
+                    for label, t in by_label.items()
+                },
+                "mesh_memory_c3": {
+                    f"{name} {label}": [t["memory_allocated"], t["max_memory_allocated"]]
+                    for name, by_label in mesh.items() if name != "kernel"
+                    for label, t in by_label.items() if label == "cold"
+                },
+                "mesh_shard_c3": {
+                    key: mesh["kernel"][key]
+                    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                },
+                "census": census_row,
+                "native": {"build": native_status, "objects": native_row["objects"],
+                           "turns_ms": native_row["turns_ms"]},
                 "extension_posts": extension["posts"],
                 "process_http_replicas": process_http["replicas"],
                 "card": card,

@@ -17,14 +17,15 @@ device for Y ms and waited Z ms in queue":
   watcher thread waits on each record's event IN DISPATCH ORDER
   (``event.synchronize()``, the counterpart of JAX's
   ``block_until_ready``, which pins no tensor), stamps ``ready`` with
-  ``perf_counter`` and applies the single-stream chain model —
+  ``perf_counter`` and applies the chain model, one chain per device
+  lane (``d<k>``, or ``mesh<N>`` for a meshed engine's programs) —
 
-      start_i   = max(dispatch_ts_i, ready_ts_{i-1})
+      start_i   = max(dispatch_ts_i, ready_ts_{i-1} of the same lane)
       device_s  = ready_ts_i - start_i
       queue_s   = start_i - dispatch_ts_i
 
-  which is exact for an in-order device queue (the engine enqueues
-  every program on one stream): ``device_s`` is the time the program
+  which is exact for an in-order device queue (a lane's programs are
+  enqueued in order on its stream): ``device_s`` is the time the program
   actually occupied the device, ``queue_s`` the time it sat enqueued
   behind earlier work.  An output on the CPU has run by the time it is
   observed, so it is ready at its observation (device_s 0).  Records
@@ -209,7 +210,8 @@ class DispatchLedger:
         self._seq = 0
         self._retired_seq = 0
         self._tick_seq = 0
-        self._chain_ready: Optional[float] = None
+        # Per device lane: when its last retired program was ready.
+        self._chain_ready: dict[str, float] = {}
         self.inflight = 0
         self._thread: Optional[threading.Thread] = None
 
@@ -227,11 +229,13 @@ class DispatchLedger:
             self._thread.start()
 
     # -- hot path ---------------------------------------------------------
-    def observe(self, kind: str, out) -> None:
+    def observe(self, kind: str, out, lane: Optional[str] = None) -> None:
         """Record one device dispatch (call immediately after the
-        program is enqueued).  Cost: a leaf pick, one event record on the
-        current stream for an output on the card, one perf_counter read
-        and a lock-guarded deque append."""
+        program is enqueued).  ``lane`` labels a program run over a mesh
+        (``mesh<N>``, the JAX ledger's label for an output spanning N
+        devices); else the output's device names it.  Cost: a leaf pick,
+        one event record on the current stream for an output on the
+        card, one perf_counter read and a lock-guarded deque append."""
         if not self.enabled:
             return
         leaf = _pick_leaf(out)
@@ -239,7 +243,8 @@ class DispatchLedger:
             return  # host-only output: nothing dispatched
         event = _ready_marker(leaf)
         shape = tuple(leaf.shape)
-        lane = _lane(leaf.device)
+        if lane is None:
+            lane = _lane(leaf.device)
         with self._cv:
             self._seq += 1
             open_entry = self._open
@@ -296,18 +301,20 @@ class DispatchLedger:
 
     # -- watcher ----------------------------------------------------------
     def _chain(self, rec: DispatchRecord, t_ready: float) -> None:
-        """The single-stream chain model: a program starts when it was
-        dispatched or when its predecessor was ready, whichever is
-        later; it occupied the device from then until it was ready."""
+        """The chain model, one chain per device lane: a program starts
+        when it was dispatched or when its lane's predecessor was ready,
+        whichever is later; it occupied the lane from then until it was
+        ready."""
         start = rec.t_dispatch
-        if self._chain_ready is not None and self._chain_ready > start:
-            start = self._chain_ready
+        prev = self._chain_ready.get(rec.device)
+        if prev is not None and prev > start:
+            start = prev
         if t_ready < start:
             t_ready = start
         rec.queue_s = start - rec.t_dispatch
         rec.device_s = t_ready - start
         rec.t_ready = t_ready
-        self._chain_ready = t_ready
+        self._chain_ready[rec.device] = t_ready
 
     def _watch(self) -> None:
         while True:

@@ -182,10 +182,10 @@ CATALOG: dict[str, MetricSpec] = {
         "(runtime/census.py; bench --scenario census)."),
     "engine_resident_bytes_per_device": MetricSpec(
         "gauge", "bytes", (),
-        "Resident working-set bytes PER DEVICE (rows-sharded planes "
-        "divided by the objects-axis device count, replicated vectors "
-        "booked whole) — the number compared against the KT_HBM_BUDGET_GB "
-        "knob by the census."),
+        "Resident working-set bytes on the busiest device, summed from "
+        "where each tensor lies (the engine joins every objects shard's "
+        "outputs on its own device) — the number the census's budget "
+        "is compared against."),
     "engine_dispatch_inflight": MetricSpec(
         "gauge", "dispatches", (),
         "Dispatched programs whose readiness the ledger has not yet "

@@ -59,6 +59,12 @@ EMPTY_SLOT = np.int32(1 << 30)
 CUR_ABSENT = np.int32(-2)
 CUR_NIL = np.int32(-1)
 
+# Cap keyword names CompactVocab.__init__ accepts (the engine validates
+# its vocab_caps override against this).
+CAP_NAMES = frozenset(
+    {"gvk_cap", "tol_cap", "taint_cap", "sel_cap", "pref_cap", "place_cap"}
+)
+
 
 class VocabOverflow(Exception):
     """A vocabulary exceeded its cap — use the dense path for this chunk."""

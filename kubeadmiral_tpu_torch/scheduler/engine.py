@@ -48,6 +48,12 @@ drain (a chunk with one is dispatched again with the checked loop).
 Depth 1 is the sequential path: a window of one chunk, dispatched with
 the checked round loop, waited for and fetched before the next.
 
+The JAX engine's geometry and cache arguments are keywords with its
+defaults, and so is its ``mesh``: over several devices each objects
+shard solves its rows of every row-wise program on its own device and
+stream (``parallel/mesh.py``), the outputs joined in row order, so a
+meshed tick equals the single-device one.
+
 ``schedule`` takes the JAX engine's whole call surface: a caller-built
 cluster ``view``; ``webhook_eval`` (webhook planes are per-tick results,
 so a webhook tick featurizes every chunk dense, reads and writes no
@@ -85,7 +91,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -118,6 +124,12 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     upcast_scores,
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
+from kubeadmiral_tpu_torch.parallel.mesh import (
+    leading_rows,
+    make_mesh,
+    objects_axis_size,
+    run_rows,
+)
 from kubeadmiral_tpu_torch.runtime import devprof as devprof_mod
 from kubeadmiral_tpu_torch.runtime import flightrec as flightrec_mod
 from kubeadmiral_tpu_torch.runtime import trace
@@ -358,6 +370,48 @@ def _cluster_bucket(n: int, minimum: int) -> int:
     return ((n + 511) // 512) * 512
 
 
+def tick_geometry(
+    n_clusters: int, n_dev: int = 1, *, chunk_size: int = MEGACHUNK_ROWS,
+    min_bucket: int = MIN_ROW_BUCKET, min_cluster_bucket: int = MIN_CLUSTER_BUCKET,
+    cell_budget: int = CELL_BUDGET, megachunk_rows: int = MEGACHUNK_ROWS,
+    canonical_c: int = CANONICAL_C,
+) -> tuple[int, int, Optional[list]]:
+    """(c_bucket, eff_chunk, row ladder or None) over ``n_dev`` devices
+    on the objects axis: cell-budget chunking (``cell_budget`` and
+    ``megachunk_rows`` are per device), with wide cluster axes bucketing
+    rows to a 3-rung ladder.  The engine's geometry at its keywords, and
+    the census's at any device count."""
+    c_bucket = _cluster_bucket(n_clusters, min_cluster_bucket)
+    max_rows = max(
+        min_bucket,
+        min(megachunk_rows * n_dev, (cell_budget * n_dev) // max(1, c_bucket)),
+    )
+    eff_chunk = min(chunk_size, 1 << (max_rows.bit_length() - 1))
+    ladder = None
+    if c_bucket >= canonical_c:
+        ladder = sorted(
+            {max(min_bucket, eff_chunk // 16), max(min_bucket, eff_chunk // 4), eff_chunk}
+        )
+    return c_bucket, eff_chunk, ladder
+
+
+def bucket_rows(
+    n: int, ladder: Optional[list], eff_chunk: int, full: bool,
+    min_bucket: int = MIN_ROW_BUCKET,
+) -> int:
+    """The padded rows of an n-row chunk under ``tick_geometry``."""
+    if ladder is None:
+        return _pow2_bucket(n, min_bucket, eff_chunk)
+    if full:
+        # Multi-chunk batches pad every chunk (incl. the last
+        # partial) to the full-chunk shape.
+        return eff_chunk
+    for rung in ladder:
+        if n <= rung:
+            return rung
+    return eff_chunk
+
+
 def _finite_bound(max_clusters) -> int:
     """The largest finite, non-negative maxClusters of a chunk (0 if none)."""
     mc = np.asarray(max_clusters)
@@ -514,9 +568,23 @@ class _InFlight:
     mask: Optional[torch.Tensor] = None
 
 
+def _unsettled(budget):
+    return None if budget is None else budget.unsettled
+
+
 def _planes(out) -> tuple:
     """The five planes a wire packs, in pack_wire's order."""
     return (out.selected, out.replicas, out.counted, out.scores, out.reasons)
+
+
+class TickPlanes(NamedTuple):
+    """The five planes of _planes under their output names."""
+
+    selected: torch.Tensor
+    replicas: torch.Tensor
+    counted: torch.Tensor
+    scores: torch.Tensor
+    reasons: torch.Tensor
 
 
 class SchedulerEngine:
@@ -526,9 +594,20 @@ class SchedulerEngine:
 
     ``device`` defaults to ``"cuda"`` (phase 1 then runs as the
     hand-written kernel); pass ``device="cpu"`` for the plain torch path.
-    The chunk geometry, candidate width, wire width and cache budget are
-    the JAX engine's defaults (module constants above): 4096-row chunks,
-    a 4096 x 5120 cell budget, M >= 128, K >= 16 and 16 GiB.
+    The chunk geometry, candidate width, wire width, cache budget and
+    vocabulary caps are the JAX engine's keywords with its defaults
+    (the module constants above): ``chunk_size`` 4096 rows,
+    ``min_bucket`` 64, ``min_cluster_bucket`` 8, ``cell_budget`` 4096 x
+    5120 cells and ``megachunk_rows`` 4096 a device, ``canonical_c``
+    256, ``narrow_m`` 128, ``pack_k_min`` 16, ``cache_bytes`` 16 GiB.
+
+    ``mesh`` is the JAX engine's: "auto" builds an objects-axis mesh over
+    the visible CUDA devices when there are several (``_resolve_mesh``),
+    None is one device, a ``parallel.mesh.Mesh`` is taken as given.
+    Under a mesh each objects shard runs its rows of every row-wise
+    program on its own device and stream, joined in row order on
+    ``device``, which so holds the whole resident state; the window,
+    the cell budget and the row cap are per device.
 
     ``schedule`` treats the unit list and the units as immutable: derive
     a changed batch as a fresh list with fresh unit objects.
@@ -561,12 +640,45 @@ class SchedulerEngine:
                  replan: bool = True, score_f16: bool = False,
                  fetch_format: str = "packed", narrow: bool = True,
                  phase1_i32: bool = True, delta_feat: bool = True,
-                 donate: bool = True):
+                 donate: bool = True, chunk_size: int = MEGACHUNK_ROWS,
+                 min_bucket: int = MIN_ROW_BUCKET,
+                 min_cluster_bucket: int = MIN_CLUSTER_BUCKET,
+                 cache_bytes: int = CACHE_BYTES, cell_budget: Optional[int] = None,
+                 megachunk_rows: Optional[int] = None, canonical_c: int = CANONICAL_C,
+                 vocab_caps: Optional[dict] = None, pack_k_min: Optional[int] = None,
+                 narrow_m: Optional[int] = None, mesh="auto"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "SchedulerEngine: CUDA is not available; pass device='cpu' "
                 "to run on the CPU"
+            )
+        # Chunk geometry (the JAX engine's keywords and defaults): rows
+        # per chunk at most, the row and cluster bucket floors, the
+        # per-device cell budget and row cap, the cluster width from
+        # which rows bucket to a 3-rung ladder, and the cache budget.
+        self.chunk_size = int(chunk_size)
+        self.min_bucket = int(min_bucket)
+        self.min_cluster_bucket = int(min_cluster_bucket)
+        self.cell_budget = CELL_BUDGET if cell_budget is None else int(cell_budget)
+        self.megachunk_rows = max(
+            1, MEGACHUNK_ROWS if megachunk_rows is None else int(megachunk_rows)
+        )
+        self.canonical_c = int(canonical_c)
+        self.cache_bytes = int(cache_bytes)
+        # The candidate width's floor (narrow solve) and the wire's
+        # slot-count floor (packed fetch).
+        self.narrow_m = NARROW_M if narrow_m is None else int(narrow_m)
+        self.pack_k_min = PACK_K_MIN if pack_k_min is None else int(pack_k_min)
+        # Compact vocabulary caps (a test or operations override, e.g. to
+        # force the dense fallback); a misspelt key fails here, not deep
+        # inside the first tick.
+        self._vocab_caps = dict(vocab_caps or {})
+        unknown = set(self._vocab_caps) - Cmp.CAP_NAMES
+        if unknown:
+            raise ValueError(
+                f"unknown vocab_caps keys {sorted(unknown)}; "
+                f"valid: {sorted(Cmp.CAP_NAMES)}"
             )
         if fetch_format not in ("packed", "dense"):
             raise ValueError(
@@ -666,7 +778,13 @@ class SchedulerEngine:
         # Chunks in flight before a drain (1: the sequential dispatch),
         # and windowed chunks dispatched again because a planner row
         # was still going after PLANNER_ROUNDS.
-        self.pipeline_depth = PIPELINE_DEPTH
+        # The window is per device (the JAX engine's KT_PIPELINE_DEPTH):
+        # a mesh multiplies it by its objects axis.
+        self.mesh = self._resolve_mesh(mesh)
+        self._mesh_rows = self.mesh if objects_axis_size(self.mesh) > 1 else None
+        self._lane = None if self.mesh is None else f"mesh{self.mesh.devices.size}"
+        self.pipeline_depth_per_device = PIPELINE_DEPTH
+        self.pipeline_depth = PIPELINE_DEPTH * objects_axis_size(self.mesh)
         self.planner_reruns = 0
         # Ticks with units so far, and the last tick's id: the dispatch
         # ledger's tick id, shared by the waterfall, the trace span and
@@ -714,11 +832,85 @@ class SchedulerEngine:
         # (the snapshot manager's capture hook).
         self.post_tick = None
 
-    @property
-    def chunk_size(self) -> int:
-        """Rows per chunk at most (MEGACHUNK_ROWS), which the controller
-        manager reads to size its prewarm."""
-        return MEGACHUNK_ROWS
+    # -- devices -----------------------------------------------------------
+    def _resolve_mesh(self, mesh):
+        """The engine's mesh: an explicit Mesh or None as given; "auto"
+        builds one over the visible CUDA devices when the engine runs on
+        CUDA and there are several: the largest power-of-two count,
+        objects axis first (up to ``min_bucket``, so every row rung
+        splits evenly), the rest on the clusters axis (up to
+        ``min_cluster_bucket``).  One device: None."""
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', a Mesh or None, got {mesh!r}")
+            if self.device.type != "cuda":
+                return None
+            n = torch.cuda.device_count()
+            if n <= 1:
+                return None
+            usable = 1 << (n.bit_length() - 1)
+            obj = min(usable, self.min_bucket)
+            clus = min(usable // obj, self.min_cluster_bucket)
+            return make_mesh(
+                [torch.device("cuda", i) for i in range(obj * clus)], objects_axis=obj
+            )
+        if mesh is None:
+            return None
+        obj_dim, clus_dim = mesh.shape
+        if obj_dim > self.min_bucket or clus_dim > self.min_cluster_bucket:
+            raise ValueError(
+                f"mesh {mesh.shape} larger than minimum buckets "
+                f"({self.min_bucket}, {self.min_cluster_bucket})"
+            )
+        kinds = {d.type for d in mesh.devices.ravel()}
+        if kinds != {self.device.type}:
+            raise ValueError(
+                f"mesh devices {sorted(kinds)} do not match the engine's "
+                f"device {self.device}"
+            )
+        return mesh
+
+    def _on_rows(self, fn, rows: tuple, whole: tuple = (), bounds: bool = False):
+        """``fn(*rows, *whole)``; under a mesh, on each objects shard's
+        rows, on its device and stream, joined in row order on the
+        engine's device (``parallel.mesh.run_rows``).  With ``bounds``
+        the shard's row range (lo, hi) leads the arguments ((0, n)
+        without a mesh)."""
+        if self._mesh_rows is None:
+            if bounds:
+                return fn(0, leading_rows(rows[0]), *rows, *whole)
+            return fn(*rows, *whole)
+        return run_rows(self._mesh_rows, fn, rows, whole, home=self.device, bounds=bounds)
+
+    def _pack(self, planes: tuple, k: int) -> torch.Tensor:
+        """The packed wire of five [N, C] planes (``pack_wire``), by rows
+        under a mesh."""
+        return self._on_rows(pack_wire, planes, (k,))
+
+    def _gather_planes(self, out, planes: int, idx) -> torch.Tensor:
+        """The dense fetch's row gather (``_gather_planes``), the index's
+        rows split under a mesh."""
+        return self._on_rows(
+            lambda i, *p: _gather_planes(TickPlanes(*p), planes, i), (idx,), _planes(out)
+        )
+
+    def _diff(self, out, prev: tuple, n: int) -> torch.Tensor:
+        """``_diff_bits`` of a dispatch's first n rows, by rows under a
+        mesh."""
+
+        def diff(sel, rep, cnt, sco, *old):
+            return _diff_bits(TickPlanes(sel, rep, cnt, sco, None), old, sel.shape[0])
+
+        planes = (out.selected, out.replicas, out.counted, out.scores) + tuple(prev)
+        return self._on_rows(diff, tuple(p[:n] for p in planes))
+
+    def _observe(self, kind: str, out) -> None:
+        """One dispatch into the ledger; a meshed engine's programs on
+        the ``mesh<N>`` lane."""
+        if self._lane is None:
+            self.devprof.observe(kind, out)
+        else:
+            self.devprof.observe(kind, out, lane=self._lane)
 
     def prewarm(
         self,
@@ -784,7 +976,7 @@ class SchedulerEngine:
             ),
         )
         view = _build_cluster_view(clusters, [unit])
-        vocab = CompactVocab(view)
+        vocab = CompactVocab(view, **self._vocab_caps)
         c_bucket, eff_chunk, ladder = self._tick_geometry(len(clusters))
         b_pad = self._bucket_rows(min(max(1, n_objects), eff_chunk), ladder, eff_chunk, False)
         padded = self._pad_for_dispatch(
@@ -797,76 +989,53 @@ class SchedulerEngine:
         }
         device_in = CompactInputs(**{k: tensor(v, self.device) for k, v in host.items()})
         tick_in = expand_compact(device_in, self._key_max(padded, "compact"))
-        self.devprof.observe("tiebreak", tick_in.tiebreak)
+        self._observe("tiebreak", tick_in.tiebreak)
         m = self._narrow_m(padded, c_bucket)
         if m is None:
-            self.devprof.observe("tick", schedule_tick(tick_in))
+            self._observe("tick", schedule_tick(tick_in))
         else:
-            self.devprof.observe(
+            self._observe(
                 "tick_narrow", schedule_tick_narrow(tick_in, m, i32_keys=self.phase1_i32)
             )
         self._sync()
 
     # -- shape policy ----------------------------------------------------
     def _tick_geometry(self, n_clusters: int) -> tuple[int, int, Optional[list]]:
-        """(c_bucket, eff_chunk, row ladder or None): cell-budget
-        chunking, with wide cluster axes bucketing rows to a 3-rung
-        ladder."""
-        c_bucket = _cluster_bucket(n_clusters, MIN_CLUSTER_BUCKET)
-        max_rows = max(
-            MIN_ROW_BUCKET, min(MEGACHUNK_ROWS, CELL_BUDGET // max(1, c_bucket))
+        """``tick_geometry`` at this engine's keywords and mesh."""
+        return tick_geometry(
+            n_clusters, objects_axis_size(self.mesh), chunk_size=self.chunk_size,
+            min_bucket=self.min_bucket, min_cluster_bucket=self.min_cluster_bucket,
+            cell_budget=self.cell_budget, megachunk_rows=self.megachunk_rows,
+            canonical_c=self.canonical_c,
         )
-        # MEGACHUNK_ROWS also stands for the JAX engine's chunk_size (both
-        # 4096 by default), which caps the chunk below MIN_ROW_BUCKET too.
-        eff_chunk = min(MEGACHUNK_ROWS, 1 << (max_rows.bit_length() - 1))
-        ladder = None
-        if c_bucket >= CANONICAL_C:
-            ladder = sorted(
-                {
-                    max(MIN_ROW_BUCKET, eff_chunk // 16),
-                    max(MIN_ROW_BUCKET, eff_chunk // 4),
-                    eff_chunk,
-                }
-            )
-        return c_bucket, eff_chunk, ladder
 
     def _bucket_rows(
         self, n: int, ladder: Optional[list], eff_chunk: int, full: bool
     ) -> int:
-        if ladder is None:
-            return _pow2_bucket(n, MIN_ROW_BUCKET, eff_chunk)
-        if full:
-            # Multi-chunk batches pad every chunk (incl. the last
-            # partial) to the full-chunk shape.
-            return eff_chunk
-        for rung in ladder:
-            if n <= rung:
-                return rung
-        return eff_chunk
+        return bucket_rows(n, ladder, eff_chunk, full, self.min_bucket)
 
     def _narrow_m(self, inputs, c_bucket: int) -> Optional[int]:
         """The chunk's candidate width M, or None for the dense tick: pow2
-        over the finite maxClusters bound, floored at NARROW_M; narrow
+        over the finite maxClusters bound, floored at ``narrow_m``; narrow
         only when M is narrower than the cluster bucket (never under
         ``narrow=False``)."""
         if not self.narrow:
             return None
         m = _pow2_bucket(
-            max(_finite_bound(inputs.max_clusters), NARROW_M), 8, 1 << 30
+            max(_finite_bound(inputs.max_clusters), self.narrow_m), 8, 1 << 30
         )
         return m if m < c_bucket else None
 
-    @staticmethod
-    def _pack_k(inputs, c_bucket: int, hint: int = 0) -> int:
+    def _pack_k(self, inputs, c_bucket: int, hint: int = 0) -> int:
         """The wire slot count K: the chunk's adaptive hint when it has
         one (see _commit_nsel), else pow2 over the finite maxClusters
-        bound, floored at PACK_K_MIN; capped at the cluster bucket (K = C
+        bound, floored at ``pack_k_min``; capped at the cluster bucket (K = C
         is lossless).  Rows selecting more than K clusters overflow and
         are re-fetched, so K tunes bytes, never correctness."""
         if hint:
             return min(max(hint, 8), c_bucket)
         k = _pow2_bucket(
-            max(_finite_bound(inputs.max_clusters), PACK_K_MIN), 8, 1 << 30
+            max(_finite_bound(inputs.max_clusters), self.pack_k_min), 8, 1 << 30
         )
         return min(k, c_bucket)
 
@@ -893,17 +1062,19 @@ class SchedulerEngine:
                 entry,
                 pieces[0] if len(pieces) == 1 else np.concatenate(pieces),
                 c_bucket,
+                self.pack_k_min,
             )
 
     @staticmethod
-    def _commit_nsel(entry, nsel, c_bucket: int) -> None:
+    def _commit_nsel(entry, nsel, c_bucket: int, pack_k_min: int = PACK_K_MIN) -> None:
         """One tick's selected counts -> the entry's pack-K hint: the pow2
         K with the fewest expected wire bytes over the observed counts
         (each row pays 4K+2 words; an overflow row also pays its ~4.25 C
         bytes of re-fetch), widened to hold overflow under
         PACK_OVERFLOW_PCT when that costs at most PACK_WIDEN times the
         optimum.  The hint rises at once and halves only after two
-        consecutive shrink votes."""
+        consecutive shrink votes.  The search starts at ``pack_k_min``'s
+        bucket (the engine's)."""
         nsel = np.asarray(nsel)
         over_bytes = 4.25 * c_bucket
 
@@ -913,7 +1084,7 @@ class SchedulerEngine:
             ) * over_bytes
 
         best_k, best_cost = None, None
-        k = _pow2_bucket(PACK_K_MIN, 8, 1 << 30)
+        k = _pow2_bucket(pack_k_min, 8, 1 << 30)
         while True:
             k_eff = min(k, c_bucket)
             cost = cost_at(k_eff)
@@ -1007,7 +1178,7 @@ class SchedulerEngine:
         if topo_fp in self._vocabs:
             return self._vocabs[topo_fp]
         try:
-            vocab = CompactVocab(view)
+            vocab = CompactVocab(view, **self._vocab_caps)
         except VocabOverflow:
             self.metrics.counter("engine_vocab_overflow_total", scope="topology")
             vocab = None
@@ -1135,11 +1306,13 @@ class SchedulerEngine:
             np.asarray(getattr(inputs, name)).nbytes
             for name in self._per_object_fields(fmt)
         )
-        b_pad = _pow2_bucket(len(chunk), MIN_ROW_BUCKET, 1 << 30)
-        c_pad = _cluster_bucket(np.asarray(inputs.cluster_valid).shape[0], MIN_CLUSTER_BUCKET)
+        b_pad = _pow2_bucket(len(chunk), self.min_bucket, 1 << 30)
+        c_pad = _cluster_bucket(
+            np.asarray(inputs.cluster_valid).shape[0], self.min_cluster_bucket
+        )
         nbytes = host_bytes * 3 + b_pad * c_pad * 15
         entry = None
-        if self._cache_used + nbytes <= CACHE_BYTES:
+        if self._cache_used + nbytes <= self.cache_bytes:
             entry = _CachedChunk(
                 sigs=[featurize_signature(su) for su in chunk],
                 units=list(chunk),
@@ -1304,7 +1477,7 @@ class SchedulerEngine:
         dst = self._index(stale)
         for name, dev in entry.device_per_object.items():
             dev.index_copy_(0, dst, rows[name])
-        self.devprof.observe("patch", entry.device_per_object)
+        self._observe("patch", entry.device_per_object)
         entry.stale_rows = None
 
     def _sync(self) -> None:
@@ -1332,22 +1505,42 @@ class SchedulerEngine:
     def _tick(self, device_in, fmt: str, m: Optional[int], key_max=None, budget=None):
         """One dispatch: (outputs, cert or None).  ``key_max`` bounds the
         keys (``_key_max``); ``budget`` is the planner's RoundBudget, if
-        any.  The module-level tick functions are looked up at call time
-        (chip_smoke counts them)."""
-        if fmt == "compact":
-            tick_in = expand_compact(device_in, key_max)
-            self.devprof.observe("tiebreak", tick_in.tiebreak)
-        else:
-            tick_in = device_in
+        any.  Under a mesh each objects shard expands and solves its
+        rows (each with a budget of its own, their unsettled rows and
+        recorded rounds joined into ``budget``).  The module-level tick
+        functions are looked up at call time (chip_smoke counts them)."""
+        if m is not None:
+            self.narrow_last_m = m
+        budgets: list = []
+
+        def solve(piece):
+            sub = budget
+            if budget is not None and self._mesh_rows is not None:
+                sub = RoundBudget(budget.rounds, record=budget.per_row is not None)
+            budgets.append(sub)
+            if fmt == "compact":
+                tick_in = expand_compact(piece, key_max)
+                if len(budgets) == 1:
+                    self._observe("tiebreak", tick_in.tiebreak)
+            else:
+                tick_in = piece
+            if m is None:
+                return schedule_tick(tick_in, budget=sub), None, _unsettled(sub)
+            out, cert = schedule_tick_narrow(
+                tick_in, m, i32_keys=self.phase1_i32, budget=sub
+            )
+            return out, cert, _unsettled(sub)
+
+        out, cert, unsettled = self._on_rows(solve, (device_in,))
+        if budget is not None and self._mesh_rows is not None:
+            budget.unsettled = unsettled
+            if budget.per_row is not None:
+                loops = zip(*(b.per_row for b in budgets))
+                budget.per_row.extend(np.concatenate(rounds) for rounds in loops)
         if m is None:
-            out = schedule_tick(tick_in, budget=budget)
-            self.devprof.observe("tick", out)
-            return out, None
-        self.narrow_last_m = m
-        out, cert = schedule_tick_narrow(
-            tick_in, m, i32_keys=self.phase1_i32, budget=budget
-        )
-        self.devprof.observe("tick_narrow", (out, cert))
+            self._observe("tick", out)
+        else:
+            self._observe("tick_narrow", (out, cert))
         return out, cert
 
     # -- the tick ----------------------------------------------------------
@@ -1503,23 +1696,22 @@ class SchedulerEngine:
     # -- durable state: snapshots (runtime/snapshot.py) ----------------------
     def _snapshot_config(self) -> dict:
         """The engine-shape fingerprint a snapshot must match to be
-        restorable, under the JAX engine's keys: the port's geometry
-        constants (MEGACHUNK_ROWS stands for both chunk_size and
-        megachunk_rows), one device, the fetch format, the narrow solve
-        and the score plane's dtype.  A mismatch rejects the snapshot:
-        restore never reinterprets planes."""
+        restorable, under the JAX engine's keys: the geometry, the mesh's
+        (objects, clusters) shape (None: one device), the fetch format,
+        the narrow solve and the score plane's dtype.  A mismatch rejects
+        the snapshot: restore never reinterprets planes."""
         return {
             "version": SNAPSHOT_STATE_VERSION,
-            "chunk_size": MEGACHUNK_ROWS,
-            "cell_budget": CELL_BUDGET,
-            "megachunk_rows": MEGACHUNK_ROWS,
-            "min_bucket": MIN_ROW_BUCKET,
-            "min_cluster_bucket": MIN_CLUSTER_BUCKET,
-            "canonical_c": CANONICAL_C,
+            "chunk_size": self.chunk_size,
+            "cell_budget": self.cell_budget,
+            "megachunk_rows": self.megachunk_rows,
+            "min_bucket": self.min_bucket,
+            "min_cluster_bucket": self.min_cluster_bucket,
+            "canonical_c": self.canonical_c,
             "fetch_format": self.fetch_format,
             "narrow": self.narrow,
-            "narrow_m": NARROW_M,
-            "mesh": None,
+            "narrow_m": self.narrow_m,
+            "mesh": None if self.mesh is None else tuple(self.mesh.shape),
             "score_f16": self.score_f16,
         }
 
@@ -1607,25 +1799,46 @@ class SchedulerEngine:
     def resident_state_bytes(self) -> dict:
         """The chunk cache's device bytes by plane family (the JAX
         engine's families; the port keeps no tie-break plane, so that
-        family is 0), also stored as ``engine_resident_bytes`` gauges."""
+        family is 0), also stored as ``engine_resident_bytes`` gauges.
+        ``by_device`` sums them by the device each tensor lies on, and
+        ``per_device`` is the busiest device's (the number an HBM budget
+        is compared against).  The engine joins every objects shard's
+        outputs on its own device, so under a mesh that device holds the
+        whole set (the census's "joined" layout), where the JAX engine
+        divides the rows-sharded families by the objects axis
+        (``device_count``)."""
         fams = {"prev_planes": 0, "per_object": 0, "tiebreak": 0, "vectors": 0}
+        by_device: dict[str, int] = {}
+        prev_by_device: dict[str, int] = {}
+
+        def book(family, t):
+            if t is None:
+                return
+            fams[family] += t.nbytes
+            dev = str(t.device)
+            by_device[dev] = by_device.get(dev, 0) + t.nbytes
+            if family == "prev_planes":
+                prev_by_device[dev] = prev_by_device.get(dev, 0) + t.nbytes
+
         for e in self._chunk_cache.values():
-            planes = (e.prev_out or ()) + (e.prev_feas, e.prev_reasons)
-            fams["prev_planes"] += sum(p.nbytes for p in planes if p is not None)
-            if e.device_per_object is not None:
-                fams["per_object"] += sum(t.nbytes for t in e.device_per_object.values())
+            for p in (e.prev_out or ()) + (e.prev_feas, e.prev_reasons):
+                book("prev_planes", p)
+            for t in (e.device_per_object or {}).values():
+                book("per_object", t)
             for vec in (e.prev_nfeas, e.prev_sco_exact):
-                if vec is not None:
-                    fams["vectors"] += vec.nbytes
+                book("vectors", vec)
         total = sum(fams.values())
+        per_device = max(by_device.values(), default=0)
         for family, v in fams.items():
             self.metrics.store("engine_resident_bytes", v, family=family)
-        self.metrics.store("engine_resident_bytes_per_device", total)
+        self.metrics.store("engine_resident_bytes_per_device", per_device)
         return {
             "by_family": fams,
             "total": total,
-            "device_count": 1,
-            "per_device": total,
+            "device_count": objects_axis_size(self.mesh),
+            "by_device": by_device,
+            "prev_planes_by_device": prev_by_device,
+            "per_device": per_device,
             "score_dtype": "f16" if self.score_f16 else "i32",
             "chunks": len(self._chunk_cache),
         }
@@ -1732,11 +1945,11 @@ class SchedulerEngine:
             c = np.asarray(inputs.cluster_valid).shape[0]
             nbytes = (
                 host_bytes * 3
-                + _pow2_bucket(n, MIN_ROW_BUCKET, 1 << 30)
-                * _cluster_bucket(c, MIN_CLUSTER_BUCKET)
+                + _pow2_bucket(n, self.min_bucket, 1 << 30)
+                * _cluster_bucket(c, self.min_cluster_bucket)
                 * 15
             )
-            if self._cache_used + nbytes > CACHE_BYTES:
+            if self._cache_used + nbytes > self.cache_bytes:
                 continue
             entry = _CachedChunk(
                 sigs=list(cs["sigs"]),
@@ -2086,7 +2299,7 @@ class SchedulerEngine:
             # outputs before they are read again.  (A chunk whose decode
             # carries scores keeps them: a re-dispatch at the drain could
             # not diff its score rows against the decoded dicts.)
-            mask = _diff_bits(out, self._prev_for_diff(entry), n)
+            mask = self._diff(out, self._prev_for_diff(entry), n)
             entry.prev_out = None
         timings["device"] += time.perf_counter() - t1
         return _InFlight(
@@ -2145,7 +2358,7 @@ class SchedulerEngine:
         diffed = [it for it in items if it.delta_ok]
         masks = self._read_all([
             it.mask if it.mask is not None
-            else _diff_bits(it.out, self._prev_for_diff(it.entry), it.n)
+            else self._diff(it.out, self._prev_for_diff(it.entry), it.n)
             for it in diffed
         ])
         timings["fetch"] += time.perf_counter() - t0
@@ -2237,12 +2450,12 @@ class SchedulerEngine:
         for it, idx in delta_items:
             self.fetch_stats["delta"] += 1
             gidx = self._index(idx)
-            wire = pack_wire(*(p.index_select(0, gidx) for p in _planes(it.out)), it.pack_k)
-            self.devprof.observe("pack", wire)
+            wire = self._pack(tuple(p.index_select(0, gidx) for p in _planes(it.out)), it.pack_k)
+            self._observe("pack", wire)
             wires.append((it, idx, wire))
         for it in full_items:
-            wire = pack_wire(*(p[: it.n] for p in _planes(it.out)), it.pack_k)
-            self.devprof.observe("pack", wire)
+            wire = self._pack(tuple(p[: it.n] for p in _planes(it.out)), it.pack_k)
+            self._observe("pack", wire)
             wires.append((it, None, wire))
         arrs = self._read_all([w[2] for w in wires])
         timings["fetch"] += time.perf_counter() - t0
@@ -2308,8 +2521,8 @@ class SchedulerEngine:
             for it, idx in group:
                 gidx = np.zeros(k, np.int64)
                 gidx[: idx.size] = idx
-                dev = _gather_planes(it.out, planes, self._index(gidx))
-                self.devprof.observe("gather", dev)
+                dev = self._gather_planes(it.out, planes, self._index(gidx))
+                self._observe("gather", dev)
                 gathers.append((it, idx, planes, dev))
         fulls = []  # (item, device planes)
         for it in full_items:
@@ -2552,22 +2765,26 @@ class SchedulerEngine:
         scores = entry.prev_out[3]
         if scores.dtype == torch.float16:
             scores = self._upcast_scores(scores)
-        args = (
-            entry.prev_feas,
-            scores,
-            *delta,
-            tensor(self._fin_rows(entry, b_pad), dev),
-            self._ensure_nfeas(entry),
-        )
+        fin = tensor(self._fin_rows(entry, b_pad), dev)
+        tables = self._tables_device(vocab, c_bucket) if fmt == "compact" else None
         self.dispatches_total += 1
-        if fmt == "compact":
-            mask, new_cols = drift_gate_compact(
-                entry.device_per_object, self._tables_device(vocab, c_bucket),
-                *args, Cmp.CUR_ABSENT,
-            )
-        else:
-            mask, new_cols = drift_gate_dense(entry.device_per_object, *args)
-        self.devprof.observe("gate", (mask, new_cols))
+
+        def gate(lo, hi, per_object, feas, sco, nfeas, fin, tables, *delta):
+            if self._mesh_rows is not None:
+                # The shard's finite rows, local (others out of range).
+                fin = torch.where((fin >= lo) & (fin < hi), fin - lo, 1 << 30)
+            args = (feas, sco, *delta, fin, nfeas)
+            if fmt == "compact":
+                return drift_gate_compact(per_object, tables, *args, Cmp.CUR_ABSENT)
+            return drift_gate_dense(per_object, *args)
+
+        mask, new_cols = self._on_rows(
+            gate,
+            (entry.device_per_object, entry.prev_feas, scores, self._ensure_nfeas(entry)),
+            (fin, tables, *delta),
+            bounds=True,
+        )
+        self._observe("gate", (mask, new_cols))
         return {
             "mask": self._start_read(mask),
             "new_cols": new_cols,
@@ -2596,25 +2813,36 @@ class SchedulerEngine:
         return device_in, self._per_object_fields(fmt), self._key_max(entry.inputs, fmt)
 
     def _gather_group(self, survivor_in, fmt: str, seg: list, g: int):
-        """(row index, expanded inputs) of one survivor group of ``g``
+        """(row index, gathered inputs) of one survivor group of ``g``
         rows; padding repeats the group's first row (rows are
         independent, and only the first len(seg) are read)."""
-        device_in, per_object, key_max = survivor_in
+        device_in, per_object, _key_max = survivor_in
         idx = np.full(g, seg[0], np.int64)
         idx[: len(seg)] = seg
         gidx = self._index(idx)
         sub = device_in._replace(
             **{name: getattr(device_in, name).index_select(0, gidx) for name in per_object}
         )
-        return gidx, (expand_compact(sub, key_max) if fmt == "compact" else sub)
+        return gidx, sub
+
+    def _run_group(self, survivor_in, fmt: str, sub, fn, rows: tuple, whole: tuple = ()):
+        """``fn(expanded group inputs, *rows, *whole)`` over a gathered
+        survivor group; under a mesh each objects shard expands and
+        solves G/N of its rows (the JAX engine's row-sharded groups)."""
+        key_max = survivor_in[2]
+
+        def run(piece, *rest):
+            return fn(expand_compact(piece, key_max) if fmt == "compact" else piece, *rest)
+
+        return self._on_rows(run, (sub,) + rows, whole)
 
     def _survivor_job(self, pi: int, entry, seg, out, cert, pack_k: int, kind: str,
                       program: str) -> dict:
         """A queued survivor group for _drain_drift_resolve: its outputs'
         wire packed at ``pack_k``, in one ledger record under
         ``program`` with the solve (the JAX programs fuse the pack)."""
-        wire = pack_wire(out.selected, out.replicas, out.counted, out.scores, out.reasons, pack_k)
-        self.devprof.observe(program, (out, cert, wire))
+        wire = self._pack(_planes(out), pack_k)
+        self._observe(program, (out, cert, wire))
         return {"pi": pi, "entry": entry, "rows": seg, "out": out, "cert": cert,
                 "wire": wire, "pack_k": pack_k, "kind": kind}
 
@@ -2648,9 +2876,11 @@ class SchedulerEngine:
         self.survivor_stats["rows"] += len(rows)
         jobs = []
         for seg, g in self._survivor_groups(rows):
-            gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
-            out, cert = drift_survivor(
-                inp, entry.prev_reasons.index_select(0, gidx), m, i32_keys=self.phase1_i32
+            gidx, sub = self._gather_group(survivor_in, fmt, seg, g)
+            out, cert = self._run_group(
+                survivor_in, fmt, sub,
+                lambda inp, reasons: drift_survivor(inp, reasons, m, i32_keys=self.phase1_i32),
+                (entry.prev_reasons.index_select(0, gidx),),
             )
             self.survivor_stats["groups"] += 1
             self.survivor_stats["padded_rows"] += g
@@ -2686,15 +2916,17 @@ class SchedulerEngine:
         survivor_in = self._survivor_inputs(entry, fmt, vocab, c_bucket, cluster_dev)
         jobs = []
         for seg, g in self._survivor_groups(rows):
-            gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
+            gidx, sub = self._gather_group(survivor_in, fmt, seg, g)
             self.dispatches_total += 1
-            out, cert = drift_resolve(
-                inp,
-                entry.prev_feas.index_select(0, gidx),
-                entry.prev_out[3].index_select(0, gidx),
-                entry.prev_reasons.index_select(0, gidx),
-                *delta[:6],
-                m,
+            out, cert = self._run_group(
+                survivor_in, fmt, sub,
+                lambda inp, feas, sco, rsn, *d: drift_resolve(inp, feas, sco, rsn, *d, m),
+                (
+                    entry.prev_feas.index_select(0, gidx),
+                    entry.prev_out[3].index_select(0, gidx),
+                    entry.prev_reasons.index_select(0, gidx),
+                ),
+                delta[:6],
             )
             jobs.append(self._survivor_job(pi, entry, seg, out, cert, pack_k, "resolve", "resolve"))
         return jobs
@@ -2726,15 +2958,21 @@ class SchedulerEngine:
         for scored in (False, True):
             path_rows = [r for r in rows if bool(kinf_host[r]) != scored]
             for seg, g in self._survivor_groups(path_rows):
-                gidx, inp = self._gather_group(survivor_in, fmt, seg, g)
+                gidx, sub = self._gather_group(survivor_in, fmt, seg, g)
                 self.dispatches_total += 1
                 reasons = entry.prev_reasons.index_select(0, gidx)
                 if scored:
                     # JAX's drift_scoreonly: the unified survivor's solve.
-                    out, cert = drift_survivor(inp, reasons, m, i32_keys=self.phase1_i32)
+                    out, cert = self._run_group(
+                        survivor_in, fmt, sub,
+                        lambda inp, r: drift_survivor(inp, r, m, i32_keys=self.phase1_i32),
+                        (reasons,),
+                    )
                 else:
-                    out, cert = drift_replan(
-                        inp, reasons, entry.prev_out[3].index_select(0, gidx), m
+                    out, cert = self._run_group(
+                        survivor_in, fmt, sub,
+                        lambda inp, r, sco: drift_replan(inp, r, sco, m),
+                        (reasons, entry.prev_out[3].index_select(0, gidx)),
                     )
                 jobs.append(self._survivor_job(
                     pi, entry, seg, out, cert, pack_k,
@@ -2874,12 +3112,16 @@ class SchedulerEngine:
                     ridx = np.zeros(g, np.int64)
                     ridx[: len(seg)] = seg
                     self.dispatches_total += 1
-                    flags = drift_wcheck(
-                        entry.prev_feas, self._index(ridx),
-                        oldc["cpu_alloc"], oldc["cpu_avail"],
-                        newc["cpu_alloc"], newc["cpu_avail"],
+                    flags = self._on_rows(
+                        lambda rows_idx, feas, *cpu: drift_wcheck(feas, rows_idx, *cpu),
+                        (self._index(ridx),),
+                        (
+                            entry.prev_feas,
+                            oldc["cpu_alloc"], oldc["cpu_avail"],
+                            newc["cpu_alloc"], newc["cpu_avail"],
+                        ),
                     )
-                    self.devprof.observe("wcheck", flags)
+                    self._observe("wcheck", flags)
                     wcheck_jobs.append((pi, np.asarray(seg), flags))
             if self.survivor_unified:
                 jobs.extend(
@@ -2997,11 +3239,14 @@ class SchedulerEngine:
         sub = device_in._replace(
             **{name: getattr(device_in, name)[idx] for name in self._per_object_fields(fmt)}
         )
-        fb = schedule_tick(expand_compact(sub) if fmt == "compact" else sub)
-        self.devprof.observe("narrow_fallback", fb)
+        fb = self._on_rows(
+            lambda piece: schedule_tick(expand_compact(piece) if fmt == "compact" else piece),
+            (sub,),
+        )
+        self._observe("narrow_fallback", fb)
         for name in ("selected", "replicas", "counted", "reasons"):
             getattr(out, name)[idx] = getattr(fb, name)
-        self.devprof.observe("repair", out.reasons)
+        self._observe("repair", out.reasons)
         self._sync()
         timings["narrow_fallback"] += time.perf_counter() - t0
         return out, rows
@@ -3152,8 +3397,8 @@ class SchedulerEngine:
                 n_planes = 5 if rec is not None else (4 if want_scores else 3)
                 gidx = np.zeros(_pow2_bucket(n, 16, 1 << 30), np.int64)
                 gidx[:n] = np.arange(n)
-                dev = _gather_planes(out, n_planes, self._index(gidx))
-                self.devprof.observe("gather", dev)
+                dev = self._gather_planes(out, n_planes, self._index(gidx))
+                self._observe("gather", dev)
                 arr = self._read_np(dev)[:n]
                 c_pad = arr.shape[1] // n_planes
                 sco = arr[:, 3 * c_pad : 4 * c_pad] if n_planes >= 4 else None
@@ -3168,8 +3413,8 @@ class SchedulerEngine:
                 timings["decode"] += time.perf_counter() - t3
                 continue
             planes = (out.selected, out.replicas, out.counted, out.scores, out.reasons)
-            wire = pack_wire(*(p[:n] for p in planes), pack_k)
-            self.devprof.observe("pack", wire)
+            wire = self._pack(tuple(p[:n] for p in planes), pack_k)
+            self._observe("pack", wire)
             packed = unpack_wire(self._read_np(wire), pack_k)
             nsel_all.append(packed.nsel)
             if rec is not None:
@@ -3346,9 +3591,9 @@ class SchedulerEngine:
         )
         if self.score_f16:
             exact = self._ensure_sco_exact_vec(entry)
-            exact.index_copy_(0, dst, exact_rows(out.scores.index_select(0, src)))
+            exact.index_copy_(0, dst, self._on_rows(exact_rows, (out.scores.index_select(0, src),)))
             entry.sco_inexact_host = None
-        self.devprof.observe("repair", nfeas)
+        self._observe("repair", nfeas)
 
     def _store_prev(self, entry, out) -> None:
         """Adopt a dispatch's six output planes as the entry's prev state,
@@ -3368,8 +3613,8 @@ class SchedulerEngine:
         vector in (a gate refresh writes through the stored plane)."""
         self.dispatches_total += 1
         old = entry.prev_sco_exact if and_old else None
-        f16, exact = compress_scores(scores, old)
-        self.devprof.observe("score_pack", (f16, exact))
+        f16, exact = self._on_rows(compress_scores, (scores, old))
+        self._observe("score_pack", (f16, exact))
         entry.prev_sco_exact = exact
         entry.sco_inexact_host = None
         return f16
@@ -3377,8 +3622,8 @@ class SchedulerEngine:
     def _upcast_scores(self, f16) -> torch.Tensor:
         """A stored f16 score plane as i32 (exact rows bit for bit)."""
         self.dispatches_total += 1
-        up = upcast_scores(f16)
-        self.devprof.observe("score_pack", up)
+        up = self._on_rows(upcast_scores, (f16,))
+        self._observe("score_pack", up)
         return up
 
     def _prev_for_diff(self, entry) -> tuple:
@@ -3534,7 +3779,7 @@ class SchedulerEngine:
                 ))
             else:
                 gathers.append(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
-            self.devprof.observe("overflow", gathers[-1])
+            self._observe("overflow", gathers[-1])
         arrs = self._read_all(gathers)
         timings["overflow_fetch"] += time.perf_counter() - t0
         return [

@@ -36,8 +36,8 @@ exact (tests/test_streaming.py drives the randomized differential).
 The JAX module's knobs are arguments with its defaults: ``slab_rows``
 (SLAB_ROWS, 1024; ``KT_SLAB_ROWS``), ``slab_age_ms`` (SLAB_AGE_MS, 50;
 ``KT_SLAB_AGE_MS``) and ``grow_block`` (``KT_SLAB_GROW``; by default one
-engine chunk).  The port's engine has no mesh, so the row watermark is
-never scaled by a device count.
+engine chunk).  As in the JAX module, the default row watermark is per
+device: a meshed engine's scales with its objects axis.
 """
 
 from __future__ import annotations
@@ -134,7 +134,16 @@ class StreamingScheduler:
         self.metrics = metrics if metrics is not None else (
             getattr(engine, "metrics", None) or null_metrics()
         )
-        self.slab_rows = int(SLAB_ROWS if slab_rows is None else slab_rows)
+        if slab_rows is None:
+            # Per-device slab sizing: the churn slabs ride the engine's
+            # rows-sharded dispatch, so a meshed engine's row watermark
+            # scales with its objects axis; an explicit slab_rows is
+            # taken verbatim.
+            slab_rows = SLAB_ROWS
+            mesh = getattr(engine, "mesh", None)
+            if mesh is not None:
+                slab_rows *= int(mesh.devices.shape[0])
+        self.slab_rows = int(slab_rows)
         self.slab_age_ms = float(
             SLAB_AGE_MS if slab_age_ms is None else slab_age_ms
         )

@@ -71,13 +71,13 @@ def counted_dispatch_syncs(engine, mode="warn"):
         del engine._queue_chunk
 
 
-def first_chunk_syncs(units, clusters, windowed: bool, mode="warn") -> dict:
+def first_chunk_syncs(units, clusters, windowed: bool, mode="warn", mesh="auto") -> dict:
     """One dispatch of the first chunk of ``units`` on a fresh engine on
-    the card, featurized as the tick does (a cold miss): {"sites": the
-    synchronising operations' sites, "other": any other warning (site:
-    message), "queue_ms": the dispatch's host time}.  ``windowed`` gives
-    the planner the window's round budget."""
-    engine = engine_mod.SchedulerEngine()
+    the card (over ``mesh``), featurized as the tick does (a cold miss):
+    {"sites": the synchronising operations' sites, "other": any other
+    warning (site: message), "queue_ms": the dispatch's host time}.
+    ``windowed`` gives the planner the window's round budget."""
+    engine = engine_mod.SchedulerEngine(mesh=mesh)
     view = engine._cached_view(units, clusters)
     c_bucket, eff_chunk, ladder = engine._tick_geometry(len(view.clusters))
     vocab = engine._vocab_for(view, engine._topo_fingerprint(view))

@@ -10,21 +10,47 @@ semantics, so the exact bit patterns matter for parity:
   ``fnv.New32a()`` (reference:
   pkg/controllers/scheduler/schedulingtriggers.go:106-148).
 
-Pure-Python/numpy implementations.
+The byte loops run in the port's native C++ library when it builds
+(``kubeadmiral_tpu_torch/native``, g++ at first use), with these
+pure-Python/numpy implementations as the fallback; both give the same
+values.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 from typing import Any, Iterable
 
 import numpy as np
 
+from kubeadmiral_tpu_torch import native
+
 _FNV32_PRIME = np.uint32(16777619)
+
+# Resolved at the first hash call, so importing this module never waits
+# for the on-demand build.
+_UNRESOLVED = object()
+_NATIVE: Any = _UNRESOLVED
+
+
+def _native_lib():
+    global _NATIVE
+    if _NATIVE is _UNRESOLVED:
+        _NATIVE = native.load()
+    return _NATIVE
 
 
 def fnv32(data: bytes) -> int:
     """FNV-1 32-bit (multiply, then xor) — matches Go's ``fnv.New32()``."""
+    lib = _native_lib()
+    if lib is not None:
+        return lib.kadm_fnv32(data, len(data))
+    return fnv32_py(data)
+
+
+def fnv32_py(data: bytes) -> int:
+    """``fnv32`` in pure Python."""
     h = 2166136261
     for b in data:
         h = ((h * 16777619) & 0xFFFFFFFF) ^ b
@@ -33,6 +59,14 @@ def fnv32(data: bytes) -> int:
 
 def fnv32a(data: bytes) -> int:
     """FNV-1a 32-bit (xor, then multiply) — matches Go's ``fnv.New32a()``."""
+    lib = _native_lib()
+    if lib is not None:
+        return lib.kadm_fnv32a(data, len(data))
+    return fnv32a_py(data)
+
+
+def fnv32a_py(data: bytes) -> int:
+    """``fnv32a`` in pure Python."""
     h = 2166136261
     for b in data:
         h = ((h ^ b) * 16777619) & 0xFFFFFFFF
@@ -44,9 +78,24 @@ def fnv32_batch(prefixes: Iterable[str], suffix: str) -> np.ndarray:
     Returns uint32[N]."""
     suffix_b = suffix.encode()
     prefs = list(prefixes)
+    lib = _native_lib()
+    if lib is not None and prefs:
+        encoded = [p.encode() for p in prefs]
+        offsets = np.zeros(len(encoded) + 1, dtype=np.uint64)
+        np.cumsum([len(e) for e in encoded], out=offsets[1:])
+        out = np.empty(len(encoded), dtype=np.uint32)
+        lib.kadm_fnv32_batch(
+            b"".join(encoded),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            len(encoded),
+            suffix_b,
+            len(suffix_b),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        )
+        return out
     out = np.empty(len(prefs), dtype=np.uint32)
     for i, p in enumerate(prefs):
-        out[i] = fnv32(p.encode() + suffix_b)
+        out[i] = fnv32_py(p.encode() + suffix_b)
     return out
 
 
@@ -54,12 +103,25 @@ def fnv32_extend(state: int | np.ndarray, data: bytes) -> int | np.ndarray:
     """Continue an FNV-1 hash from a previous state over extra bytes:
     ``fnv32(a + b) == fnv32_extend(fnv32(a), b)``.  Accepts a scalar
     state or a uint32 ndarray of states (vectorized)."""
-    if isinstance(state, np.ndarray):
-        h = state.astype(np.uint32).copy()
-        with np.errstate(over="ignore"):
-            for b in data:
-                h = (h * _FNV32_PRIME) ^ np.uint32(b)
-        return h
+    lib = _native_lib()
+    scalar = not isinstance(state, np.ndarray)
+    h = np.asarray([int(state)] if scalar else state).astype(np.uint32)
+    if lib is not None:
+        h = np.ascontiguousarray(h)
+        lib.kadm_fnv32_extend_batch(
+            h.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), h.size, data, len(data)
+        )
+        return int(h[0]) if scalar else h
+    if scalar:
+        return fnv32_extend_py(int(state), data)
+    with np.errstate(over="ignore"):
+        for b in data:
+            h = (h * _FNV32_PRIME) ^ np.uint32(b)
+    return h
+
+
+def fnv32_extend_py(state: int, data: bytes) -> int:
+    """The scalar ``fnv32_extend`` in pure Python."""
     h = int(state)
     for b in data:
         h = ((h * 16777619) & 0xFFFFFFFF) ^ b
@@ -81,7 +143,15 @@ def stable_json_hash(value: Any) -> int:
     or PYTHONHASHSEED; other non-JSON types raise rather than hash
     unstably.
     """
+    return fnv32a(_canonical_json(value))
 
+
+def stable_json_hash_py(value: Any) -> int:
+    """``stable_json_hash`` with the byte loop in pure Python."""
+    return fnv32a_py(_canonical_json(value))
+
+
+def _canonical_json(value: Any) -> bytes:
     def canonical(v: Any) -> Any:
         # json.dumps only consults this hook for non-JSON types; nested
         # non-JSON elements inside the returned value are routed back here.
@@ -92,4 +162,4 @@ def stable_json_hash(value: Any) -> int:
         raise TypeError(f"unhashable trigger value of type {type(v).__name__}")
 
     enc = json.dumps(value, sort_keys=True, separators=(",", ":"), default=canonical)
-    return fnv32a(enc.encode())
+    return enc.encode()

@@ -69,10 +69,26 @@ def _copy_json_py(obj):
         return _copy.deepcopy(obj)
 
 
+_native_copy = None
+_native_checked = False
+
+
 def copy_json(obj):
     """Deep copy for JSON-shaped objects (immutable leaves shared, dict
-    keys shared); non-JSON nodes and cyclic structures fall back to
-    copy.deepcopy wholesale.  The JAX package calls its C extension
-    (``native/fastcopy.cpp``) here; the port takes the pure-Python
-    path, which returns the same copy."""
+    keys shared).  Uses the C extension (``native/fastcopy.cpp``, the
+    JAX package's, about 8x the Python recursion there) when it builds;
+    a non-JSON node or a cyclic structure makes the whole call fall back
+    to copy.deepcopy, as the JAX package's C path does."""
+    global _native_copy, _native_checked
+    if not _native_checked:
+        # Deferred: importing this module never waits for the build.
+        from kubeadmiral_tpu_torch.native import load_fastcopy
+
+        _native_copy = load_fastcopy()
+        _native_checked = True
+    if _native_copy is not None:
+        try:
+            return _native_copy(obj)
+        except (TypeError, RecursionError):
+            return _copy.deepcopy(obj)
     return _copy_json_py(obj)

@@ -16,7 +16,9 @@
   the kernel build; its launch counter stays 0.
 * ``SchedulerEngine``'s opt-in switches are keyword arguments whose
   defaults are the JAX engine's defaults (its environment switches
-  unset), kept as attributes; a wrong fetch format raises.
+  unset), kept as attributes; a wrong fetch format raises.  So are its
+  geometry, cache and mesh keywords; an unknown vocabulary cap raises.
+* The scan covers the mesh, the memory census and the native library.
 """
 
 import ast
@@ -118,6 +120,16 @@ def test_scan_covers_control_plane():
         "kubeadmiral_tpu_torch/federation/nsautoprop.py",
         "kubeadmiral_tpu_torch/federation/automigration.py",
         "kubeadmiral_tpu_torch/federation/monitor.py",
+    ):
+        assert rel in PORT_FILES, rel
+
+
+def test_scan_covers_mesh_census_and_native():
+    for rel in (
+        "kubeadmiral_tpu_torch/parallel/__init__.py",
+        "kubeadmiral_tpu_torch/parallel/mesh.py",
+        "kubeadmiral_tpu_torch/runtime/census.py",
+        "kubeadmiral_tpu_torch/native/__init__.py",
     ):
         assert rel in PORT_FILES, rel
 
@@ -328,6 +340,20 @@ JAX_SWITCH_ENV = (
 )
 
 
+# The engine's opt-in switches, and its geometry, cache and mesh keywords
+# with the JAX engine's defaults as the values they resolve to.
+SWITCHES = (
+    "survivor_unified", "drift_resolve", "replan", "score_f16", "fetch_format",
+    "narrow", "phase1_i32", "delta_feat", "donate",
+)
+GEOMETRY_DEFAULTS = {
+    "chunk_size": 4096, "min_bucket": 64, "min_cluster_bucket": 8,
+    "cache_bytes": 16 << 30, "cell_budget": 4096 * 5120, "megachunk_rows": 4096,
+    "canonical_c": 256, "vocab_caps": {}, "pack_k_min": 16, "narrow_m": 128,
+    "mesh": None,
+}
+
+
 def test_engine_switches_take_the_jax_defaults(monkeypatch):
     from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
 
@@ -335,10 +361,8 @@ def test_engine_switches_take_the_jax_defaults(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     params = inspect.signature(SchedulerEngine.__init__).parameters.values()
     defaults = {p.name: p.default for p in params if p.kind is p.KEYWORD_ONLY}
-    assert set(defaults) == {
-        "survivor_unified", "drift_resolve", "replan", "score_f16", "fetch_format",
-        "narrow", "phase1_i32", "delta_feat", "donate",
-    }
+    assert set(defaults) == set(SWITCHES) | set(GEOMETRY_DEFAULTS)
+    defaults = {name: defaults[name] for name in SWITCHES}
     ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None)
     port = SchedulerEngine(device="cpu")
     for name, value in defaults.items():
@@ -350,3 +374,25 @@ def test_engine_switches_take_the_jax_defaults(monkeypatch):
     assert all(getattr(flipped, name) != value for name, value in defaults.items())
     with pytest.raises(ValueError, match="fetch_format"):
         SchedulerEngine(device="cpu", fetch_format="wide")
+
+
+def test_engine_geometry_keywords_take_the_jax_defaults(monkeypatch):
+    """Every geometry, cache and mesh keyword resolves to the JAX
+    engine's value at its default (the JAX engine's environment reads
+    cleared; its mesh None, as "auto" resolves on one device); an
+    unknown vocabulary cap raises as JAX's does."""
+    from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
+
+    for var in ("KT_CELL_BUDGET", "KT_MEGACHUNK_ROWS", "KT_PACK_K", "KT_NARROW_M"):
+        monkeypatch.delenv(var, raising=False)
+    ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None)
+    port = SchedulerEngine(device="cpu")
+    for name, value in GEOMETRY_DEFAULTS.items():
+        mine = port._vocab_caps if name == "vocab_caps" else getattr(port, name)
+        theirs = ref._vocab_caps if name == "vocab_caps" else getattr(ref, name)
+        assert mine == value == theirs, name
+    assert port.pipeline_depth == ref.pipeline_depth
+    for engine in (JaxEngine, SchedulerEngine):
+        kw = {"device": "cpu"} if engine is SchedulerEngine else {"mesh": None}
+        with pytest.raises(ValueError, match="vocab_caps"):
+            engine(vocab_caps={"gvk_cap": 4, "no_such_cap": 1}, **kw)

@@ -6,8 +6,8 @@ the same ticks, both at the sequential dispatch (port ``pipeline_depth``
 at the pipelined window's default depth of 16.  Every tick's results
 equal the JAX engine's and a fresh port engine's cold tick; the JAX
 test's assertions hold on the port; where both engines take the same
-path, the cache and fetch counters are equal too.  The JAX keywords are
-set as the port's module constants.
+path, the cache and fetch counters are equal too.  Both engines take
+the same keywords.
 """
 
 import dataclasses
@@ -20,7 +20,6 @@ from test_torch_engine import _port
 
 from kubeadmiral_tpu.models.types import ClusterState, parse_resources
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
-from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.testing.worlds import build_world
 
 
@@ -36,7 +35,7 @@ def _pair(monkeypatch, cache_bytes=16 << 30, **kw):
     ref = JaxEngine(
         mesh=None, flight_recorder=None, devprof=None, cache_bytes=cache_bytes, **kw
     )
-    port = _port(monkeypatch, **kw)
+    port = _port(cache_bytes=cache_bytes, **kw)
     port.pipeline_depth = DEPTH
     return port, ref
 
@@ -49,7 +48,7 @@ def _both(engine, ref, units, clusters, **kw):
 
 
 def _fresh(monkeypatch, units, clusters, **kw):
-    return _port(monkeypatch, **kw).schedule(units, clusters)
+    return _port(**kw).schedule(units, clusters)
 
 
 def _same_counters(engine, ref):
@@ -194,7 +193,6 @@ class TestEngineCache:
         assert second[0] is first[0]  # replayed, shared
 
     def test_cache_budget_zero_disables(self, monkeypatch):
-        monkeypatch.setattr(engine_mod, "CACHE_BYTES", 0)
         units, clusters = make_world()
         engine, ref = _pair(monkeypatch, chunk_size=32, cache_bytes=0)
         first = _both(engine, ref, units, clusters)

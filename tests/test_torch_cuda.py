@@ -12,7 +12,11 @@ front end's flushes (the dirty-row hint on the card), each equal to
 the CPU engine's; the three-stream survivor programs and the f16
 score compressor on CUDA tensors against their CPU results, and the
 engine under each opt-in switch on the card against the CPU engine
-with the same switch.
+with the same switch; engines over meshes of 2 and 4 logical devices on
+the card against the CPU engine, with no host synchronisation in a
+meshed window dispatch; the memory census against the card's buffers;
+the geometry keywords on the card; the native host library built on
+the card's machine.
 
 Every test here needs a CUDA card and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -36,7 +40,6 @@ from kubeadmiral_tpu_torch.convert import to_device, to_numpy
 from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_plain
 from kubeadmiral_tpu_torch.ops import pipeline as P
 from kubeadmiral_tpu_torch.ops.pipeline import schedule_tick
-from kubeadmiral_tpu_torch.scheduler import engine as engine_mod
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
 from kubeadmiral_tpu_torch.testing.problems import (
     EDGE_SHAPES,
@@ -138,13 +141,12 @@ def test_schedule_tick_on_card_matches_cpu(cuda, b, c, webhook, invalid, scale):
 @pytest.mark.parametrize("config", ["3", "5"])
 def test_engine_on_card_matches_cpu(cuda, config, monkeypatch):
     units, clusters, _ = build_world(700, 600, config, seed=3)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    engine = SchedulerEngine()
+    engine = SchedulerEngine(chunk_size=256)  # several chunks
     launches = phase1.launches
     got = engine.schedule(units, clusters)
     chunks = math.ceil(len(units) / engine._tick_geometry(len(clusters))[1])
     assert chunks > 1 and phase1.launches - launches == chunks
-    want = SchedulerEngine(device="cpu").schedule(units, clusters)
+    want = SchedulerEngine(device="cpu", chunk_size=256).schedule(units, clusters)
     assert [r.clusters for r in got] == [r.clusters for r in want]
 
 
@@ -156,8 +158,8 @@ def test_warm_sequence_on_card_matches_cpu(cuda, config, monkeypatch):
     dispatch launches the kernel once and nothing else does; no-op ticks
     launch nothing, cold and churn ticks launch the kernel."""
     units, clusters, _ = build_world(700, 600, config, seed=3)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    # Several chunks.
+    gpu, cpu = SchedulerEngine(chunk_size=256), SchedulerEngine(device="cpu", chunk_size=256)
     rng = np.random.default_rng(0)
     churned = churn(rng, units, fraction=0.02)
     drifted = drift(clusters)
@@ -194,8 +196,8 @@ def test_drift_tick_on_card_matches_cpu(cuda, config, shape, monkeypatch):
     dispatch (recompute slabs, mass-change and ungated chunks,
     certificate fallbacks) and the drift uploads no per-object input."""
     units, clusters, _ = build_world(700, 600, config, seed=4)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    # Several chunks.
+    gpu, cpu = SchedulerEngine(chunk_size=256), SchedulerEngine(device="cpu", chunk_size=256)
     drifted = {"drift": drift, "drift_zero": drift_zero, "drift_wide": drift_wide}[shape](clusters)
     for kind, cl in (("cold", clusters), (shape, drifted), ("back", clusters)):
         upload = gpu.upload_bytes["object"]
@@ -223,8 +225,7 @@ def test_c3_cold_tick_in_the_window_matches_cpu_at_depth_1(cuda, monkeypatch):
     launches once per tick dispatch: chunks, certificate fallbacks and
     planner re-dispatches."""
     units, clusters, _ = build_world(3000, SHAPES["3"][1], "3", seed=5)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 512)
-    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    gpu, cpu = SchedulerEngine(chunk_size=512), SchedulerEngine(device="cpu", chunk_size=512)
     assert gpu.pipeline_depth == 16
     cpu.pipeline_depth = 1
     with recorded_dispatches() as calls:
@@ -253,8 +254,8 @@ def test_scores_and_webhook_ticks_on_card_match_cpu(cuda, config, monkeypatch):
     dicts, equal narrow, cache and fetch counters; the kernel launches
     once per tick dispatch, and the plain tick launches nothing."""
     units, clusters, _ = build_world(700, 600, config, seed=7)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    gpu, cpu = SchedulerEngine(), SchedulerEngine(device="cpu")
+    # Several chunks.
+    gpu, cpu = SchedulerEngine(chunk_size=256), SchedulerEngine(device="cpu", chunk_size=256)
     hook = webhook(seed=7, huge_every=16)
     for kind, batch, kw in (
         ("scores", units, {"want_scores": True}),
@@ -300,12 +301,11 @@ def test_resume_from_snapshot_on_card(cuda, monkeypatch):
     stale resume (cluster 0's available halved) rides the drift gate
     and equals a fresh engine's cold tick on that world."""
     units, clusters, _ = build_world(700, 600, "3", seed=8)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    cold = SchedulerEngine()
+    cold = SchedulerEngine(chunk_size=256)  # several chunks
     want = cold.schedule(units, clusters)
     snap = pickle.loads(pickle.dumps(cold.snapshot_state()))
     assert len(snap["chunks"]) > 1
-    fresh = SchedulerEngine()
+    fresh = SchedulerEngine(chunk_size=256)
     fresh.stage_restore(snap, assume_fresh=True)
     launches = phase1.launches
     got = fresh.schedule(list(units), clusters)
@@ -314,12 +314,12 @@ def test_resume_from_snapshot_on_card(cuda, monkeypatch):
     assert fresh.fetch_stats["noop"] == len(snap["chunks"])
     assert [r.clusters for r in got] == [r.clusters for r in want]
     drifted = drift(clusters)
-    stale = SchedulerEngine()
+    stale = SchedulerEngine(chunk_size=256)
     stale.stage_restore(snap)
     got = stale.schedule(units, drifted)
     assert stale.restore_info["result"] == "loaded" and not stale.restore_info["fresh"]
     assert stale.drift_stats["gated"] >= 1
-    want = SchedulerEngine().schedule(units, drifted)
+    want = SchedulerEngine(chunk_size=256).schedule(units, drifted)
     assert [r.clusters for r in got] == [r.clusters for r in want]
 
 
@@ -484,9 +484,8 @@ def test_optin_engines_on_card_match_cpu(cuda, config, switches, monkeypatch):
     cold, churn, fit-flip drift and back: equal results, counters and
     changed rows every tick."""
     units, clusters, _ = build_world(700, 600, config, seed=5)
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 256)  # several chunks
-    gpu = SchedulerEngine(**switches)
-    cpu = SchedulerEngine(device="cpu", **switches)
+    gpu = SchedulerEngine(chunk_size=256, **switches)  # several chunks
+    cpu = SchedulerEngine(device="cpu", chunk_size=256, **switches)
     churned = churn(np.random.default_rng(0), units, fraction=0.02)
     for kind, batch, cl in (
         ("cold", units, clusters), ("churn", churned, clusters),
@@ -498,3 +497,87 @@ def test_optin_engines_on_card_match_cpu(cuda, config, switches, monkeypatch):
                      "narrow_stats", "featurize_rows"):
             assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
         assert gpu.last_changed == cpu.last_changed, kind
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_meshed_engine_on_card_matches_cpu(cuda, config, n):
+    """An engine over a mesh of n logical devices on the card (a stream
+    each) through cold, churn, drift, fit-flip and back: results,
+    counters and changed rows equal the CPU engine's every tick; the
+    cold tick launches the kernel n times a chunk, each on its rows."""
+    from kubeadmiral_tpu_torch.parallel.mesh import make_mesh
+
+    units, clusters, _ = build_world(700, 600, config, seed=7)
+    gpu = SchedulerEngine(chunk_size=256, mesh=make_mesh([cuda] * n))
+    cpu = SchedulerEngine(device="cpu", chunk_size=256)
+    churned = churn(np.random.default_rng(1), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters),
+        ("drift", churned, drift(clusters)), ("fitflip", churned, drift_fitflip(clusters)),
+        ("back", churned, clusters),
+    ):
+        launches = phase1.launches
+        with recorded_dispatches() as calls:
+            got = gpu.schedule(batch, cl)
+        launches = phase1.launches - launches
+        want = cpu.schedule(batch, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats",
+                     "narrow_stats", "featurize_rows"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+        assert gpu.last_changed == cpu.last_changed, kind
+        assert launches == len(calls), kind
+        if kind == "cold":
+            chunks = math.ceil(len(units) / gpu._tick_geometry(len(clusters))[1])
+            assert sum(1 for c in calls if c[0] == "narrow") == n * chunks
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_meshed_window_dispatch_makes_no_host_sync(cuda, n):
+    from kubeadmiral_tpu_torch.parallel.mesh import make_mesh
+
+    units, clusters, _ = build_world(600, SHAPES["3"][1], "3", seed=6)
+    got = first_chunk_syncs(units, clusters, windowed=True, mode="error",
+                            mesh=make_mesh([cuda] * n))
+    assert got["sites"] == []
+
+
+def test_census_validates_against_card_buffers(cuda):
+    from kubeadmiral_tpu_torch.runtime import census
+
+    v = census.validate(2048, 256)
+    assert v["ok"] and v["prev_planes_err_pct"] == v["per_device_err_pct"] == 0.0, v
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_geometry_keywords_on_card_match_cpu(cuda, config):
+    """A non-pow2 chunk, a small candidate width and wire width on the
+    card against the CPU engine with the same keywords."""
+    kw = dict(chunk_size=96, min_bucket=32, narrow_m=8, pack_k_min=8, cache_bytes=1 << 22)
+    units, clusters, _ = build_world(400, 600, config, seed=8)
+    gpu, cpu = SchedulerEngine(**kw), SchedulerEngine(device="cpu", **kw)
+    churned = churn(np.random.default_rng(2), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters),
+        ("drift", churned, drift(clusters)), ("back", churned, clusters),
+    ):
+        got, want = gpu.schedule(batch, cl), cpu.schedule(batch, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "narrow_stats"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+
+
+def test_native_library_builds_on_the_card_machine(cuda):
+    """The FNV library builds with the machine's g++ (nvcc's host
+    compiler); the copy extension builds where Python's headers are."""
+    from kubeadmiral_tpu_torch import native
+    from kubeadmiral_tpu_torch.utils import hashing, unstructured
+
+    assert native.load() is not None, native.status()
+    assert hashing.fnv32a(b"a") == hashing.fnv32a_py(b"a") == 0xE40C292C
+    obj = {"a": [1, {"b": "c"}]}
+    assert unstructured.copy_json(obj) == obj
+    status = native.status()
+    print(json.dumps(status))
+    assert status["fnvhash"]["path"] == "native"

@@ -281,7 +281,7 @@ def test_one_capture_at_a_time(tmp_path):
 # -- the engine's waterfalls (tests/test_devprof.py's cases) ----------------------
 
 def _engine(monkeypatch, **kw):
-    engine = _port(monkeypatch, chunk_size=64, **kw)
+    engine = _port(chunk_size=64, **kw)
     engine.devprof = DispatchLedger(enabled=True)
     return engine, engine.devprof
 
@@ -344,7 +344,7 @@ def test_last_tick_id_is_the_ledger_tick_id(monkeypatch):
     units, clusters = make_world(b=24, c=6)
     monkeypatch.setenv("KT_PIPELINE_DEPTH", "1")
     shared, jax_shared = DispatchLedger(), jax_devprof.DispatchLedger(enabled=True)
-    ports = [_port(monkeypatch, chunk_size=32) for _ in range(2)]
+    ports = [_port(chunk_size=32) for _ in range(2)]
     refs = [JaxEngine(mesh=None, flight_recorder=None, devprof=jax_shared, chunk_size=32)
             for _ in range(2)]
     for engine in ports:
@@ -356,7 +356,7 @@ def test_last_tick_id_is_the_ledger_tick_id(monkeypatch):
         ids.append(ports[i].last_tick_id)
         want.append(refs[i].last_tick_id)
     assert ids == want == [1, 2, 3, 4, 5]
-    off = _port(monkeypatch, chunk_size=32)
+    off = _port(chunk_size=32)
     off.devprof = DispatchLedger(enabled=False)
     ref_off = JaxEngine(mesh=None, flight_recorder=None, devprof=None, chunk_size=32)
     for _ in range(2):
@@ -424,7 +424,7 @@ def test_optin_tick_kinds_against_jax(monkeypatch, switches, env):
     kw = dict(chunk_size=128, min_bucket=32, min_cluster_bucket=8, narrow_m=16)
     jax_ledger = jax_devprof.DispatchLedger(enabled=True)
     ref = JaxEngine(mesh=None, flight_recorder=None, devprof=jax_ledger, **kw)
-    port = _port(monkeypatch, **kw)
+    port = _port(**kw)
     port.devprof = ledger = DispatchLedger(enabled=True)
     for name, value in switches.items():
         setattr(port, name, value)

@@ -8,8 +8,8 @@ pipelined window's default depth of 16, tick by tick: results,
 ``drift_stats``, ``survivor_stats``,
 ``fetch_stats``, ``narrow_stats``, ``last_changed`` and
 ``upload_bytes["cluster"]`` are equal after every tick, and the JAX
-tests' own assertions hold on the port.  The JAX keywords are set as
-the port's module constants.
+tests' own assertions hold on the port.  Both engines take the same
+keywords.
 """
 
 import dataclasses
@@ -50,7 +50,7 @@ class Pair:
         monkeypatch.setenv("KT_PIPELINE_DEPTH", str(DEPTH))
         self.monkeypatch, self.kw = monkeypatch, kw
         self.ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
-        self.port = _port(monkeypatch, **kw)
+        self.port = _port(**kw)
         self.port.pipeline_depth = DEPTH
 
     def tick(self, units, clusters):
@@ -63,7 +63,7 @@ class Pair:
         return got
 
     def fresh(self, units, clusters):
-        return _port(self.monkeypatch, **self.kw).schedule(units, clusters)
+        return _port(**self.kw).schedule(units, clusters)
 
     @property
     def stats(self):

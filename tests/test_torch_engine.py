@@ -8,7 +8,6 @@ dense-featurize fallback, and more objects than a chunk.
 """
 
 import dataclasses
-import functools
 
 import pytest
 
@@ -38,37 +37,18 @@ def _jax(**kw):
     return JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
 
 
-def _port(
-    monkeypatch, chunk_size=None, min_bucket=None, vocab_caps=None, narrow_m=None,
-    pack_k_min=None, min_cluster_bucket=None,
-):
-    """The port's CPU engine with the JAX engine's keywords set as the
-    port's module constants (the port has no such options)."""
-    if chunk_size is not None:
-        monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", chunk_size)
-    if min_bucket is not None:
-        monkeypatch.setattr(engine_mod, "MIN_ROW_BUCKET", min_bucket)
-    if min_cluster_bucket is not None:
-        monkeypatch.setattr(engine_mod, "MIN_CLUSTER_BUCKET", min_cluster_bucket)
-    if vocab_caps:
-        monkeypatch.setattr(
-            engine_mod, "CompactVocab",
-            functools.partial(engine_mod.CompactVocab, **vocab_caps),
-        )
-    if narrow_m is not None:
-        monkeypatch.setattr(engine_mod, "NARROW_M", narrow_m)
-    if pack_k_min is not None:
-        monkeypatch.setattr(engine_mod, "PACK_K_MIN", pack_k_min)
-    return SchedulerEngine(device="cpu")
+def _port(**kw):
+    """The port's CPU engine built with the JAX engine's keywords."""
+    return SchedulerEngine(device="cpu", **kw)
 
 
-def _check(monkeypatch, units, clusters, **kw):
+def _check(units, clusters, **kw):
     """Port vs JAX default vs JAX dense (the same chunk geometry, vocabulary
     caps, candidate width and wire width): equal results, and on the
     port's narrow solve and packed wire the JAX default engine's
     narrow_stats, candidate width and overflow rows.  Returns (the port's
     engine, its results)."""
-    port = _port(monkeypatch, **kw)
+    port = _port(**kw)
     got = port.schedule(units, clusters)
     for narrow in (None, False):
         jax_engine = _jax(narrow=narrow, **kw)
@@ -222,7 +202,7 @@ def test_cold_tick_matches_jax_engine(name, narrow_m, monkeypatch):
     monkeypatch.setattr(
         engine_mod, "featurize", lambda *a, **k: dense_calls.append(1) or real(*a, **k)
     )
-    port, got = _check(monkeypatch, units, clusters, **kw)
+    port, got = _check(units, clusters, **kw)
     assert len(got) == len(units)
     assert any(r.clusters for r in got)
     # Only the overflow scenarios take the dense-featurize fallback.
@@ -274,7 +254,7 @@ def test_chunk_geometry_matches_jax():
 
 def test_replicas_sum_and_results_are_frozen(monkeypatch):
     units, clusters = _chunked_world()
-    results = _port(monkeypatch, chunk_size=16, min_bucket=8).schedule(units, clusters)
+    results = _port(chunk_size=16, min_bucket=8).schedule(units, clusters)
     for i, res in enumerate(results):
         assert sum(res.clusters.values()) == i % 13
     with pytest.raises(TypeError):
@@ -286,7 +266,7 @@ def test_replicas_sum_and_results_are_frozen(monkeypatch):
 def test_empty_inputs_and_overflow_match_jax(monkeypatch):
     engine = SchedulerEngine(device="cpu")
     assert engine.schedule([], [mk_cluster("a")]) == []
-    _check(monkeypatch, [mk_unit("web")], [])
+    _check([mk_unit("web")], [])
     huge = mk_unit("huge", scheduling_mode=MODE_DIVIDE, desired_replicas=5_000_000,
                    avoid_disruption=False)
     with pytest.raises(OverflowError):

@@ -62,7 +62,7 @@ class Pair:
             mesh=None, devprof=None, metrics=self.ref_metrics,
             flight_recorder=self.ref_rec, **kw,
         )
-        self.port = _port(monkeypatch, **kw)
+        self.port = _port(**kw)
         self.port.metrics, self.port.flightrec = self.port_metrics, self.port_rec
         self.port.pipeline_depth = depth
 
@@ -174,7 +174,7 @@ def test_explain_and_state_round_trip(monkeypatch):
 
 def test_disabled_recorder_records_nothing(monkeypatch):
     make, kw = WORLDS["dense"]
-    port = _port(monkeypatch, **kw)
+    port = _port(**kw)
     port.flightrec = FlightRecorder(enabled=False)
     units, clusters = make()
     port.schedule(units, clusters)

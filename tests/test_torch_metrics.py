@@ -136,10 +136,7 @@ def test_resident_state_bytes_families():
 def test_chunk_size_and_prewarm_on_the_cpu(monkeypatch):
     eng = SchedulerEngine(device="cpu")
     assert eng.chunk_size == engine_mod.MEGACHUNK_ROWS
-    monkeypatch.setattr(engine_mod, "MEGACHUNK_ROWS", 64)
-    assert eng.chunk_size == 64
-    with pytest.raises(AttributeError):
-        eng.chunk_size = 8
+    assert SchedulerEngine(device="cpu", chunk_size=64).chunk_size == 64
 
     builds = []
     monkeypatch.setattr(engine_mod.phase1_mod, "_library", lambda: builds.append(1))

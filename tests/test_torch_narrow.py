@@ -180,6 +180,6 @@ def test_adversaries_fall_back_through_the_engine_as_jax(world, monkeypatch):
     past M slots: the engine's certificate rejects the rows, the dense
     re-solve fills them in, and narrow_stats equals the JAX engine's."""
     units, clusters = world()
-    port, _ = _check(monkeypatch, units, clusters, chunk_size=64, narrow_m=8)
+    port, _ = _check(units, clusters, chunk_size=64, narrow_m=8)
     assert port.narrow_last_m == 8
     assert port.narrow_stats["fallback"] > 0, port.narrow_stats

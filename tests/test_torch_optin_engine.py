@@ -121,7 +121,7 @@ class Twin:
                  devprof=None, **kw):
         del mesh, devprof
         switches = {**_env_switches(), **{k: kw.pop(k) for k in list(kw) if k in OPTIN}}
-        port = _port(monkeypatch, **kw)
+        port = _port(**kw)
         if isinstance(flight_recorder, JaxRecorder):
             flight_recorder = FlightRecorder(
                 max_ticks=flight_recorder.max_ticks, max_bytes=flight_recorder.max_bytes,
@@ -283,7 +283,7 @@ def test_switches_reach_the_paths(monkeypatch):
 
     monkeypatch.setattr(engine_mod, "schedule_tick_narrow", spy)
     units, clusters = _fitflip_world(b=64, c=20)
-    engine = _port(monkeypatch, chunk_size=64, min_bucket=32, narrow_m=16)
+    engine = _port(chunk_size=64, min_bucket=32, narrow_m=16)
     engine.phase1_i32 = engine.delta_feat = False
     engine.schedule(units, clusters)
     churned = list(units)
@@ -318,7 +318,7 @@ def test_score_f16_parity(monkeypatch):
     units, clusters = _world()
     kw = dict(min_bucket=32, narrow_m=8)
     twin = Twin(monkeypatch, score_f16=True, **kw)
-    plain = _port(monkeypatch, **kw)
+    plain = _port(**kw)
     plain.flightrec = None
 
     def tick(batch, world):
@@ -390,7 +390,7 @@ def test_f16_totals_past_the_range_force_recomputes(monkeypatch):
         )
     units, clusters = _fitflip_world(b=96, c=24)
     kw = dict(chunk_size=128, min_bucket=32, narrow_m=16)
-    f16, plain = _port(monkeypatch, **kw), _port(monkeypatch, **kw)
+    f16, plain = _port(**kw), _port(**kw)
     f16.score_f16 = True
     f16.flightrec = plain.flightrec = None
     churned = list(units)
@@ -518,7 +518,7 @@ def test_donation_is_bit_identical(monkeypatch):
     units, clusters = _fitflip_world(b=200, c=24)
     kw = dict(chunk_size=64, min_bucket=32, narrow_m=16)
     off = Twin(monkeypatch, donate=False, **kw)
-    on = _port(monkeypatch, **kw)
+    on = _port(**kw)
     on.flightrec, on.pipeline_depth = None, depth
     seen = {True: [], False: []}
     for engine in (on, off.port):

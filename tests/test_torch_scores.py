@@ -13,8 +13,8 @@ are equal (byte counters are not: the port reads no padding rows).  The
 JAX tests' own assertions hold on the port.  Added cases: the toggle
 from scores to a plain tick, chunks whose decodes differ in scores
 sharing sub-batch slabs, and score-carrying overflow rows (a low wire
-width) in several chunks, delta and full fetches in one window.  The
-JAX keywords are set as the port's module constants.
+width) in several chunks, delta and full fetches in one window.  Both
+engines take the same keywords.
 """
 
 import dataclasses
@@ -61,7 +61,7 @@ class Pair:
         monkeypatch.setenv("KT_PIPELINE_DEPTH", str(DEPTH))
         self.monkeypatch, self.kw = monkeypatch, kw
         self.ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
-        self.port = _port(monkeypatch, **kw)
+        self.port = _port(**kw)
         self.port.pipeline_depth = DEPTH
 
     def tick(self, units, clusters, fidx=None, **kw):
@@ -81,7 +81,7 @@ class Pair:
 
     def fresh(self, units, clusters, **kw):
         """A fresh port engine's cold tick."""
-        return _port(self.monkeypatch, **self.kw).schedule(units, clusters, **kw)
+        return _port(**self.kw).schedule(units, clusters, **kw)
 
 
 class TestScoresCachePaths:

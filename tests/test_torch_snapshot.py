@@ -306,11 +306,8 @@ def assert_payload_equal(got, want):
 def test_payload_equals_jax(world, depth, monkeypatch):
     make, kw = WORLDS[world]
     monkeypatch.setenv("KT_PIPELINE_DEPTH", str(depth))
-    ref = JaxEngine(
-        mesh=None, flight_recorder=None, devprof=None,
-        megachunk_rows=kw["chunk_size"], **kw,
-    )
-    port = _port(monkeypatch, **kw)
+    ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
+    port = _port(**kw)
     port.pipeline_depth = depth
     units, clusters = make()
     churned = list(units)
@@ -335,11 +332,8 @@ def test_f16_payload_equals_jax(monkeypatch):
     config says so."""
     make, kw = WORLDS["narrow"]
     monkeypatch.setenv("KT_SCORE_F16", "1")
-    ref = JaxEngine(
-        mesh=None, flight_recorder=None, devprof=None,
-        megachunk_rows=kw["chunk_size"], **kw,
-    )
-    port = _port(monkeypatch, **kw)
+    ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
+    port = _port(**kw)
     port.score_f16 = True
     units, clusters = make()
     churned = list(units)

@@ -66,7 +66,7 @@ def _engines(monkeypatch, depth, port_rec=None, ref_rec=None):
     # Each engine its own dispatch ledger: its tick ids are then the
     # engine's tick count.
     ref = JaxEngine(mesh=None, flight_recorder=ref_rec, devprof=JaxLedger(enabled=True), **KW)
-    port = _port(monkeypatch, **KW)
+    port = _port(**KW)
     port.devprof = DispatchLedger()
     port.flightrec = port_rec
     port.pipeline_depth = depth
@@ -180,7 +180,7 @@ def test_randomized_event_log_matches_jax_and_stop_the_world(monkeypatch, depth)
         assert port.tick_seq == ref.tick_seq == mine._last_engine_tick
         assert port.last_tick_id == ref.last_tick_id == port.tick_seq
         oracle_rec = FlightRecorder(max_ticks=2, max_bytes=1 << 26)
-        oracle = _port(monkeypatch, **KW)
+        oracle = _port(**KW)
         oracle.flightrec = oracle_rec
         want = oracle.schedule(mine.units, mine.clusters)
         results_equal(
@@ -236,18 +236,15 @@ def test_hint_dropped_after_another_callers_tick(monkeypatch):
     got = stream.flush()
     # The stream's flushes and the other caller's tick, in order.
     assert dirty == [None, [3], None, None]
-    results_equal(got, _port(monkeypatch, **KW).schedule(stream.units, stream.clusters))
+    results_equal(got, _port(**KW).schedule(stream.units, stream.clusters))
 
 
 class _PortEngine:
     """``SchedulerEngine(chunk_size=..., ...)`` of the JAX test module as
-    the port's CPU engine (the JAX keywords as the port's constants)."""
-
-    def __init__(self, monkeypatch):
-        self.monkeypatch = monkeypatch
+    the port's CPU engine built with the same keywords."""
 
     def __call__(self, flight_recorder=None, **kw):
-        engine = _port(self.monkeypatch, **kw)
+        engine = _port(**kw)
         engine.flightrec = flight_recorder
         return engine
 
@@ -262,7 +259,7 @@ def test_slab_mechanics_on_the_port(monkeypatch, case):
     through the drift gate) with the test module's engine, stream,
     placeholder and unit classes pointed at the port's."""
     for name, value in (
-        ("SchedulerEngine", _PortEngine(monkeypatch)),
+        ("SchedulerEngine", _PortEngine()),
         ("StreamingScheduler", StreamingScheduler),
         ("is_placeholder", streaming.is_placeholder),
         ("make_placeholder", streaming.make_placeholder),
@@ -309,7 +306,7 @@ def test_arrival_growth_keeps_cached_chunks(monkeypatch):
     assert len(stream.units) == 64 + stream.grow_block == 96
     grew = {k: v - cache0.get(k, 0) for k, v in port.cache_stats.items() if v - cache0.get(k, 0)}
     assert grew == {"hit": 2, "miss": 1}, grew
-    results_equal(got, _port(monkeypatch, **KW).schedule(stream.units, stream.clusters))
+    results_equal(got, _port(**KW).schedule(stream.units, stream.clusters))
 
 
 def test_flush_counts_per_tenant_match_jax(monkeypatch):
@@ -342,14 +339,12 @@ def test_flush_counts_per_tenant_match_jax(monkeypatch):
     assert ledgers[0].metrics.counter_family(family) == ledgers[1].metrics.counter_family(family)
 
 
-@pytest.mark.parametrize("chunk_size", [None, 32, 1024])
+@pytest.mark.parametrize("chunk_size", [None, 32, 1024, 96, 1000])
 @pytest.mark.parametrize("n_clusters", [1, 7, 12, 300, 500, 600, 5000, 20000])
 def test_tick_geometry_matches_jax(monkeypatch, chunk_size, n_clusters):
     """The geometry the stream grows by: (c_bucket, eff_chunk, ladder)
-    equal to the JAX engine's.  The port's MEGACHUNK_ROWS stands for
-    both JAX's chunk_size and megachunk_rows (4096 each by default), so
-    chunk sizes are powers of two here: a JAX chunk_size of 1000 has no
-    counterpart."""
+    equal to the JAX engine's, a chunk_size that is not a power of two
+    included."""
     kw = {} if chunk_size is None else {"chunk_size": chunk_size}
     ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, **kw)
-    assert _port(monkeypatch, **kw)._tick_geometry(n_clusters) == ref._tick_geometry(n_clusters)
+    assert _port(**kw)._tick_geometry(n_clusters) == ref._tick_geometry(n_clusters)

@@ -34,7 +34,7 @@ def _calls(seed):
 
 def test_two_threads_match_a_sequential_run(monkeypatch):
     kw = dict(chunk_size=16, min_bucket=8)
-    engine = _port(monkeypatch, **kw)
+    engine = _port(**kw)
     plans = [_calls(1), _calls(2)]
     results = [[None] * len(p) for p in plans]
     active, overlaps = [0], []
@@ -69,7 +69,7 @@ def test_two_threads_match_a_sequential_run(monkeypatch):
     assert max(overlaps) == 1, "two ticks ran at once"
     assert len(overlaps) == sum(len(p) for p in plans)
 
-    sequential = _port(monkeypatch, **kw)
+    sequential = _port(**kw)
     for i in range(len(plans[0])):
         for t in range(2):
             results_equal(results[t][i], sequential.schedule(*plans[t][i]))

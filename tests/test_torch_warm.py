@@ -66,7 +66,7 @@ def _tick_sequence(config, monkeypatch, depth):
     units, clusters, _ = build_world(n, c, config, seed=1)
     monkeypatch.setenv("KT_PIPELINE_DEPTH", str(depth))
     ref = JaxEngine(mesh=None, flight_recorder=None, devprof=None, chunk_size=chunk)
-    port = _port(monkeypatch, chunk_size=chunk)
+    port = _port(chunk_size=chunk)
     port.pipeline_depth = depth
     rng = np.random.default_rng(0)
     seen = set()
@@ -204,7 +204,7 @@ def test_random_sequences_match_a_fresh_cold_tick_at_depth_16(steps, monkeypatch
 def _random_sequence(steps, monkeypatch, depth):
     units, clusters = make_world(b=48, c=10)
     kw = dict(chunk_size=16, min_bucket=8)
-    engine = _port(monkeypatch, **kw)
+    engine = _port(**kw)
     engine.pipeline_depth = depth
     engine.schedule(units, clusters)
     for kind, seed in steps:
@@ -216,7 +216,7 @@ def _random_sequence(steps, monkeypatch, depth):
         if kind == "noop-fresh":
             units = list(units)
         got = engine.schedule(units, clusters)
-        results_equal(got, _port(monkeypatch, **kw).schedule(units, clusters))
+        results_equal(got, _port(**kw).schedule(units, clusters))
 
 
 def test_warm_counts_follow_the_engine():

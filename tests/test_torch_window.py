@@ -46,7 +46,7 @@ class Pair:
             mesh=None, flight_recorder=None, devprof=None, cache_bytes=cache_bytes, **kw
         )
         assert self.ref.pipeline_depth == depth
-        self.port = _port(monkeypatch, **kw)
+        self.port = _port(cache_bytes=cache_bytes, **kw)
         self.port.pipeline_depth = depth
         self.windows = []
         drain = self.port._drain_window
@@ -90,7 +90,7 @@ def test_pipelined_chunks_match_sequential(monkeypatch):
     ]
     kw = dict(chunk_size=16, min_bucket=8)
     piped = Pair(monkeypatch, 3, **kw)
-    seq = _port(monkeypatch, **kw)
+    seq = _port(**kw)
     seq.pipeline_depth = 1
     assert seq.schedule(units, clusters) == piped.tick(units, clusters)
     assert piped.windows == [3, 1]
@@ -206,10 +206,9 @@ def test_cache_budget_inside_a_window(entries, monkeypatch):
     miss evicting its old entry before re-admitting it)."""
     units, clusters = make_world(b=72, c=12)
     kw = dict(chunk_size=16, min_bucket=8)
-    probe = _port(monkeypatch, **kw)
+    probe = _port(**kw)
     probe.schedule(units, clusters)
     budget = int(entries * probe._chunk_cache[0].nbytes)
-    monkeypatch.setattr(engine_mod, "CACHE_BYTES", budget)
     pair = Pair(monkeypatch, 16, cache_bytes=budget, **kw)
     churned = [dataclasses.replace(u, desired_replicas=u.desired_replicas + 2) for u in units]
     relabeled = [dataclasses.replace(cl, labels={**cl.labels, "x": "y"}) for cl in clusters]
