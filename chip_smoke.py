@@ -156,21 +156,28 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
 10a''. the mesh phase (``mesh_phase``): c3 through MESH_TICKS (cold,
    no-op, 1 % churn, a drift and back, a fit-flip and back) on the
    default engine, then on engines over meshes of MESH_SIZES (2, 4)
-   logical devices on cuda:0 (each objects shard solving its rows on a
-   stream of its own), then the three-stream and f16 engines over a mesh
-   of 2 through cold, churn, the drift and back and the fit-flip: every
-   tick's results equal the default engine's (a meshed default engine's
-   counters too), every tick program call launches once (N a
-   chunk on the cold tick), the ledger's records lie on the ``mesh<N>``
-   lane, ``resident_state_bytes`` books the whole set on cuda:0 (the
-   engine joins every shard's outputs there); the kernel on one shard
-   of a mesh of 2 (``phase1 c3-mesh2-shard``); ``mesh c3 <engine>
-   <tick>`` lines; then the census phase (``census_phase``):
-   ``validate`` at 8,192 x 256, the c5 projection against the c5 cold
-   tick's engine (``census_live``: previous planes to the byte, the
-   vectors equal) and ``decide`` at c6 against 16 GiB and the card's
-   memory, in the port's layout (no mesh helps) and the JAX engine's
-   rows layout (modelled); a ``census`` line;
+   logical devices on cuda:0 (each lane keeping its rows of every
+   chunk's resident state and solving them in place on a stream of its
+   own), then the three-stream and f16 engines over a mesh of 2 through
+   cold, churn, the drift and back and the fit-flip, then c5's width
+   (its first C5_OPTIN_OBJECTS objects) through MESH_C5_TICKS (cold,
+   1 % churn, no-op, a drift and back) on the default engine and over
+   meshes of 2 and 4: every tick's results equal the default engine's
+   (a meshed default engine's counters too), every tick program call
+   launches once (N a chunk on the cold tick), the ledger's records lie
+   on the ``mesh<N>`` lane, every lane holds 1/N of the resident bytes
+   and of the previous planes (``resident_state_bytes`` by lane: the
+   default engine's total over N, the census model's per-device
+   planes); with several cards the c3 ticks also run on
+   ``mesh="auto"`` over them; the kernel on one lane's rows of a mesh
+   of 2 (``phase1 c3-mesh2-shard``, ``phase1 c5-mesh2-shard``);
+   ``mesh c3 <engine> <tick>`` and ``mesh c5 ...`` lines; then the
+   census phase (``census_phase``): ``validate`` at 8,192 x 256 on one
+   card and over 2 lanes, the c5 projection against the c5 cold tick's
+   engine (``census_live``: previous planes to the byte, the vectors
+   equal) and ``decide`` at c6 against 16 GiB and the card's memory in
+   the port's layout, the JAX engine's rows (a ``shard`` verdict); a
+   ``census`` line;
 10b. the control phase (``control_phase``): the control plane
    (``testing/cpworld.py``, ``bench_e2e.py``'s world at
    CONTROL_SHAPE = 10,000 Deployments x 500 member clusters, with its
@@ -2047,51 +2054,71 @@ def optin_phase(cfg: str, units, clusters) -> dict:
         gc.unfreeze()
 
 
-# The mesh phase: c3 over meshes of 2 and 4 logical devices on one card.
+# The mesh phase: c3 over meshes of 2 and 4 logical devices on one card,
+# then c5's width over its first C5_OPTIN_OBJECTS objects.
 MESH_SIZES = (2, 4)
 MESH_TICKS = ("cold", "noop", "churn", "drift", "back", "fitflip", "back from fitflip")
 # Opt-in engines under a mesh of 2, through the drift ticks (after the
 # cold and churn ticks that fill their caches).
 MESH_OPTIN = (("three-stream", {"survivor_unified": False}), ("f16", {"score_f16": True}))
 MESH_OPTIN_TICKS = ("cold", "churn", "drift", "back", "fitflip")
+MESH_C5_TICKS = ("cold", "churn", "noop", "drift", "back")
 
 
-def mesh_phase(units, clusters) -> dict:
-    """The objects-axis mesh on the card: the c3 world through
-    MESH_TICKS on the default engine, then on engines over meshes of
-    MESH_SIZES logical devices on cuda:0 (each objects shard runs its
-    rows of every row-wise program on a stream of its own), then the
-    MESH_OPTIN engines over a mesh of 2 through MESH_OPTIN_TICKS.  Every
-    tick's results equal the default engine's, and a meshed default
-    engine's cache, fetch, drift, survivor and narrow counters too; the no-op tick launches nothing; every
-    tick program call launches the kernel once (launches = recorded
-    narrow + dense calls) and the cold tick calls it N times a chunk; a
-    meshed tick's ledger records lie on the ``mesh<N>`` lane only;
-    ``resident_state_bytes`` books the default engine's bytes (an opt-in
-    engine's own), all of them on cuda:0, where the engine joins every
-    shard's outputs.  Then the kernel against its plain version on the first
-    shard of the first chunk of a mesh of 2.  Each tick logs its wall
-    ms, launches, ledger lanes, resident bytes and memory peak."""
+def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
+    """The objects-axis mesh on the card, each lane (objects shard)
+    keeping its rows of every chunk's resident state on its own device.
+    The c3 world through MESH_TICKS on the default engine, then on
+    engines over meshes of MESH_SIZES logical devices on cuda:0 (each
+    lane solving its rows in place on a stream of its own), then the
+    MESH_OPTIN engines over a mesh of 2 through MESH_OPTIN_TICKS; then
+    c5's width (its first C5_OPTIN_OBJECTS objects, 5,000 clusters)
+    through MESH_C5_TICKS on the default engine and over meshes of
+    MESH_SIZES.  Every tick's results equal the default engine's, and a
+    meshed default engine's cache, fetch, drift, survivor and narrow
+    counters too; the no-op tick launches nothing; every tick program
+    call launches the kernel once (launches = recorded narrow + dense
+    calls) and the cold tick calls it N times a chunk; a meshed tick's
+    ledger records lie on the ``mesh<N>`` lane only; every lane holds
+    1/N of the engine's resident bytes and of its previous planes
+    (``resident_state_bytes`` by lane), the default engine's total
+    divided by N (an opt-in engine's own), and the census model's
+    per-device previous planes.  Then the kernel against its plain
+    version on the first lane's rows of the first chunk of a mesh of 2,
+    at c3 and at c5's width (2,048 x 5,120 x 3).  Where the machine has
+    several cards the c3 ticks also run on ``mesh="auto"`` over them.
+    Each tick logs its wall ms, launches, ledger lanes, resident bytes
+    by lane and memory peak."""
     import torch
 
     from kubeadmiral_tpu_torch.parallel.mesh import make_mesh, row_bounds
+    from kubeadmiral_tpu_torch.runtime import census
     from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.worlds import churn, drift, drift_fitflip
 
-    churned = churn(np.random.default_rng(0), units)
-    worlds = {
-        "cold": (units, clusters), "noop": (units, clusters), "churn": (churned, clusters),
-        "drift": (churned, drift(clusters)), "back": (churned, clusters),
-        "fitflip": (churned, drift_fitflip(clusters)), "back from fitflip": (churned, clusters),
-    }
+    def worlds_of(units, clusters, labels):
+        churned = churn(np.random.default_rng(0), units)
+        # The no-op tick repeats the tick before it.
+        before = labels[labels.index("noop") - 1]
+        return {
+            "cold": (units, clusters), "churn": (churned, clusters),
+            "noop": (churned, clusters) if before == "churn" else (units, clusters),
+            "drift": (churned, drift(clusters)), "back": (churned, clusters),
+            "fitflip": (churned, drift_fitflip(clusters)),
+            "back from fitflip": (churned, clusters),
+        }
+
     same = ("cache", "fetch_paths", "drift_stats", "survivor_stats", "narrow_stats",
             "changed_rows")
 
-    def run(name, n, labels, switches):
+    def run(worlds, n, labels, switches, mesh="given"):
         ledger = DispatchLedger()
-        mesh = None if n == 1 else make_mesh([torch.device("cuda", 0)] * n)
-        engine = SchedulerEngine(flight_recorder=None, devprof=ledger, mesh=mesh, **switches)
+        if mesh == "given":
+            mesh = None if n == 1 else make_mesh([torch.device("cuda", 0)] * n)
+            engine = SchedulerEngine(flight_recorder=None, devprof=ledger, mesh=mesh, **switches)
+        else:
+            engine = SchedulerEngine(flight_recorder=None, devprof=ledger, **switches)
         out = {}
         for label in labels:
             got, tick, _ = counted_tick(engine, *worlds[label])
@@ -2100,78 +2127,131 @@ def mesh_phase(units, clusters) -> dict:
             tick["ledger_lanes"] = {lane: v["n"] for lane, v in by_device.items()}
             resident = engine.resident_state_bytes()
             tick["resident"] = {
-                k: resident[k] for k in ("total", "per_device", "device_count", "by_device")
+                k: resident[k] for k in ("total", "per_device", "device_count", "by_device",
+                                         "prev_planes_by_device")
             }
+            tick["resident"]["prev_planes"] = resident["by_family"]["prev_planes"]
             out[label] = (got, tick)
-        if n > 1:
-            out["_geometry"] = engine._tick_geometry(len(clusters))
+        out["_geometry"] = engine._tick_geometry(len(worlds["cold"][1]))
+        out["_mesh"] = None if engine.mesh is None else engine.mesh.shape
         del engine
         torch.cuda.empty_cache()
         return out
 
-    def check(name, n, label, got, tick, want, base, switches):
-        assert_results_equal(f"mesh c3 {name} {label} vs default", got, want)
+    def check(where, name, n, label, got, tick, want, base, switches, world):
+        assert_results_equal(f"{where} {name} {label} vs default", got, want)
         # An opt-in engine takes its own paths: its results only.
         for key in () if switches else same:
             if tick[key] != base[key]:
-                raise AssertionError(f"mesh c3 {name} {label}: {key} {tick[key]} != {base[key]}")
+                raise AssertionError(f"{where} {name} {label}: {key} {tick[key]} != {base[key]}")
         calls = tick["narrow_dispatches"] + tick["dense_dispatches"]
         if tick["phase1_launches"] != calls:
-            raise AssertionError(f"mesh c3 {name} {label}: {tick['phase1_launches']} launches "
+            raise AssertionError(f"{where} {name} {label}: {tick['phase1_launches']} launches "
                                  f"for {calls} tick program calls")
         if label == "noop" and tick["phase1_launches"]:
-            raise AssertionError(f"mesh c3 {name} noop launched: {tick}")
+            raise AssertionError(f"{where} {name} noop launched: {tick}")
         lanes = set(tick["ledger_lanes"])
         if tick["ledger_lanes"] and lanes != {f"mesh{n}"}:
-            raise AssertionError(f"mesh c3 {name} {label}: ledger lanes {lanes}")
-        # An opt-in engine holds other planes (f16 scores): where they lie only.
+            raise AssertionError(f"{where} {name} {label}: ledger lanes {lanes}")
+        # Every lane holds 1/N of the state: of the default engine's
+        # total (an opt-in engine holds other planes: its own), and the
+        # model's previous planes per device.
         r, r0 = tick["resident"], base["resident"]
-        if (not switches and r["total"] != r0["total"]) or r["device_count"] != n or (
-            len(r["by_device"]) > 1 or r["per_device"] != r["total"]
+        model = census.project(len(world[0]), len(world[1]), n,
+                               score_f16=bool(switches.get("score_f16")))
+        total = r["total"] if switches else r0["total"]
+        if (
+            r["total"] != total or r["device_count"] != n
+            or len(r["by_device"]) != n
+            or any(v * n != total for v in r["by_device"].values())
+            or any(v != model["prev_planes_per_device"] or v * n != r["prev_planes"]
+                   for v in r["prev_planes_by_device"].values())
+            or r["per_device"] * n != total
         ):
-            raise AssertionError(f"mesh c3 {name} {label}: resident {r} against {r0}")
+            raise AssertionError(f"{where} {name} {label}: resident {r} against {r0}, "
+                                 f"model {model['prev_planes_per_device']} a lane")
 
     keys = ("tick_ms", "phase1_launches", "narrow_dispatches", "dense_dispatches",
             "fetch_paths", "drift_stats", "survivor_stats", "dispatch_syncs",
-            "ledger_lanes", "resident", "memory_allocated", "max_memory_allocated")
-    gc.freeze()
-    try:
-        base = run("default", 1, MESH_TICKS, {})
+            "ledger_lanes", "resident", "memory_allocated", "max_memory_allocated",
+            "stage_s", "gc_ms")
+
+    def world_runs(where, worlds, labels, runs) -> dict:
+        base = run(worlds, 1, labels, {})
+        base.pop("_geometry")
+        base.pop("_mesh")
         want = {label: got for label, (got, _t) in base.items()}
         base_ticks = {label: tick for label, (_g, tick) in base.items()}
         del base
         out = {"default": {}}
         for label, tick in base_ticks.items():
             out["default"][label] = {k: tick[k] for k in keys}
-            log(f"mesh c3 default {label}: {json.dumps(out['default'][label])}")
+            log(f"{where} default {label}: {json.dumps(out['default'][label])}")
         chunks = base_ticks["cold"]["narrow_dispatches"]
-        runs = [(f"mesh{n}", n, MESH_TICKS, {}) for n in MESH_SIZES]
-        runs += [(f"mesh2 {name}", 2, MESH_OPTIN_TICKS, sw) for name, sw in MESH_OPTIN]
         for name, n, labels, switches in runs:
             t0 = time.perf_counter()
-            ticks = run(name, n, labels, switches)
-            geometry = ticks.pop("_geometry")
+            ticks = run(worlds, n, labels, switches)
+            geometry, shape = ticks.pop("_geometry"), ticks.pop("_mesh")
             out[name] = {}
             for label, (got, tick) in ticks.items():
-                check(name, n, label, got, tick, want[label], base_ticks[label], switches)
+                check(where, name, n, label, got, tick, want[label], base_ticks[label],
+                      switches, worlds[label])
                 out[name][label] = {k: tick[k] for k in keys}
-                log(f"mesh c3 {name} {label}: {json.dumps(out[name][label])}")
+                out[name][label]["launches_over_default"] = [
+                    tick["phase1_launches"], base_ticks[label]["phase1_launches"]]
+                log(f"{where} {name} {label}: {json.dumps(out[name][label])}")
             cold = ticks["cold"][1]
             if cold["narrow_dispatches"] != n * chunks:
-                raise AssertionError(f"mesh c3 {name} cold: {cold['narrow_dispatches']} narrow "
+                raise AssertionError(f"{where} {name} cold: {cold['narrow_dispatches']} narrow "
                                      f"calls for {chunks} chunks over {n} shards")
-            log(f"mesh c3 {name}: {time.perf_counter() - t0:.2f} s, geometry {geometry}")
-        del want
+            log(f"{where} {name}: {time.perf_counter() - t0:.2f} s, mesh {shape}, "
+                f"geometry {geometry}")
+        return out, want
+
+    out = {}
+    gc.freeze()
+    try:
+        c3 = worlds_of(units, clusters, MESH_TICKS)
+        runs = [(f"mesh{n}", n, MESH_TICKS, {}) for n in MESH_SIZES]
+        runs += [(f"mesh2 {name}", 2, MESH_OPTIN_TICKS, sw) for name, sw in MESH_OPTIN]
+        out["c3"], want_c3 = world_runs("mesh c3", c3, MESH_TICKS, runs)
+        # Every card of the machine, as the engine's default mesh.
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            t0 = time.perf_counter()
+            ticks = run(c3, cards, MESH_TICKS, {}, mesh="auto")
+            geometry, shape = ticks.pop("_geometry"), ticks.pop("_mesh")
+            out["auto"] = {}
+            for label, (got, tick) in ticks.items():
+                assert_results_equal(f"mesh c3 auto {label} vs default", got, want_c3[label])
+                out["auto"][label] = {k: tick[k] for k in keys}
+                log(f"mesh c3 auto {label}: {json.dumps(out['auto'][label])}")
+            log(f"mesh c3 auto: {cards} cards, mesh {shape}, "
+                f"{time.perf_counter() - t0:.2f} s, geometry {geometry}")
+        else:
+            log("mesh c3 auto: 1 card: mesh='auto' resolves to no mesh (the default engine)")
+        out["cards"] = cards
+        del want_c3, c3
+        c5_units = c5_units[:C5_OPTIN_OBJECTS]
+        c5 = worlds_of(c5_units, c5_clusters, MESH_C5_TICKS)
+        runs = [(f"mesh{n}", n, MESH_C5_TICKS, {}) for n in MESH_SIZES]
+        out["c5"], want_c5 = world_runs("mesh c5", c5, MESH_C5_TICKS, runs)
+        del want_c5, c5
     finally:
         gc.unfreeze()
-    # The kernel on one shard: the first half of the first chunk's rows.
-    gpu = SchedulerEngine()
-    inp, _, _ = chunk_tick_inputs(gpu, units, clusters)
-    b = inp.total.shape[0]
-    lo, hi = row_bounds(b, 2)[0]
-    shard = inp._replace(**{k: v[lo:hi] for k, v in inp._asdict().items() if v.shape[:1] == (b,)})
-    out["kernel"] = check_phase1("c3-mesh2-shard", shard, timed=True)
-    del inp, shard, gpu
+    # The kernel on one lane's rows: the first half of the first chunk
+    # (the chunk's inputs built whole on one card).
+    gpu = SchedulerEngine(mesh=None)
+    for where, (us, cl) in (("c3", (units, clusters)), ("c5", (c5_units, c5_clusters))):
+        inp, _, _ = chunk_tick_inputs(gpu, us, cl)
+        b = inp.total.shape[0]
+        lo, hi = row_bounds(b, 2)[0]
+        shard = inp._replace(
+            **{k: v[lo:hi] for k, v in inp._asdict().items() if v.shape[:1] == (b,)}
+        )
+        out[f"kernel_{where}"] = check_phase1(f"{where}-mesh2-shard", shard, timed=True)
+        del inp, shard
+    del gpu
     torch.cuda.empty_cache()
     return out
 
@@ -2203,40 +2283,46 @@ def census_live(engine, units, clusters) -> dict:
 
 
 def census_phase(c5: dict) -> dict:
-    """The memory census on the card: ``validate`` at 8,192 x 256 (the
-    live engine's previous planes against the model, within the JAX
-    module's 15 %, in all and on the busiest device), the c5 check made
-    after the c5 cold tick, and ``decide`` at c6 (1M x 10k, one device)
-    against 16 GiB and against the card's memory
-    (``torch.cuda.mem_get_info``), in the port's layout, where the
-    verdict must name no device count (the engine joins every shard's
-    planes on its device), and in the JAX engine's rows layout, which
-    the port does not build (modelled, for comparison)."""
+    """The memory census on the card: ``validate`` at 8,192 x 256 on one
+    card and over a mesh of 2 lanes on it (the live engine's previous
+    planes against the model, within the JAX module's 15 %, in all and
+    on every lane, and every lane's bytes against the model's per-device
+    share), the c5 check made after the c5 cold tick, and ``decide`` at
+    c6 (1M x 10k, one device) against 16 GiB and against the card's
+    memory (``torch.cuda.mem_get_info``) in the port's layout, the JAX
+    engine's "rows": each lane holds its rows, so c6 shards (8 devices
+    of 16 GiB, 2 cards)."""
     import torch
 
+    from kubeadmiral_tpu_torch.parallel.mesh import make_mesh
     from kubeadmiral_tpu_torch.runtime import census
 
-    v = census.validate(8192, 256)
-    if not v["ok"]:
-        raise AssertionError(f"census validate: {v}")
+    checks = {
+        "one card": census.validate(8192, 256),
+        "mesh2": census.validate(8192, 256, mesh=make_mesh([torch.device("cuda", 0)] * 2)),
+    }
+    for key, v in checks.items():
+        if not v["ok"]:
+            raise AssertionError(f"census validate {key}: {v}")
     total = torch.cuda.mem_get_info()[1]
     c6 = {
-        f"{budget} {layout}": census.decide(1_000_000, 10_000, 1, budget_bytes=b,
-                                            layout=layout)
+        budget: census.decide(1_000_000, 10_000, 1, budget_bytes=b)
         for budget, b in (("16GiB", census.BUDGET_BYTES), ("card", total))
-        for layout in census.LAYOUTS
     }
     for key, d in c6.items():
-        if d["layout"] == "joined" and d["min_devices"] not in (None, 1):
-            raise AssertionError(f"census c6 {key}: the port's layout names a split: {d}")
+        if d["verdict"] != "shard" or d["layout"] != "rows" or not d["min_devices"]:
+            raise AssertionError(f"census c6 {key}: no split named: {d}")
     row = {
-        "validate": {k: v[k] for k in ("shape", "model_prev_planes", "live_prev_planes",
-                                       "prev_planes_err_pct", "model_prev_planes_per_device",
-                                       "live_prev_planes_per_device", "per_device_err_pct",
-                                       "ok")},
+        "validate": {
+            key: {k: v[k] for k in ("shape", "model_prev_planes", "live_prev_planes",
+                                    "prev_planes_err_pct", "model_prev_planes_per_device",
+                                    "live_prev_planes_by_lane", "per_device_err_pct",
+                                    "model_per_device", "live_by_lane", "lane_err_pct", "ok")}
+            for key, v in checks.items()
+        },
         "c5": c5,
         "card_bytes": total,
-        "c6": {k: {kk: d[kk] for kk in ("verdict", "min_devices", "per_device_i32",
+        "c6": {k: {kk: d[kk] for kk in ("verdict", "layout", "min_devices", "per_device_i32",
                                         "per_device_f16", "budget_bytes")}
                for k, d in c6.items()},
     }
@@ -3376,12 +3462,12 @@ def main() -> int:
         optin[cfg] = optin_phase(cfg, *worlds[cfg][:2])
         log(f"phase optin-c{cfg}: {time.perf_counter() - t0:.2f} s")
 
-    # The objects-axis mesh at c3, then the memory census.
+    # The objects-axis mesh at c3 and at c5's width, then the census.
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh = mesh_phase(*worlds["3"][:2])
-    log(f"phase mesh-c3: {time.perf_counter() - t0:.2f} s")
+    mesh = mesh_phase(*worlds["3"][:2], *worlds["5"][:2])
+    log(f"phase mesh: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     census_row = census_phase(census_c5)
     torch.cuda.empty_cache()
@@ -3436,7 +3522,8 @@ def main() -> int:
                               surface["5"]["webhook_chunk"], surface["3"]["webhook_chunk"],
                               control["kernel"]["cold_chunk"], control["kernel"]["churn"],
                               control["kernel"]["migrate"], http["kernel"],
-                              streams["5"]["kernel"], streams["3"]["kernel"], mesh["kernel"])
+                              streams["5"]["kernel"], streams["3"]["kernel"],
+                              mesh["kernel_c3"], mesh["kernel_c5"])
                 ),
                 "ms": c5["ms"],
                 "plain_ms": c5["plain_ms"],
@@ -3610,21 +3697,39 @@ def main() -> int:
                     if label in ("cold", "wide")
                 },
                 # The mesh phase: launches per tick and engine (each
-                # objects shard launches its rows), and the kernel on
-                # one shard of a mesh of 2.
-                "launches_mesh_c3": {
-                    f"{name} {label}": t["phase1_launches"]
-                    for name, by_label in mesh.items() if name != "kernel"
-                    for label, t in by_label.items()
+                # lane launches its rows), each lane's resident bytes
+                # after the cold tick, and the kernel on one lane's rows
+                # of a mesh of 2, at c3 and at c5's width.
+                **{
+                    f"launches_mesh_{where}": {
+                        f"{name} {label}": t["phase1_launches"]
+                        for name, by_label in mesh[where].items()
+                        for label, t in by_label.items()
+                    }
+                    for where in ("c3", "c5")
                 },
-                "mesh_memory_c3": {
-                    f"{name} {label}": [t["memory_allocated"], t["max_memory_allocated"]]
-                    for name, by_label in mesh.items() if name != "kernel"
-                    for label, t in by_label.items() if label == "cold"
+                **{
+                    f"mesh_memory_{where}": {
+                        f"{name} {label}": [t["memory_allocated"], t["max_memory_allocated"]]
+                        for name, by_label in mesh[where].items()
+                        for label, t in by_label.items() if label == "cold"
+                    }
+                    for where in ("c3", "c5")
                 },
-                "mesh_shard_c3": {
-                    key: mesh["kernel"][key]
-                    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                **{
+                    f"mesh_lanes_{where}": {
+                        name: by_label["cold"]["resident"]["by_device"]
+                        for name, by_label in mesh[where].items()
+                    }
+                    for where in ("c3", "c5")
+                },
+                "mesh_cards": mesh["cards"],
+                **{
+                    f"mesh_shard_{where}": {
+                        key: mesh[f"kernel_{where}"][key]
+                        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "ops_ms")
+                    }
+                    for where in ("c3", "c5")
                 },
                 "census": census_row,
                 "native": {"build": native_status, "objects": native_row["objects"],

@@ -106,6 +106,30 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     sys.stdout.reconfigure(line_buffering=True)
 
+    # SIGTERM = graceful failover (docs/operations.md § Restart &
+    # failover runbook): drain in-flight dispatch flushes under the
+    # manager's bounded shutdown deadline, write a final engine
+    # snapshot, release leadership so a standby acquires immediately.
+    # SIGKILL gets none of this — which is exactly what the snapshot
+    # store's atomic-write + quarantine design (and make restart-smoke)
+    # exists for.  The handler goes in before start-up, so a SIGTERM at
+    # any point after it (however late the main thread runs on a busy
+    # host) drains instead of killing the process; it only sets the
+    # event (the main thread prints, so a signal landing inside a print
+    # never writes to stdout reentrantly).
+    import signal
+    import threading
+
+    stop_event = threading.Event()
+
+    def _on_sigterm(signum, frame):
+        stop_event.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+
     from kubeadmiral_tpu_torch.runtime.logconf import setup_logging
 
     setup_logging()  # logconf.LEVEL / JSON_LINES
@@ -188,7 +212,13 @@ def main(argv=None) -> int:
     elector = LeaderElector(fleet.host, identity=f"manager-{os.getpid()}")
     if args.leader_elect:
         while not elector.try_acquire_or_renew():
-            time.sleep(1.0)
+            if stop_event.wait(1.0):
+                # Terminated while standing by: nothing started to drain.
+                print("SIGTERM while standing by: exiting")
+                server.stop()
+                if farm is not None:
+                    farm.close()
+                return 0
         print(f"leader election won as {elector.identity}")
 
     manager = ControllerManager(
@@ -212,27 +242,6 @@ def main(argv=None) -> int:
     manager.run(args.worker_count)
     print("controller manager running; Ctrl-C to stop")
 
-    # SIGTERM = graceful failover (docs/operations.md § Restart &
-    # failover runbook): drain in-flight dispatch flushes under the
-    # manager's bounded shutdown deadline, write a final engine
-    # snapshot, release leadership so a standby acquires immediately.
-    # SIGKILL gets none of this — which is exactly what the snapshot
-    # store's atomic-write + quarantine design (and make restart-smoke)
-    # exists for.
-    import signal
-    import threading
-
-    stop_event = threading.Event()
-
-    def _on_sigterm(signum, frame):
-        print("SIGTERM: draining for graceful failover")
-        stop_event.set()
-
-    try:
-        signal.signal(signal.SIGTERM, _on_sigterm)
-    except ValueError:
-        pass  # not the main thread (embedded use)
-
     deadline = time.monotonic() + args.run_seconds if args.run_seconds else None
     try:
         while not stop_event.is_set() and (
@@ -245,6 +254,8 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if stop_event.is_set():
+            print("SIGTERM: draining for graceful failover")
         summary = manager.shutdown()
         if args.leader_elect and elector.release():
             print("leadership released")

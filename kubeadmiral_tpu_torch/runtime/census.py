@@ -12,31 +12,29 @@ a number before a c6 run, not a discovery during it:
   geometry policy (``scheduler.engine.tick_geometry`` and
   ``bucket_rows`` at N devices on the objects axis, so the chunk split,
   padding and ladder rules never drift from the model) and books every
-  resident plane family at its device dtype, then per device by a
-  ``layout``.  "joined" is the port's: the engine joins every objects
-  shard's outputs on its own device, which so holds the whole set
-  whatever N.  "rows" is the JAX engine's: rows-sharded [B, ...] planes
-  divide across the objects axis and the [B] vectors book whole on
-  every device; the port does not build it, and it is modelled only to
-  be held against the JAX census.  The port keeps no resident tie-break
-  plane (the survivor program builds it on its gathered rows), so that
-  family is 0 where the JAX model books 4 B a cell.
+  resident plane family at its device dtype, then per device in the
+  JAX engine's "rows" layout, which the port's meshed engine keeps:
+  the [B, ...] planes divide across the objects axis, each lane holding
+  its rows (``SchedulerEngine.resident_state_bytes``), and the [B]
+  vectors book whole on every device, as the JAX model books them (the
+  port splits them too, so the model overstates a lane by at most the
+  vectors' (N-1)/N, a few bytes a row).  The port keeps no resident
+  tie-break plane (the survivor program builds it on its gathered rows),
+  so that family is 0 where the JAX model books 4 B a cell.
 
 * :func:`validate` — the honesty check: schedules a small live world,
   walks the actual device buffers
-  (``SchedulerEngine.resident_state_bytes``, summed by the device each
-  tensor lies on) and compares them with the model at the same shape,
-  within 15 %: the previous planes in all, and those the busiest device
-  holds against the layout's share.
+  (``SchedulerEngine.resident_state_bytes``, summed by lane) and
+  compares them with the model at the same shape, within 15 %: the
+  previous planes in all, and each lane's previous planes and bytes
+  against the model's per-device share.
 
 * :func:`decide` — the compress-or-shard decision against a per-device
   budget (``budget_bytes``, default 16 GiB, the JAX package's
   ``KT_HBM_BUDGET_GB`` default): ``fits`` as-is; ``compress`` with the
   f16 score plane (``SchedulerEngine(score_f16=True)``, exact behind
   the per-row exactness guard); otherwise ``shard`` with the minimum
-  objects-axis device count that fits, compression engaged, where the
-  layout lets more devices help ("rows"), or ``over`` where no mesh
-  lowers the busiest device's bytes (the port's "joined").
+  objects-axis device count that fits, compression engaged.
 
 The JAX module's environment reads are arguments with its defaults:
 ``budget_bytes`` (16 GiB), ``cell_budget`` and ``megachunk_rows`` (the
@@ -68,10 +66,6 @@ _KEY_BYTE = 1
 # The per-device budget decide() compares against by default.
 BUDGET_BYTES = 16 << 30
 
-
-# Where the resident state lies over an N-device objects mesh: the
-# port's engine ("joined") and the JAX engine ("rows"), as above.
-LAYOUTS = ("joined", "rows")
 
 
 def _geometry(
@@ -119,14 +113,11 @@ def project(
     key_len: int = 64,
     cell_budget: Optional[int] = None,
     megachunk_rows: Optional[int] = None,
-    layout: str = "joined",
 ) -> dict:
     """Analytic resident-plane inventory at (B, C) on an N-device
-    objects mesh, in bytes, per device by ``layout`` (``LAYOUTS``).
+    objects mesh, in bytes, per device in the "rows" layout.
     ``sparse_entries`` / ``key_len`` size the compact per-object block
     (bench worlds measure ~8 sparse slots and <=64 key bytes)."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     geo = _geometry(n_objects, n_clusters, device_count, cell_budget, megachunk_rows)
     rows = geo["padded_rows"]
     cells = rows * geo["c_bucket"]
@@ -146,17 +137,15 @@ def project(
     vectors = rows * 4 + (rows * 1 if score_f16 else 0)  # nfeas + exactness
     total = sum(prev.values()) + per_object + tiebreak + vectors
     prev_planes = sum(prev.values())
-    if layout == "rows":
-        # Rows-sharded planes divide across the mesh; [B] vectors replicate.
-        per_device = (total - vectors) // device_count + vectors
-        prev_per_device = prev_planes // device_count
-    else:
-        per_device, prev_per_device = total, prev_planes
+    # Rows-sharded planes divide across the mesh; [B] vectors are booked
+    # whole on every device (the JAX model's figure).
+    per_device = (total - vectors) // device_count + vectors
+    prev_per_device = prev_planes // device_count
     return {
         "n_objects": n_objects,
         "n_clusters": n_clusters,
         "device_count": device_count,
-        "layout": layout,
+        "layout": "rows",
         "score_dtype": "f16" if score_f16 else "i32",
         "geometry": {
             k: geo[k] for k in ("c_bucket", "eff_chunk", "n_chunks",
@@ -178,11 +167,11 @@ def project(
 def validate(n_objects: int = 8192, n_clusters: int = 256, device="cuda", mesh="auto") -> dict:
     """Model-vs-live cross check: schedule a real world at a small shape
     on ``device`` (and ``mesh``), walk the actual device buffers and
-    compare them with :func:`project` at the same shape and topology,
-    in the port's layout: the previous planes in all (the c6-dominant
-    family; per-object is workload-shaped), and those on the busiest
-    device against the model's per-device share.  Returns both numbers
-    and their relative errors."""
+    compare them with :func:`project` at the same shape and topology:
+    the previous planes in all (the c6-dominant family; per-object is
+    workload-shaped), and every lane's previous planes and bytes
+    against the model's per-device shares.  Returns the numbers and
+    their relative errors (each lane's worst)."""
     import numpy as np
 
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
@@ -202,9 +191,11 @@ def validate(n_objects: int = 8192, n_clusters: int = 256, device="cuda", mesh="
         return abs(got - want) / max(1, got)
 
     lp, mp = live["by_family"]["prev_planes"], model["by_family"]["prev_planes"]
-    ld = max(live["prev_planes_by_device"].values(), default=0)
-    md = model["prev_planes_per_device"]
-    e, e_dev = err(lp, mp), err(ld, md)
+    md, mt = model["prev_planes_per_device"], model["per_device"]
+    lanes = live["prev_planes_by_device"]
+    e = err(lp, mp)
+    e_dev = max((err(v, md) for v in lanes.values()), default=1.0)
+    e_lane = max((err(v, mt) for v in live["by_device"].values()), default=1.0)
     return {
         "shape": f"{n_objects}x{n_clusters}",
         "live": live,
@@ -212,9 +203,13 @@ def validate(n_objects: int = 8192, n_clusters: int = 256, device="cuda", mesh="
         "live_prev_planes": lp,
         "prev_planes_err_pct": round(e * 100.0, 2),
         "model_prev_planes_per_device": md,
-        "live_prev_planes_per_device": ld,
+        "live_prev_planes_per_device": max(lanes.values(), default=0),
+        "live_prev_planes_by_lane": dict(lanes),
         "per_device_err_pct": round(e_dev * 100.0, 2),
-        "ok": e <= 0.15 and e_dev <= 0.15,
+        "model_per_device": mt,
+        "live_by_lane": dict(live["by_device"]),
+        "lane_err_pct": round(e_lane * 100.0, 2),
+        "ok": e <= 0.15 and e_dev <= 0.15 and e_lane <= 0.15,
     }
 
 
@@ -263,10 +258,9 @@ def decide(
     budget_bytes: int = BUDGET_BYTES,
     cell_budget: Optional[int] = None,
     megachunk_rows: Optional[int] = None,
-    layout: str = "joined",
 ) -> dict:
     """The compress-or-shard decision at (B, C, N) against the budget,
-    per device by ``layout``:
+    per device in the "rows" layout:
 
     * ``fits``      — i32 scores fit per device as-is;
     * ``compress``  — over budget at i32, under with the f16 score plane
@@ -275,23 +269,18 @@ def decide(
                       fits: the verdict carries the minimum
                       objects-axis device count that does (compression
                       engaged), i.e. how much further the mesh must
-                      scale out ("rows" only);
-    * ``over``      — over budget even compressed, and no mesh lowers
-                      the busiest device's bytes ("joined", the port's
-                      layout): ``min_devices`` is None.
+                      scale out.
     """
-    geo = {"cell_budget": cell_budget, "megachunk_rows": megachunk_rows, "layout": layout}
+    geo = {"cell_budget": cell_budget, "megachunk_rows": megachunk_rows}
     plain = project(n_objects, n_clusters, device_count, score_f16=False, **geo)
     packed = project(n_objects, n_clusters, device_count, score_f16=True, **geo)
     if plain["per_device"] <= budget_bytes:
         verdict, engaged = "fits", plain
     elif packed["per_device"] <= budget_bytes:
         verdict, engaged = "compress", packed
-    elif layout == "rows":
-        verdict, engaged = "shard", packed
     else:
-        verdict, engaged = "over", packed
-    min_devices = None if verdict == "over" else device_count
+        verdict, engaged = "shard", packed
+    min_devices = device_count
     if verdict == "shard":
         n = device_count
         while n < 4096:
@@ -302,10 +291,9 @@ def decide(
                 break
         min_devices = n
     over = engaged["per_device"] > budget_bytes
-    share = device_count if layout == "rows" else 1
     return {
         "verdict": verdict,
-        "layout": layout,
+        "layout": "rows",
         "budget_bytes": budget_bytes,
         "per_device_i32": plain["per_device"],
         "per_device_f16": packed["per_device"],
@@ -317,5 +305,5 @@ def decide(
         # plane's 10 reason bits fit i16 (the flight recorder already
         # stores i16 host-side) — halves another i32 plane.
         "reasons_i16_would_save": engaged["geometry"]["padded_rows"]
-        * engaged["geometry"]["c_bucket"] * 2 // share,
+        * engaged["geometry"]["c_bucket"] * 2 // device_count,
     }

@@ -139,6 +139,8 @@ class ControllerManager:
         # resourceVersion watermarks recorded with each snapshot, and
         # the breaker registry + flight recorder riding along.
         self.snapshots = None
+        # The engine's prewarm thread (``run``), joined at shutdown.
+        self._prewarm = None
         snap_dir = snapshot_dir
         if snap_dir:
             from kubeadmiral_tpu_torch.runtime.snapshot import (
@@ -461,7 +463,7 @@ class ControllerManager:
             from kubeadmiral_tpu_torch.scheduler.webhook import SCHEDULER_WEBHOOK_CONFIGS
 
             webhooks = bool(self.host.list(SCHEDULER_WEBHOOK_CONFIGS))
-            self.engine.prewarm(
+            self._prewarm = self.engine.prewarm(
                 n_objects,
                 max(1, len(clusters)),
                 scalar_resources=scalars,
@@ -530,6 +532,11 @@ class ControllerManager:
 
         t0 = time.monotonic()
         self.stop()
+        # The prewarm thread runs torch operations: it must be done
+        # before the process exits, or a daemon thread coming back from
+        # one while the interpreter finalises aborts the process.
+        if self._prewarm is not None:
+            self._prewarm.join(max(0.0, deadline_s - (time.monotonic() - t0)))
         shed = D.finalize_all_sinks(
             max(0.0, deadline_s - (time.monotonic() - t0))
         )

@@ -50,9 +50,11 @@ the checked round loop, waited for and fetched before the next.
 
 The JAX engine's geometry and cache arguments are keywords with its
 defaults, and so is its ``mesh``: over several devices each objects
-shard solves its rows of every row-wise program on its own device and
-stream (``parallel/mesh.py``), the outputs joined in row order, so a
-meshed tick equals the single-device one.
+shard keeps its rows of every chunk's resident state (``RowShards``,
+``parallel/mesh.py``) and solves them in place with every row-wise
+program on its own device and stream; the shards are collected in row
+order only on the host, where it reads, so a meshed tick equals the
+single-device one.
 
 ``schedule`` takes the JAX engine's whole call surface: a caller-built
 cluster ``view``; ``webhook_eval`` (webhook planes are per-tick results,
@@ -125,6 +127,9 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
 from kubeadmiral_tpu_torch.parallel.mesh import (
+    RowIndex,
+    RowShards,
+    cat_rows,
     leading_rows,
     make_mesh,
     objects_axis_size,
@@ -437,20 +442,48 @@ def _unpack_bits(words: np.ndarray, c: int) -> np.ndarray:
     return bits[:, :c]
 
 
+def _overflow_words(sel, cnt, rep, sco=None):
+    """Overflow rows already gathered as one array: bit-packed
+    selected/counted masks, the replica plane, and the score plane when
+    given."""
+    words = [_bitpack_bool(sel != 0), _bitpack_bool(cnt != 0), rep]
+    return torch.cat(words + ([] if sco is None else [sco]), dim=1)
+
+
 def _gather_overflow3(sel, cnt, rep, idx):
     """K-overflow row fetch: bit-packed selected/counted masks plus the
     replica plane of the given rows in ONE transfer (C/32 + C/32 + C
     words against the dense 3C)."""
-    return torch.cat(
-        [_bitpack_bool(sel[idx] != 0), _bitpack_bool(cnt[idx] != 0), rep[idx]],
-        dim=1,
-    )
+    return _overflow_words(sel[idx], cnt[idx], rep[idx])
 
 
 def _gather_overflow4(sel, cnt, rep, sco, idx):
     """The score-carrying variant, for a decode that carries scores: the
     score plane's C words after _gather_overflow3's."""
-    return torch.cat([_gather_overflow3(sel, cnt, rep, idx), sco[idx]], dim=1)
+    return _overflow_words(sel[idx], cnt[idx], rep[idx], sco[idx])
+
+
+def _feasible_counts(feas):
+    """i32[n]: each row's feasible clusters."""
+    return (feas != 0).sum(dim=1, dtype=torch.int32)
+
+
+def _int32_side_by_side(*planes):
+    """Row-gathered planes as one int32 array, side by side."""
+    return torch.cat([p.to(torch.int32) for p in planes], dim=1)
+
+
+def _settle_flags(unsettled, cert):
+    """i8 per-row window flags: bit 0 the narrow certificate (if any),
+    bit 1 a planner row still going after the round budget."""
+    late = unsettled.to(torch.int8) * 2
+    return late if cert is None else cert | late
+
+
+def _placement_moved(sel, rep, cnt, sel0, rep0, cnt0):
+    """i8 diff bits of rows whose placement planes moved."""
+    moved = ((sel != sel0) | (rep != rep0) | (cnt != cnt0)).any(dim=1)
+    return moved.to(torch.int8) * _DIFF_PLACEMENT
 
 
 def _pad_cluster_axis(arr, c_pad: int, fill):
@@ -459,14 +492,6 @@ def _pad_cluster_axis(arr, c_pad: int, fill):
     if extra <= 0:
         return arr
     return np.concatenate([arr, np.full((extra,) + arr.shape[1:], fill, arr.dtype)])
-
-
-def _gather_planes(out, planes: int, idx) -> torch.Tensor:
-    """The given rows of a dispatch's planes as one int32 array for the
-    dense format's delta fetch: selected, replicas, counted, then the
-    score plane (``planes`` >= 4) and the reason plane (5)."""
-    parts = (out.selected, out.replicas, out.counted, out.scores, out.reasons)[:planes]
-    return torch.cat([p.index_select(0, idx).to(torch.int32) for p in parts], dim=1)
 
 
 def _diff_bits(out, prev: tuple, n: int) -> torch.Tensor:
@@ -568,6 +593,18 @@ class _InFlight:
     mask: Optional[torch.Tensor] = None
 
 
+def _pieces_of(out):
+    """``out`` with every holder replaced by the list of its pieces (what
+    the dispatch ledger walks for a ready marker)."""
+    if isinstance(out, RowShards):
+        return [p for p in out.pieces if p.numel()] or out.pieces
+    if isinstance(out, tuple):
+        return [_pieces_of(x) for x in out]
+    if isinstance(out, dict):
+        return {k: _pieces_of(v) for k, v in out.items()}
+    return out
+
+
 def _unsettled(budget):
     return None if budget is None else budget.unsettled
 
@@ -604,10 +641,13 @@ class SchedulerEngine:
     ``mesh`` is the JAX engine's: "auto" builds an objects-axis mesh over
     the visible CUDA devices when there are several (``_resolve_mesh``),
     None is one device, a ``parallel.mesh.Mesh`` is taken as given.
-    Under a mesh each objects shard runs its rows of every row-wise
-    program on its own device and stream, joined in row order on
-    ``device``, which so holds the whole resident state; the window,
-    the cell budget and the row cap are per device.
+    Under a mesh each objects shard ("lane") holds its rows of every
+    chunk's resident state (the prev planes, feasibility and reasons,
+    the per-object inputs and the per-row vectors, as ``RowShards``) on
+    its own device and runs every row-wise program on them in place, on
+    its own stream; gathers and scatters by global row go to the lanes
+    that own the rows, and reads collect the lanes' pieces on the host.
+    The window, the cell budget and the row cap are per device.
 
     ``schedule`` treats the unit list and the units as immutable: derive
     a changed batch as a fresh list with fresh unit objects.
@@ -871,16 +911,23 @@ class SchedulerEngine:
         return mesh
 
     def _on_rows(self, fn, rows: tuple, whole: tuple = (), bounds: bool = False):
-        """``fn(*rows, *whole)``; under a mesh, on each objects shard's
-        rows, on its device and stream, joined in row order on the
-        engine's device (``parallel.mesh.run_rows``).  With ``bounds``
-        the shard's row range (lo, hi) leads the arguments ((0, n)
-        without a mesh)."""
+        """``fn(*rows, *whole)``; under a mesh, on each lane's rows in
+        place, on its device and stream, the outputs kept on the lanes
+        as holders (``parallel.mesh.run_rows``).  With ``bounds`` the
+        lane's row range (lo, hi) leads the arguments ((0, n) without a
+        mesh)."""
         if self._mesh_rows is None:
             if bounds:
                 return fn(0, leading_rows(rows[0]), *rows, *whole)
             return fn(*rows, *whole)
-        return run_rows(self._mesh_rows, fn, rows, whole, home=self.device, bounds=bounds)
+        return run_rows(self._mesh_rows, fn, rows, whole, bounds=bounds)
+
+    def _upload_rows(self, arr) -> torch.Tensor:
+        """A host ``[n, ...]`` array on the device; under a mesh split by
+        rows, one copy straight to each lane."""
+        if self._mesh_rows is None:
+            return tensor(arr, self.device)
+        return RowShards.from_host(self._mesh_rows, arr)
 
     def _pack(self, planes: tuple, k: int) -> torch.Tensor:
         """The packed wire of five [N, C] planes (``pack_wire``), by rows
@@ -888,10 +935,13 @@ class SchedulerEngine:
         return self._on_rows(pack_wire, planes, (k,))
 
     def _gather_planes(self, out, planes: int, idx) -> torch.Tensor:
-        """The dense fetch's row gather (``_gather_planes``), the index's
-        rows split under a mesh."""
+        """The given rows of a dispatch's planes as one int32 array for
+        the dense format's delta fetch: selected, replicas, counted, then
+        the score plane (``planes`` >= 4) and the reason plane (5).  Under
+        a mesh each lane takes its share of the index from the lanes that
+        own the rows and lays the planes side by side."""
         return self._on_rows(
-            lambda i, *p: _gather_planes(TickPlanes(*p), planes, i), (idx,), _planes(out)
+            _int32_side_by_side, tuple(p.index_select(0, idx) for p in _planes(out)[:planes])
         )
 
     def _diff(self, out, prev: tuple, n: int) -> torch.Tensor:
@@ -906,11 +956,11 @@ class SchedulerEngine:
 
     def _observe(self, kind: str, out) -> None:
         """One dispatch into the ledger; a meshed engine's programs on
-        the ``mesh<N>`` lane."""
+        the ``mesh<N>`` lane (a holder observed through its pieces)."""
         if self._lane is None:
             self.devprof.observe(kind, out)
         else:
-            self.devprof.observe(kind, out, lane=self._lane)
+            self.devprof.observe(kind, _pieces_of(out), lane=self._lane)
 
     def prewarm(
         self,
@@ -1402,10 +1452,12 @@ class SchedulerEngine:
         return self._device_tables[1]
 
     def _upload_per_object(self, padded, fmt: str) -> dict:
+        """The per-object tensors of ``padded`` on the device (split by
+        rows over the lanes under a mesh)."""
         names = self._per_object_fields(fmt)
         host = {name: np.asarray(getattr(padded, name)) for name in names}
         self.upload_bytes["object"] += sum(a.nbytes for a in host.values())
-        return {name: tensor(a, self.device) for name, a in host.items()}
+        return {name: self._upload_rows(a) for name, a in host.items()}
 
     def _assemble(self, per_object: dict, fmt: str, vocab, c_bucket: int, cluster_dev):
         if fmt == "compact":
@@ -1485,12 +1537,18 @@ class SchedulerEngine:
             torch.cuda.synchronize(self.device)
 
     def _read_np(self, t: torch.Tensor) -> np.ndarray:
-        """Blocking device->host copy, counted in fetch_bytes_total."""
-        arr = t.cpu().numpy()
+        """Blocking device->host copy, counted in fetch_bytes_total (a
+        holder lane by lane, concatenated on the host)."""
+        arr = t.numpy() if isinstance(t, RowShards) else t.cpu().numpy()
         self.fetch_bytes_total += arr.nbytes
         return arr
 
-    def _index(self, rows) -> torch.Tensor:
+    def _index(self, rows):
+        """Global row indices for a gather or scatter: a tensor on the
+        device, or under a mesh a ``RowIndex`` that routes each row to
+        the lane owning it."""
+        if self._mesh_rows is not None:
+            return RowIndex(rows)
         return tensor(np.asarray(rows, np.int64), self.device)
 
     @staticmethod
@@ -1719,7 +1777,15 @@ class SchedulerEngine:
     def _planes_to_host(planes) -> list:
         """Host copies of several device planes in ONE device->host read:
         their bytes joined on the device, read, and split back into
-        arrays of their dtypes and shapes."""
+        arrays of their dtypes and shapes.  Holders: one read per lane
+        (its pieces joined on its device), the lanes' rows concatenated
+        on the host."""
+        if isinstance(planes[0], RowShards):
+            lanes = [
+                SchedulerEngine._planes_to_host([p.pieces[i] for p in planes])
+                for i in range(len(planes[0].pieces))
+            ]
+            return [np.concatenate([lane[k] for lane in lanes]) for k in range(len(planes))]
         flat = torch.cat([p.contiguous().reshape(-1).view(torch.uint8) for p in planes])
         host = flat.cpu().numpy()
         out, start = [], 0
@@ -1800,13 +1866,14 @@ class SchedulerEngine:
         """The chunk cache's device bytes by plane family (the JAX
         engine's families; the port keeps no tie-break plane, so that
         family is 0), also stored as ``engine_resident_bytes`` gauges.
-        ``by_device`` sums them by the device each tensor lies on, and
-        ``per_device`` is the busiest device's (the number an HBM budget
-        is compared against).  The engine joins every objects shard's
-        outputs on its own device, so under a mesh that device holds the
-        whole set (the census's "joined" layout), where the JAX engine
-        divides the rows-sharded families by the objects axis
-        (``device_count``)."""
+        ``by_device`` sums them by lane: the device each piece lies on,
+        or ``"<device>/<lane>"`` where several lanes share one device
+        (``RowShards.lane_labels``); without a mesh, the engine's
+        device.  ``per_device`` is the busiest lane's (the number an HBM
+        budget is compared against).  Under a mesh every family is split
+        by rows over the lanes, the [B] vectors too, so each lane holds
+        its share of the chunks' padded rows (the census's "rows"
+        layout)."""
         fams = {"prev_planes": 0, "per_object": 0, "tiebreak": 0, "vectors": 0}
         by_device: dict[str, int] = {}
         prev_by_device: dict[str, int] = {}
@@ -1815,10 +1882,14 @@ class SchedulerEngine:
             if t is None:
                 return
             fams[family] += t.nbytes
-            dev = str(t.device)
-            by_device[dev] = by_device.get(dev, 0) + t.nbytes
-            if family == "prev_planes":
-                prev_by_device[dev] = prev_by_device.get(dev, 0) + t.nbytes
+            if isinstance(t, RowShards):
+                lanes = zip(t.lane_labels(), (p.nbytes for p in t.pieces))
+            else:
+                lanes = [(str(t.device), t.nbytes)]
+            for dev, nbytes in lanes:
+                by_device[dev] = by_device.get(dev, 0) + nbytes
+                if family == "prev_planes":
+                    prev_by_device[dev] = prev_by_device.get(dev, 0) + nbytes
 
         for e in self._chunk_cache.values():
             for p in (e.prev_out or ()) + (e.prev_feas, e.prev_reasons):
@@ -1975,7 +2046,7 @@ class SchedulerEngine:
                 )
 
             def put(name, dtype):
-                return tensor(np.ascontiguousarray(cs[name], dtype=dtype), self.device)
+                return self._upload_rows(np.ascontiguousarray(cs[name], dtype=dtype))
 
             entry.prev_out = (
                 put("sel", np.int8), put("rep", np.int32),
@@ -1989,8 +2060,8 @@ class SchedulerEngine:
             # The feasible counts are derived on the host, not stored:
             # the snapshot's format stays the JAX engine's and nothing is
             # launched.
-            entry.prev_nfeas = tensor(
-                (np.asarray(cs["feas"]) != 0).sum(axis=1).astype(np.int32), self.device
+            entry.prev_nfeas = self._upload_rows(
+                (np.asarray(cs["feas"]) != 0).sum(axis=1).astype(np.int32)
             )
             t1 = time.perf_counter()
             secs["upload"] += t1 - t0
@@ -2335,13 +2406,13 @@ class SchedulerEngine:
         self.upload_bytes["object"] += sel.nbytes + rep.nbytes + cnt.nbytes
         idx = self._index(late)
         out = it.out
-        moved = (
-            (out.selected.index_select(0, idx) != tensor(sel, self.device))
-            | (out.replicas.index_select(0, idx) != tensor(rep, self.device))
-            | (out.counted.index_select(0, idx) != tensor(cnt, self.device))
-        ).any(dim=1)
+        moved = self._on_rows(
+            _placement_moved,
+            tuple(p.index_select(0, idx) for p in (out.selected, out.replicas, out.counted))
+            + tuple(self._upload_rows(a) for a in (sel, rep, cnt)),
+        )
         mask = it.mask.clone()
-        mask[idx] = moved.to(torch.int8) * _DIFF_PLACEMENT
+        mask[idx] = moved
         return mask
 
     def _drain_window(self, items: list, chunk_results, chunk_changed, view, timings) -> None:
@@ -2405,8 +2476,7 @@ class SchedulerEngine:
         for it in items:
             flag = it.cert
             if it.unsettled is not None:
-                late = it.unsettled.to(torch.int8) * 2
-                flag = late if flag is None else flag | late
+                flag = self._on_rows(_settle_flags, (it.unsettled, it.cert))
             if flag is not None:
                 flagged.append(it)
                 devs.append(flag)
@@ -2696,7 +2766,10 @@ class SchedulerEngine:
     def _start_read(self, t: torch.Tensor):
         """Start a device->host copy of ``t`` that a later _finish_read
         waits for: on the card a copy into pinned memory behind an
-        event, so the wait covers only the work queued before it."""
+        event, so the wait covers only the work queued before it.  A
+        holder starts one copy per lane."""
+        if isinstance(t, RowShards):
+            return [self._start_read(p) for p in t.pieces]
         if t.device.type != "cuda":
             return t, None
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -2706,6 +2779,8 @@ class SchedulerEngine:
         return host, done
 
     def _finish_read(self, handle) -> np.ndarray:
+        if isinstance(handle, list):
+            return np.concatenate([self._finish_read(h) for h in handle])
         host, done = handle
         if done is not None:
             done.synchronize()
@@ -2714,33 +2789,42 @@ class SchedulerEngine:
         return arr
 
     def _read_all(self, tensors: list) -> list:
-        """Host copies of several tensors: those of one dtype and one
-        shape past the first axis are joined on the device (torch.cat)
+        """Host copies of several tensors: those of one dtype, one shape
+        past the first axis and one device are joined there (torch.cat)
         and read in one copy, then split by their row counts; every copy
-        is queued before the first wait."""
-        out: list = [None] * len(tensors)
-        groups: dict[tuple, list[int]] = {}
+        is queued before the first wait.  A holder's pieces are read
+        with their lanes' groups and concatenated on the host."""
+        pieces, owner = [], []
         for i, t in enumerate(tensors):
-            groups.setdefault((tuple(t.shape[1:]), t.dtype), []).append(i)
+            for p in t.pieces if isinstance(t, RowShards) else (t,):
+                pieces.append(p)
+                owner.append(i)
+        groups: dict[tuple, list[int]] = {}
+        for k, t in enumerate(pieces):
+            groups.setdefault((tuple(t.shape[1:]), t.dtype, str(t.device)), []).append(k)
         reads = [
             (
                 members,
                 self._start_read(
-                    tensors[members[0]]
+                    pieces[members[0]]
                     if len(members) == 1
-                    else torch.cat([tensors[i] for i in members])
+                    else torch.cat([pieces[k] for k in members])
                 ),
             )
             for members in groups.values()
         ]
+        got: list = [None] * len(pieces)
         for members, handle in reads:
             arr = self._finish_read(handle)
             start = 0
-            for i in members:
-                rows = tensors[i].shape[0]
-                out[i] = arr[start : start + rows]
+            for k in members:
+                rows = pieces[k].shape[0]
+                got[k] = arr[start : start + rows]
                 start += rows
-        return out
+        out: list = [[] for _ in tensors]
+        for k, i in enumerate(owner):
+            out[i].append(got[k])
+        return [parts[0] if len(parts) == 1 else np.concatenate(parts) for parts in out]
 
     def _dispatch_drift_gate(self, entry, fmt: str, c_bucket: int, info: dict, vocab) -> dict:
         """Queue one chunk's drift gate and the copy of its row mask (read
@@ -2788,7 +2872,7 @@ class SchedulerEngine:
         return {
             "mask": self._start_read(mask),
             "new_cols": new_cols,
-            "cols": self._index(info["cols"]),
+            "cols": tensor(np.asarray(info["cols"], np.int64), dev),
             "scores": scores,
             "delta": delta,
         }
@@ -3087,7 +3171,10 @@ class SchedulerEngine:
                 forced.update(int(r) for r in self._sco_inexact_rows(entry) if r < n)
             # Skipped rows keep exact stored totals; recomputed rows are
             # overwritten by their write-back after this.
-            refresh_scores(gate["scores"], gate["cols"], gate["new_cols"])
+            self._on_rows(
+                lambda sco, new_cols, cols: refresh_scores(sco, cols, new_cols),
+                (gate["scores"], gate["new_cols"]), (gate["cols"],),
+            )
             if self.score_f16:
                 entry.prev_out = entry.prev_out[:3] + (
                     self._compress_scores(entry, gate["scores"], and_old=True),
@@ -3112,11 +3199,14 @@ class SchedulerEngine:
                     ridx = np.zeros(g, np.int64)
                     ridx[: len(seg)] = seg
                     self.dispatches_total += 1
+                    # The group's stored feasibility rows, gathered from
+                    # the lanes that own them; each lane checks its share.
                     flags = self._on_rows(
-                        lambda rows_idx, feas, *cpu: drift_wcheck(feas, rows_idx, *cpu),
-                        (self._index(ridx),),
+                        lambda feas, *cpu: drift_wcheck(
+                            feas, torch.arange(feas.shape[0], device=feas.device), *cpu
+                        ),
+                        (entry.prev_feas.index_select(0, self._index(ridx)),),
                         (
-                            entry.prev_feas,
                             oldc["cpu_alloc"], oldc["cpu_avail"],
                             newc["cpu_alloc"], newc["cpu_avail"],
                         ),
@@ -3509,12 +3599,17 @@ class SchedulerEngine:
             for name, fill in fills.items():
                 width = max(p[name].shape[1] for p in pieces)
                 for p in pieces:
-                    extra = width - p[name].shape[1]
-                    if extra:
-                        p[name] = torch.nn.functional.pad(
-                            p[name], (0, extra), value=int(fill)
+                    pad = (0, width - p[name].shape[1])
+                    if pad[1]:
+                        p[name] = self._on_rows(
+                            lambda t, pad=pad, fill=int(fill): torch.nn.functional.pad(
+                                t, pad, value=fill
+                            ),
+                            (p[name],),
                         )
-        return {name: torch.cat([p[name] for p in pieces]) for name in names}
+        # Under a mesh the chunks' gathered holders end to end: the
+        # slabs' row gathers take them from the lanes that hold them.
+        return {name: cat_rows([p[name] for p in pieces]) for name in names}
 
     def _repair_prev_planes(self, entry, changed_rows, offset: int, slabs, slab_cut: int) -> bool:
         """Scatter the slab outputs of this chunk's rows into its prev
@@ -3587,7 +3682,7 @@ class SchedulerEngine:
         for plane, out_plane in zip(planes, out_planes):
             plane.index_copy_(0, dst, out_plane.index_select(0, src).to(plane.dtype))
         nfeas.index_copy_(
-            0, dst, (out.feasible.index_select(0, src) != 0).sum(dim=1, dtype=torch.int32)
+            0, dst, self._on_rows(_feasible_counts, (out.feasible.index_select(0, src),))
         )
         if self.score_f16:
             exact = self._ensure_sco_exact_vec(entry)
@@ -3654,15 +3749,17 @@ class SchedulerEngine:
         b_pad = entry.prev_out[0].shape[0]
         vec = entry.prev_sco_exact
         if vec is None or tuple(vec.shape) != (b_pad,):
-            vec = torch.zeros(b_pad, dtype=torch.int8, device=self.device)
+            if isinstance(entry.prev_out[0], RowShards):
+                vec = RowShards.zeros(entry.prev_out[0], torch.int8)
+            else:
+                vec = torch.zeros(b_pad, dtype=torch.int8, device=self.device)
             entry.prev_sco_exact = vec
             entry.sco_inexact_host = None
         return vec
 
-    @staticmethod
-    def _store_nfeas(entry, feas) -> None:
+    def _store_nfeas(self, entry, feas) -> None:
         """The per-row feasible counts kept beside a stored prev_feas."""
-        entry.prev_nfeas = (feas != 0).sum(dim=1, dtype=torch.int32)
+        entry.prev_nfeas = self._on_rows(_feasible_counts, (feas,))
 
     def _ensure_nfeas(self, entry) -> torch.Tensor:
         """The entry's feasible counts, derived when a store predates them."""
@@ -3773,12 +3870,12 @@ class SchedulerEngine:
         gathers = []
         for out, rows, with_scores in jobs:
             idx = self._index(rows)
+            planes = (out.selected, out.counted, out.replicas)
             if with_scores:
-                gathers.append(_gather_overflow4(
-                    out.selected, out.counted, out.replicas, out.scores, idx
-                ))
-            else:
-                gathers.append(_gather_overflow3(out.selected, out.counted, out.replicas, idx))
+                planes += (out.scores,)
+            gathers.append(
+                self._on_rows(_overflow_words, tuple(p.index_select(0, idx) for p in planes))
+            )
             self._observe("overflow", gathers[-1])
         arrs = self._read_all(gathers)
         timings["overflow_fetch"] += time.perf_counter() - t0

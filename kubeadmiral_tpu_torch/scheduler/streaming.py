@@ -136,9 +136,11 @@ class StreamingScheduler:
         )
         if slab_rows is None:
             # Per-device slab sizing: the churn slabs ride the engine's
-            # rows-sharded dispatch, so a meshed engine's row watermark
-            # scales with its objects axis; an explicit slab_rows is
-            # taken verbatim.
+            # rows-sharded dispatch (a slab's rows split over the lanes,
+            # each lane solving its share and the results written into
+            # the lanes that own the rows), so a meshed engine's row
+            # watermark scales with its objects axis; an explicit
+            # slab_rows is taken verbatim.
             slab_rows = SLAB_ROWS
             mesh = getattr(engine, "mesh", None)
             if mesh is not None:

@@ -13,8 +13,10 @@ the CPU engine's; the three-stream survivor programs and the f16
 score compressor on CUDA tensors against their CPU results, and the
 engine under each opt-in switch on the card against the CPU engine
 with the same switch; engines over meshes of 2 and 4 logical devices on
-the card against the CPU engine, with no host synchronisation in a
-meshed window dispatch; the memory census against the card's buffers;
+the card against the CPU engine, each lane's resident rows on its lane,
+with no host synchronisation in a meshed window dispatch; over several
+cards (where the machine has them) each lane's state on its own card;
+the memory census against the card's buffers;
 the geometry keywords on the card; the native host library built on
 the card's machine.
 
@@ -531,6 +533,38 @@ def test_meshed_engine_on_card_matches_cpu(cuda, config, n):
         if kind == "cold":
             chunks = math.ceil(len(units) / gpu._tick_geometry(len(clusters))[1])
             assert sum(1 for c in calls if c[0] == "narrow") == n * chunks
+        lanes = gpu.resident_state_bytes()["prev_planes_by_device"]
+        assert len(lanes) == n and len(set(lanes.values())) == 1, (kind, lanes)
+
+
+def test_mesh_over_cards_keeps_each_lane_on_its_card(cuda):
+    """A mesh over every card: each lane's pieces lie on its own card
+    (lane 1 on cuda:1), the kernel launches there, and the results
+    equal the CPU engine's."""
+    from kubeadmiral_tpu_torch.parallel.mesh import RowShards, make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards")
+    units, clusters, _ = build_world(700, 600, "5", seed=7)
+    gpu = SchedulerEngine(chunk_size=256)
+    assert gpu.mesh is not None and gpu.mesh.shape[0] == 1 << (cards.bit_length() - 1)
+    explicit = SchedulerEngine(chunk_size=256, mesh=make_mesh())
+    cpu = SchedulerEngine(device="cpu", chunk_size=256)
+    churned = churn(np.random.default_rng(1), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters),
+        ("drift", churned, drift(clusters)), ("back", churned, clusters),
+    ):
+        want = [r.clusters for r in cpu.schedule(batch, cl)]
+        for eng in (gpu, explicit):
+            assert [r.clusters for r in eng.schedule(batch, cl)] == want, kind
+            for entry in eng._chunk_cache.values():
+                for t in entry.prev_out + (entry.prev_feas, entry.prev_reasons):
+                    assert isinstance(t, RowShards)
+                    assert [p.device for p in t.pieces] == list(eng.mesh.devices[:, 0])
+        lanes = explicit.resident_state_bytes()["by_device"]
+        assert sorted(lanes) == [f"cuda:{i}" for i in range(cards)], lanes
 
 
 @pytest.mark.parametrize("n", [2, 4])

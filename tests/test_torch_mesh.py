@@ -97,9 +97,10 @@ def test_field_tables_match_jax():
 
 @pytest.mark.parametrize("n,parts", [(0, 4), (3, 4), (64, 4), (97, 8), (5, 1)])
 def test_row_bounds_and_run_rows(n, parts):
-    """The row split covers every row once, in order; run_rows joins a
-    row-wise program's per-shard outputs into the unsharded output (a
-    dict, a tensor and a whole argument), skipping empty shards."""
+    """The row split covers every row once, in order; run_rows keeps a
+    row-wise program's per-shard outputs on their shards, which read
+    back as the unsharded output (a dict, a tensor and a whole
+    argument), skipping empty shards."""
     bounds = M.row_bounds(n, parts)
     assert bounds[0][0] == 0 and bounds[-1][1] == n
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
@@ -113,7 +114,8 @@ def test_row_bounds_and_run_rows(n, parts):
         return (d["a"] * 2 + t + w).sum(dim=1), None
 
     got, none = M.run_rows(mesh, fn, ({"a": x}, x + 1), (torch.tensor(7),))
-    assert torch.equal(got, (x * 3 + 8).sum(dim=1)) and none is None
+    assert isinstance(got, M.RowShards) and got.bounds == bounds
+    assert np.array_equal(got.numpy(), (x * 3 + 8).sum(dim=1).numpy()) and none is None
     assert sum(calls) == n and (n == 0 or 0 not in calls)
 
 
@@ -130,7 +132,7 @@ def test_layouts(batch):
         return piece.total
 
     got = M.run_rows(mesh, fn, (inputs, inputs.total), (inputs.alloc,))
-    assert torch.equal(got, inputs.total)
+    assert np.array_equal(got.numpy(), inputs.total.numpy())
     assert M.leading_rows(inputs) == 32 and M.leading_rows({"a": inputs.total}) == 32
     assert len(seen) == 2
     for (lo, hi), (piece, t, w) in zip(M.row_bounds(32, 2), seen):

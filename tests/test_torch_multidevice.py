@@ -11,8 +11,15 @@ recorder's per-key placements and reason counts, and the counters.
 Also: the sharded snapshot round trip and the topology refusal, one
 adaptive-K vote per tick on the aggregate of the pieces, the f16 score
 plane under a mesh, the stream's per-device slab watermark,
-``resident_state_bytes`` per device (all on the engine's device), the dispatch ledger's ``mesh<N>``
+``resident_state_bytes`` per lane, the dispatch ledger's ``mesh<N>``
 lane, the per-device window and the engine's mesh resolution.
+
+The resident state stays on its shards: through cold, no-op, churn,
+drift, drift-zero (survivors), fit-flip and back, every tensor a cache
+entry holds is a lane's piece over that lane's rows, each lane's
+``prev_planes`` bytes are the JAX meshed engine's family divided by N,
+no row-wise program joins its outputs on the engine's device, and no
+program takes a [B, ...] plane whole on every shard.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 from kubeadmiral_tpu.parallel import mesh as jax_mesh  # noqa: E402
 from kubeadmiral_tpu.runtime.flightrec import FlightRecorder as JaxRecorder  # noqa: E402
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine  # noqa: E402
-from kubeadmiral_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from kubeadmiral_tpu_torch.parallel.mesh import RowShards, make_mesh, row_bounds  # noqa: E402
 from kubeadmiral_tpu_torch.runtime import census  # noqa: E402
 from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger  # noqa: E402
 from kubeadmiral_tpu_torch.runtime.flightrec import FlightRecorder  # noqa: E402
+from kubeadmiral_tpu_torch.scheduler import engine as engine_mod  # noqa: E402
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine  # noqa: E402
 from kubeadmiral_tpu_torch.scheduler.streaming import StreamingScheduler  # noqa: E402
+from kubeadmiral_tpu_torch.testing.worlds import drift_zero  # noqa: E402
 
 from test_multidevice import _drifts, _rec_state, _world  # noqa: E402
 
@@ -224,13 +233,141 @@ def test_resident_state_bytes_per_device(n):
     got, one = meshed.resident_state_bytes(), single.resident_state_bytes()
     assert got["by_family"] == one["by_family"] and got["total"] == one["total"]
     assert got["device_count"] == n and one["device_count"] == 1
-    # The engine joins every shard's outputs on its own device, which so
-    # holds the whole set: per_device is summed from where tensors lie.
-    assert got["by_device"] == one["by_device"] == {"cpu": got["total"]}
-    assert got["prev_planes_by_device"] == {"cpu": got["by_family"]["prev_planes"]}
-    assert got["per_device"] == one["per_device"] == got["total"]
+    # Every family lies on the lanes, each lane holding its rows; the
+    # lanes share the CPU, so each books under "<device>/<lane>".
+    lanes = [f"cpu/{i}" for i in range(n)]
+    assert one["by_device"] == {"cpu": got["total"]}
+    assert sorted(got["by_device"]) == lanes and sum(got["by_device"].values()) == got["total"]
+    assert got["prev_planes_by_device"] == {
+        lane: got["by_family"]["prev_planes"] // n for lane in lanes
+    }
+    assert got["per_device"] == max(got["by_device"].values()) == got["total"] // n
+    assert one["per_device"] == got["total"]
     model = census.project(len(units), len(clusters), n)
-    assert model["layout"] == "joined" and model["per_device"] == model["total"]
+    vec = model["by_family"]["vectors"]
+    assert model["layout"] == "rows"
+    assert model["per_device"] == (model["total"] - vec) // n + vec < model["total"]
+
+
+def _entry_tensors(entry) -> dict:
+    """Every device tensor a cache entry holds, by name."""
+    found = {f"prev_out[{k}]": t for k, t in enumerate(entry.prev_out or ())}
+    found.update(prev_feas=entry.prev_feas, prev_reasons=entry.prev_reasons,
+                 prev_nfeas=entry.prev_nfeas, prev_sco_exact=entry.prev_sco_exact)
+    found.update({f"per_object.{k}": t for k, t in (entry.device_per_object or {}).items()})
+    return {k: t for k, t in found.items() if t is not None}
+
+
+def _assert_on_lanes(engine, n, label):
+    """Every cached tensor is a holder with one piece per lane, piece i
+    on lane i's device over rows ``row_bounds(B, n)[i]``."""
+    for idx, entry in engine._chunk_cache.items():
+        b_pad = entry.padded_shape[0]
+        for name, t in _entry_tensors(entry).items():
+            where = (label, idx, name)
+            assert isinstance(t, RowShards), where
+            assert t.bounds == row_bounds(b_pad, n) and len(t.pieces) == n, where
+            for i, (piece, (lo, hi)) in enumerate(zip(t.pieces, t.bounds)):
+                assert piece.shape[0] == hi - lo, where
+                assert piece.device == engine.mesh.devices[i, 0], where
+
+
+def _tensors(value) -> list:
+    if isinstance(value, dict):
+        value = tuple(value.values())
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _tensors(v)]
+    return [value] if isinstance(value, (torch.Tensor, RowShards)) else []
+
+
+def _checked_run_rows(monkeypatch):
+    """The engine's ``run_rows`` wrapped: no whole argument is a holder
+    or a [B, ...] plane (B the row count of any program output so far,
+    or a padded chunk row count the caller adds to the returned set; a
+    dict of vocabulary tables is not a plane), and every output stays
+    on the lanes (nothing joined on one device).  Returns (that set,
+    calls)."""
+    b_pads: set = set()
+    calls = {"run_rows": 0}
+    real = engine_mod.run_rows
+
+    def checked(mesh, fn, rows, whole=(), **kw):
+        calls["run_rows"] += 1
+        for t in _tensors(list(whole)):
+            assert not isinstance(t, RowShards)
+        for t in whole:
+            if isinstance(t, torch.Tensor) and t.dim() >= 2:
+                assert t.shape[0] not in b_pads, ("whole plane", tuple(t.shape))
+        out = real(mesh, fn, rows, whole, **kw)
+        assert all(isinstance(t, RowShards) for t in _tensors(out)), out
+        b_pads.update(len(t) for t in _tensors(out) if len(t) >= 32)
+        return out
+
+    monkeypatch.setattr(engine_mod, "run_rows", checked)
+    return b_pads, calls
+
+
+def _zero_chain(units, clusters):
+    churned = list(units)
+    churned[0] = dataclasses.replace(
+        churned[0], desired_replicas=(units[0].desired_replicas or 1) + 7
+    )
+    halved, squeezed, _ = _drifts(clusters)
+    return [
+        ("cold", units, clusters), ("churn", churned, clusters), ("noop", churned, clusters),
+        ("drift", churned, halved), ("drift-zero", churned, drift_zero(clusters)),
+        ("fitflip", churned, squeezed), ("back", churned, clusters),
+    ]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_state_stays_on_its_shards(n, monkeypatch):
+    """Through the chain, each lane's prev planes are the JAX meshed
+    engine's prev_planes family divided by N, every cached tensor lies
+    on its lanes, results and counters equal the unmeshed port and the
+    JAX mesh, no row-wise program's outputs are joined on the engine's
+    device, and no [B, ...] plane goes whole to every shard."""
+    units, clusters = _world()
+    meshed, single, ref = _port(n), _port(1), _jax(n)
+    b_pads, calls = _checked_run_rows(monkeypatch)
+    for label, batch, cl in _zero_chain(units, clusters):
+        got = meshed.schedule(batch, cl)
+        assert got == single.schedule(batch, cl), label
+        assert [r.clusters for r in got] == [r.clusters for r in ref.schedule(batch, cl)], label
+        for name in COUNTERS:
+            assert getattr(meshed, name) == getattr(single, name), (label, name)
+        for name in JAX_COUNTERS:
+            assert getattr(meshed, name) == getattr(ref, name), (label, name)
+        _assert_on_lanes(meshed, n, label)
+        b_pads |= {e.padded_shape[0] for e in meshed._chunk_cache.values()}
+        mine, theirs = meshed.resident_state_bytes(), ref.resident_state_bytes()
+        assert theirs["by_family"]["prev_planes"] == mine["by_family"]["prev_planes"], label
+        assert mine["prev_planes_by_device"] == {
+            f"cpu/{i}": theirs["by_family"]["prev_planes"] // n for i in range(n)
+        }, label
+        assert mine["by_family"] == single.resident_state_bytes()["by_family"], label
+    assert calls["run_rows"] > 0
+    assert meshed.drift_stats["unified"] + meshed.drift_stats["unified_fallback"] > 0
+    assert meshed.fetch_stats["subbatch"] >= 1 and meshed.fetch_stats["noop"] >= 1
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_optin_state_stays_on_its_shards(n, monkeypatch):
+    """The opt-in switches keep their state on the lanes too (the f16
+    plane and its exactness vector, the dense fetch's gathers, the
+    three-stream survivors), under the same run_rows checks."""
+    units, clusters = _world()
+    b_pads, calls = _checked_run_rows(monkeypatch)
+    for switches in ({"score_f16": True}, {"fetch_format": "dense"},
+                     {"survivor_unified": False}):
+        meshed, single = _port(n, **switches), _port(1, **switches)
+        for label, batch, cl in _zero_chain(units, clusters):
+            assert meshed.schedule(batch, cl) == single.schedule(batch, cl), (switches, label)
+            for name in COUNTERS:
+                assert getattr(meshed, name) == getattr(single, name), (switches, label, name)
+            _assert_on_lanes(meshed, n, (switches, label))
+            b_pads |= {e.padded_shape[0] for e in meshed._chunk_cache.values()}
+    assert calls["run_rows"] > 0
 
 
 def test_ledger_labels_mesh_lane():

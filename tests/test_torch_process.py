@@ -3,6 +3,9 @@
 * On the CPU (``--device cpu``) it serves ``/livez``, ``/readyz``,
   ``/metrics``, ``/debug`` and the dispatch-ledger routes, and a SIGTERM
   drains it: exit 0, leadership released (when elected), no write shed.
+  A SIGTERM during start-up drains too (the handler is in before
+  start-up), and shutdown joins the engine's prewarm thread, so no
+  daemon thread is inside a torch call when the interpreter exits.
 * Without CUDA and without ``--device cpu`` it exits nonzero at engine
   construction: the process never falls back to the CPU.
 * ``--transport http --device cpu --members 3`` serves the control plane
@@ -92,6 +95,51 @@ def test_cpu_process_serves_and_drains(leader_elect):
     assert proc.returncode == 0, text
     assert "shutdown: shed_writes=0 snapshot=None" in text
     assert ("leadership released" in text) == leader_elect
+
+
+@pytest.mark.parametrize("leader_elect", [False, True], ids=["no-leader-elect", "leader-elect"])
+def test_sigterm_during_startup_drains(leader_elect):
+    args = ["--device", "cpu", "--port", "0", "--members", "2", "--create-crds-for-ftcs"]
+    if not leader_elect:
+        args.append("--no-leader-elect")
+    proc = start(*args)
+    lines = []
+    try:
+        read_until(proc, r"health endpoints on :(\d+)", lines)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        lines.append(out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    assert proc.returncode == 0, text
+    assert "SIGTERM: draining for graceful failover" in text
+    assert "shutdown: shed_writes=0 snapshot=None" in text
+
+
+def test_shutdown_joins_the_prewarm(monkeypatch):
+    """A prewarm still running at shutdown (a slow warm dispatch) is
+    joined before shutdown returns."""
+    from kubeadmiral_tpu_torch.runtime.manager import ControllerManager
+    from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
+    from kubeadmiral_tpu_torch.testing.fakekube import ClusterFleet
+
+    engine = SchedulerEngine(device="cpu", flight_recorder=None, devprof=None)
+    real = engine._warm_dispatch
+
+    def slow(*args, **kwargs):
+        time.sleep(1.0)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "_warm_dispatch", slow)
+    manager = ControllerManager(ClusterFleet(), engine=engine)
+    manager.run()
+    assert manager._prewarm is not None and manager._prewarm.is_alive()
+    summary = manager.shutdown()
+    assert not manager._prewarm.is_alive()
+    assert summary["shed_writes"] == 0
 
 
 def test_default_device_without_cuda_exits_nonzero():

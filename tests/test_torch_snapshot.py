@@ -16,6 +16,10 @@ staged restore, beside the JAX engine.
   field (names, topology fingerprint, cluster view, rows, per chunk the
   row count, format, signatures, score flag, pack-K hints and the six
   planes with JAX's dtypes), ``config`` on every key, at depths 1 and 16.
+* ``test_meshed_snapshot_equals_unmeshed``: a meshed engine's payload
+  (its planes read lane by lane) equals the unmeshed engine's byte for
+  byte, ``config["mesh"]`` aside; it restores into a mesh of N, each
+  lane's rows uploaded to its lane, and its planes into no mesh.
 * ``TestJaxControlPlane``: the JAX package's ``SnapshotManager`` and
   ``ControllerManager(engine=)`` drive the port's engine through their
   duck-typed surface (``post_tick``, ``last_changed``, ``tick_seq``,
@@ -40,6 +44,7 @@ from test_restart import clusters_eq, small_world
 from test_torch_engine import _port
 
 from kubeadmiral_tpu.scheduler.engine import SchedulerEngine as JaxEngine
+from kubeadmiral_tpu_torch.parallel.mesh import RowShards, make_mesh, row_bounds
 from kubeadmiral_tpu_torch.runtime.metrics import Metrics
 from kubeadmiral_tpu_torch.runtime.snapshot import SnapshotManager, SnapshotStore
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
@@ -353,6 +358,62 @@ def test_f16_payload_equals_jax(monkeypatch):
             assert np.array_equal(g["sco_exact"], w["sco_exact"]), idx
             for key in ("sel", "rep", "cnt", "feas", "rsn"):
                 assert np.array_equal(g[key], w[key]), (idx, key)
+
+
+def assert_same_bytes(got, want):
+    """Two payloads equal key for key; every array by dtype and bytes."""
+    assert got.keys() == want.keys()
+    for key in got:
+        if key == "chunks":
+            assert got[key].keys() == want[key].keys()
+            for idx, w in want[key].items():
+                assert_same_bytes(got[key][idx], w)
+        elif isinstance(want[key], dict) and key == "view":
+            assert_same_bytes(got[key], want[key])
+        elif isinstance(want[key], np.ndarray):
+            assert got[key].dtype == want[key].dtype, key
+            assert got[key].shape == want[key].shape, key
+            assert got[key].tobytes() == want[key].tobytes(), key
+        else:
+            assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("f16", [False, True])
+def test_meshed_snapshot_equals_unmeshed(n, f16):
+    make, kw = WORLDS["narrow"]
+    units, clusters = make()
+    churned = list(units)
+    churned[5] = dataclasses.replace(churned[5], desired_replicas=61)
+    drifted = [halve_available(c) if j == 0 else c for j, c in enumerate(clusters)]
+    meshed = engine(mesh=make_mesh(["cpu"] * n), score_f16=f16, **kw)
+    single = engine(score_f16=f16, **kw)
+    for us, cs in ((units, clusters), (churned, clusters), (churned, drifted)):
+        assert clusters_eq(meshed.schedule(us, cs), single.schedule(us, cs))
+        got, want = meshed.snapshot_state(), single.snapshot_state()
+        assert got["config"] == dict(want["config"], mesh=(n, 1))
+        assert_same_bytes(dict(got, config=want["config"]), want)
+    payload = pickle.loads(pickle.dumps(got))
+    # Into a mesh of N: a fresh resume, nothing launched, each lane's
+    # rows on its lane.
+    dst = engine(mesh=make_mesh(["cpu"] * n), score_f16=f16, **kw)
+    dst.stage_restore(payload, assume_fresh=True)
+    before = dst.dispatches_total
+    assert clusters_eq(dst.schedule(churned, drifted), single.schedule(churned, drifted))
+    assert dst.restore_info["result"] == "loaded" and dst.restore_info["fresh"]
+    assert dst.dispatches_total == before
+    for entry in dst._chunk_cache.values():
+        for t in entry.prev_out + (entry.prev_feas, entry.prev_reasons, entry.prev_nfeas):
+            assert isinstance(t, RowShards) and t.bounds == row_bounds(entry.padded_shape[0], n)
+    assert_same_bytes(dict(dst.snapshot_state(), config=want["config"], tick=want["tick"]), want)
+    # Into no mesh: the same planes, under an unmeshed config.
+    flat = engine(score_f16=f16, **kw)
+    flat.stage_restore(dict(payload, config=dict(payload["config"], mesh=None)),
+                       assume_fresh=True)
+    before = flat.dispatches_total
+    assert clusters_eq(flat.schedule(churned, drifted), single.schedule(churned, drifted))
+    assert flat.restore_info["result"] == "loaded" and flat.dispatches_total == before
+    assert_same_bytes(dict(flat.snapshot_state(), tick=want["tick"]), want)
 
 
 @pytest.mark.parametrize("f16_side", ["giver", "taker"])
