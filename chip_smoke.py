@@ -155,8 +155,8 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    paths and bytes, ledger kinds, memory_allocated and its peak);
 10a''. the mesh phase (``mesh_phase``): c3 through MESH_TICKS (cold,
    no-op, 1 % churn, a drift and back, a fit-flip and back) on the
-   default engine, then on engines over meshes of MESH_SIZES (2, 4)
-   logical devices on cuda:0 (each lane keeping its rows of every
+   default engine, then on engines over meshes of MESH_C3_SIZES (2; 4
+   is cut for time) logical devices on cuda:0 (each lane keeping its rows of every
    chunk's resident state and solving them in place on a stream of its
    own), then the three-stream and f16 engines over a mesh of 2 through
    cold, churn, the drift and back and the fit-flip, then c5's width
@@ -168,12 +168,25 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    on the ``mesh<N>`` lane, every lane holds 1/N of the resident bytes
    and of the previous planes (``resident_state_bytes`` by lane: the
    default engine's total over N, the census model's per-device
-   planes); with several cards the c3 ticks also run on
-   ``mesh="auto"`` over them; the kernel on one lane's rows of a mesh
-   of 2 (``phase1 c3-mesh2-shard``, ``phase1 c5-mesh2-shard``);
-   ``mesh c3 <engine> <tick>`` and ``mesh c5 ...`` lines; then the
-   census phase (``census_phase``): ``validate`` at 8,192 x 256 on one
-   card and over 2 lanes, the c5 projection against the c5 cold tick's
+   planes); c5's width also over the MESH_GRIDS (1, 2) and (2, 2), c3
+   over (2, 2) (its (1, 2) cut for time): meshes of logical entries whose clusters axis splits every
+   [B, C] plane by columns (``GridShards``): results and counters equal
+   the default engine's, the split pair (``kt_phase1_partial`` and
+   ``kt_phase1_finish``) launches once a column block of every grid
+   tick call (Nc times the (No, 1) mesh's narrow launches), the unsplit
+   kernel once a whole-row call (the fallbacks, as on the (No, 1) mesh),
+   and every entry holds 1/(No * Nc) of the previous planes; with
+   several cards the c3 ticks also run on ``mesh="auto"`` over them,
+   and with four on a (2, 2) grid over four cards (each card's bytes
+   logged; fewer cards: a line says so); the kernel on one lane's rows
+   of a mesh of 2 (``phase1 c3-mesh2-shard``, ``phase1
+   c5-mesh2-shard``); the split pair on the first block of a (2, 2)
+   grid at c5's width (2,048 x 2,560 x 3) against its plain twins and
+   the kernel on the whole rows, timed with its bounds (``phase1 split
+   c5-grid2x2-block``); ``mesh c3 <engine> <tick>`` and ``mesh c5 ...``
+   lines, and the phase's wall (``mesh phase wall``); then the census
+   phase (``census_phase``): ``validate`` at 8,192 x 256 on one card,
+   over 2 lanes and over a (2, 2) grid, the c5 projection against the c5 cold tick's
    engine (``census_live``: previous planes to the byte, the vectors
    equal) and ``decide`` at c6 against 16 GiB and the card's memory in
    the port's layout, the JAX engine's rows (a ``shard`` verdict); a
@@ -257,7 +270,9 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    host object of the control world, native against pure Python in
    turns, equal; the control cold round's
    walls by controller kind beside REFERENCE_CONTROL_*; a ``native`` line;
-11. prints the kernels JSON line, then ``{"ok": true, "device": ...}`` as
+11. prints the kernels JSON line (``phase1``; then the split pair,
+   ``phase1_partial`` and ``phase1_finish``, their launches the grid
+   engines' of the mesh phase), then ``{"ok": true, "device": ...}`` as
    the last line.
 
 Any failed check exits nonzero without the final line, and every
@@ -698,6 +713,145 @@ def check_phase1(label: str, inp, timed: bool = False, plain: bool = True) -> di
     return row
 
 
+def split_blocks(inp, nc: int) -> list:
+    """Expanded TickInputs cut into ``nc`` column blocks of the cluster
+    axis (``parallel.mesh.col_bounds``): each [B, C] plane and cluster
+    table by its columns, contiguous, as a clusters-axis entry holds
+    them."""
+    from kubeadmiral_tpu_torch.parallel.mesh import _FIELD_SPECS, CLUSTERS, col_bounds
+
+    c = inp.api_ok.shape[1]
+    out = []
+    for c0, c1 in col_bounds(c, nc):
+        fields = {}
+        for name, v in inp._asdict().items():
+            spec = _FIELD_SPECS[name]
+            if CLUSTERS in spec:
+                v = v.narrow(spec.index(CLUSTERS), c0, c1 - c0).contiguous()
+            fields[name] = v
+        out.append(inp._replace(**fields))
+    return out
+
+
+def split_bounds(inp, feasible) -> dict:
+    """Least times for the split pair on a column block: the partial
+    reads what phase 1 reads and writes its three planes once, plus the
+    rows' maxima (i32[B, 2]); it does phase 1's operations but the
+    normalised terms (phase1_bound of the block with taint and affinity
+    scoring off) and the masked maxima (one operation a scored cell).
+    The finish reads the feasibility, the flags, the maxima and the two
+    score planes where a row scores them again, and reads and writes the
+    totals of the cells that normalise; its operations are the
+    normalised terms' (phase1_bound's, less the partial's).  The pair:
+    both byte counts, phase 1's operations."""
+    from kubeadmiral_tpu_torch.ops import scores as S
+
+    whole = phase1_bound(inp, feasible)
+    se = inp.score_enabled.clone()
+    se[:, [S.S_TAINT, S.S_AFFINITY]] = False
+    bare = phase1_bound(inp._replace(score_enabled=se), feasible)
+    b, c = feasible.shape
+    scored = whole["work"]["scored"]
+    norm_scored = scored[S.S_TAINT] + scored[S.S_AFFINITY]
+    normalising = int((feasible & (inp.score_enabled[:, S.S_TAINT]
+                                   | inp.score_enabled[:, S.S_AFFINITY])[:, None]).sum())
+    score_bytes = inp.taint_counts.element_size()
+
+    def bound(nbytes, int_ops, conv_ops) -> dict:
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = max(int_ops / INT32_OPS_PER_S * 1e3, conv_ops / CONV_OPS_PER_S * 1e3)
+        return {
+            "bytes": int(nbytes), "ops": int(int_ops), "conv_ops": int(conv_ops),
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "derivation": (f"max({nbytes} B / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.6f} ms, "
+                           f"{int_ops} int32 instructions, {conv_ops} conversions = "
+                           f"{ops_ms:.6f} ms)"),
+        }
+
+    partial_bytes = whole["bytes"] + 8 * b
+    finish_bytes = b * c + 5 * b + 8 * b + score_bytes * norm_scored + 16 * normalising
+    partial = bound(partial_bytes, bare["ops"] + norm_scored, bare["conv_ops"])
+    finish = bound(finish_bytes, whole["ops"] - bare["ops"], whole["conv_ops"] - bare["conv_ops"])
+    pair = bound(partial_bytes + finish_bytes, whole["ops"] + norm_scored, whole["conv_ops"])
+    return {"partial": partial, "finish": finish, "pair": pair}
+
+
+def check_split(label: str, inp, nc: int, timed: bool = False) -> dict:
+    """Hold the split pair (``kt_phase1_partial`` and
+    ``kt_phase1_finish``) against its plain twins on every column block
+    of ``inp`` over ``nc`` blocks, and the blocks joined against
+    ``kt_phase1`` on the whole rows (tolerance 0).  With ``timed``, time
+    the pair and its twins on the first block (the finish given the
+    rows' maxima over every block) and work out their bounds.  Split
+    launches made here are taken off the counters again: they are not
+    the main path's."""
+    import torch
+
+    from kubeadmiral_tpu_torch.ops import phase1 as P
+
+    counts = (P.phase1.launches, P.phase1_partial.launches, P.phase1_finish.launches)
+    blocks = split_blocks(inp, nc)
+    err = 0
+
+    def diff(a, b) -> int:
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+    parts = [P.phase1_partial(blk) for blk in blocks]
+    plains = [P.phase1_partial_plain(blk) for blk in blocks]
+    for got, want in zip(parts, plains):
+        err = max(err, *(diff(g, w) for g, w in zip(got, want)))
+    maxima = torch.stack([p[3] for p in parts]).amax(dim=0)
+    totals = [
+        P.phase1_finish(p[0], blk.score_enabled, blk.taint_counts, blk.affinity_scores,
+                        maxima, p[2].clone())
+        for p, blk in zip(parts, blocks)
+    ]
+    plain_totals = [
+        P.phase1_finish_plain(w[0], blk.score_enabled, blk.taint_counts, blk.affinity_scores,
+                              maxima, w[2])
+        for w, blk in zip(plains, blocks)
+    ]
+    for g, w in zip(totals, plain_totals):
+        err = max(err, diff(g, w))
+    whole = P.phase1(inp)
+    joined = (torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
+              torch.cat(totals, 1))
+    err = max(err, *(diff(g, w) for g, w in zip(joined, whole)))
+    torch.cuda.synchronize()
+    b, c = blocks[0].api_ok.shape
+    row = {"case": label, "shape": [b, c, int(inp.request.shape[1])], "blocks": nc,
+           "whole_shape": list(inp.api_ok.shape), "max_abs_err": err}
+    if err != 0:
+        raise AssertionError(f"{label}: the split pair differs (max abs err {err})")
+    if timed:
+        blk, part = blocks[0], parts[0]
+        tot = part[2].clone()
+        row["partial_ms"] = timed_ms(lambda: P.phase1_partial(blk))
+        row["finish_ms"] = timed_ms(lambda: P.phase1_finish(
+            part[0], blk.score_enabled, blk.taint_counts, blk.affinity_scores, maxima, tot))
+
+        def pair():
+            q = P.phase1_partial(blk)
+            P.phase1_finish(q[0], blk.score_enabled, blk.taint_counts, blk.affinity_scores,
+                            maxima, q[2])
+
+        row["ms"] = timed_ms(pair)
+        row["plain_partial_ms"] = timed_ms(lambda: P.phase1_partial_plain(blk), runs=3)
+        row["plain_finish_ms"] = timed_ms(lambda: P.phase1_finish_plain(
+            part[0], blk.score_enabled, blk.taint_counts, blk.affinity_scores, maxima, part[2]),
+            runs=3)
+        row["plain_ms"] = row["plain_partial_ms"] + row["plain_finish_ms"]
+        row["bounds"] = split_bounds(blk, part[0])
+        row["bound_ms"] = row["bounds"]["pair"]["bound_ms"]
+        row["bound_by"] = row["bounds"]["pair"]["bound_by"]
+    P.phase1.launches, P.phase1_partial.launches, P.phase1_finish.launches = counts
+    log(f"phase1 split {label}: {json.dumps(row)}")
+    return row
+
+
 # Where the kernel's time goes, without ncu: the same chunk with the
 # row flags switched off (per row, so a disabled filter or plugin reads
 # no plane and does no work).  Feasibility follows the flags, so each
@@ -790,7 +944,7 @@ def counted_tick(engine, units, clusters, capture: bool = False, call=None,
     captured host inputs or None)."""
     import torch
 
-    from kubeadmiral_tpu_torch.ops.phase1 import phase1
+    from kubeadmiral_tpu_torch.ops.phase1 import phase1, phase1_finish, phase1_partial
     from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
     from kubeadmiral_tpu_torch.testing.syncs import counted_dispatch_syncs
 
@@ -820,12 +974,13 @@ def counted_tick(engine, units, clusters, capture: bool = False, call=None,
     try:
         with recorded_dispatches(keep=captured if capture else None) as calls, \
                 counted_dispatch_syncs(engine) as syncs, gc_time() as collector:
-            phase1.launches = 0
+            phase1.launches = phase1_partial.launches = phase1_finish.launches = 0
             t0 = time.perf_counter()
             results = call() if call is not None else engine.schedule(units, clusters, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = phase1.launches
+            split = (phase1_partial.launches, phase1_finish.launches)
     finally:
         del engine._drain_window
     narrow0, cache0, fetch0, upload0, over0, bytes0, gate0, surv0, reruns0 = before
@@ -835,14 +990,21 @@ def counted_tick(engine, units, clusters, capture: bool = False, call=None,
         return {k: v - then[k] for k, v in now.items() if v - then[k]}
 
     narrow = [c for c in calls if c[0] == "narrow"]
+    grid = [c for c in calls if c[0] == "grid"]
     tick = {
         "objects": len(results),
         "clusters": len(clusters),
         "tick_ms": wall * 1e3,
         "objects_per_s": len(results) / wall,
+        # phase1.launches counts the split pair's partials too (one a
+        # column block): the unsplit kernel's are the difference.
         "phase1_launches": launches,
+        "split_launches": split[0],
+        "finish_launches": split[1],
         "narrow_dispatches": len(narrow),
-        "dense_dispatches": len(calls) - len(narrow),
+        "grid_dispatches": len(grid),
+        "grid_rows": [c[1] for c in grid],
+        "dense_dispatches": len(calls) - len(narrow) - len(grid),
         "dispatch_shapes": sorted({tuple(c) for c in calls}),
         "narrow_stats": {k: v - narrow0[k] for k, v in engine.narrow_stats.items()},
         "cache": delta(engine.cache_stats, cache0),
@@ -2054,9 +2216,17 @@ def optin_phase(cfg: str, units, clusters) -> dict:
         gc.unfreeze()
 
 
-# The mesh phase: c3 over meshes of 2 and 4 logical devices on one card,
-# then c5's width over its first C5_OPTIN_OBJECTS objects.
+# The mesh phase: c3 over a mesh of 2 logical devices on one card, then
+# c5's width over its first C5_OPTIN_OBJECTS objects over 2 and 4; each
+# also over (objects, clusters) grids, whose clusters axis splits every
+# [B, C] plane by columns.
 MESH_SIZES = (2, 4)
+MESH_GRIDS = ((1, 2), (2, 2))
+# c3 runs a subset (two cuts, taken when the script passed 1,100 s of
+# its 1,200 s limit: c3's objects-only run at N = 4 and its (1, 2) grid;
+# c5's width keeps both).
+MESH_C3_SIZES = (2,)
+MESH_C3_GRIDS = ((2, 2),)
 MESH_TICKS = ("cold", "noop", "churn", "drift", "back", "fitflip", "back from fitflip")
 # Opt-in engines under a mesh of 2, through the drift ticks (after the
 # cold and churn ticks that fill their caches).
@@ -2066,29 +2236,40 @@ MESH_C5_TICKS = ("cold", "churn", "noop", "drift", "back")
 
 
 def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
-    """The objects-axis mesh on the card, each lane (objects shard)
-    keeping its rows of every chunk's resident state on its own device.
-    The c3 world through MESH_TICKS on the default engine, then on
-    engines over meshes of MESH_SIZES logical devices on cuda:0 (each
-    lane solving its rows in place on a stream of its own), then the
-    MESH_OPTIN engines over a mesh of 2 through MESH_OPTIN_TICKS; then
-    c5's width (its first C5_OPTIN_OBJECTS objects, 5,000 clusters)
-    through MESH_C5_TICKS on the default engine and over meshes of
-    MESH_SIZES.  Every tick's results equal the default engine's, and a
-    meshed default engine's cache, fetch, drift, survivor and narrow
-    counters too; the no-op tick launches nothing; every tick program
-    call launches the kernel once (launches = recorded narrow + dense
-    calls) and the cold tick calls it N times a chunk; a meshed tick's
-    ledger records lie on the ``mesh<N>`` lane only; every lane holds
-    1/N of the engine's resident bytes and of its previous planes
-    (``resident_state_bytes`` by lane), the default engine's total
-    divided by N (an opt-in engine's own), and the census model's
-    per-device previous planes.  Then the kernel against its plain
-    version on the first lane's rows of the first chunk of a mesh of 2,
-    at c3 and at c5's width (2,048 x 5,120 x 3).  Where the machine has
-    several cards the c3 ticks also run on ``mesh="auto"`` over them.
-    Each tick logs its wall ms, launches, ledger lanes, resident bytes
-    by lane and memory peak."""
+    """The mesh on the card: the objects axis, each lane (objects shard)
+    keeping its rows of every chunk's resident state on its own device,
+    and the clusters axis, each entry (i, j) keeping its column block of
+    every [B, C] plane.  The c3 world through MESH_TICKS on the default
+    engine, then on engines over meshes of MESH_C3_SIZES logical devices
+    on cuda:0 (each lane solving its rows in place on a stream of its
+    own), then the MESH_OPTIN engines over a mesh of 2 through
+    MESH_OPTIN_TICKS, then over the MESH_C3_GRIDS (objects, clusters)
+    shapes of logical entries; then c5's width (its first
+    C5_OPTIN_OBJECTS objects, 5,000 clusters) through MESH_C5_TICKS on
+    the default engine and over meshes of MESH_SIZES and MESH_GRIDS.
+    Every tick's results equal the default engine's, and a meshed
+    default engine's cache, fetch, drift, survivor and narrow counters
+    too; the no-op tick launches nothing; on the objects axis every tick
+    program call launches the kernel once (launches = recorded narrow +
+    dense calls) and the cold tick calls it N times a chunk; on a grid
+    the unsplit kernel launches once a whole-row call (the fallbacks,
+    as many as the (No, 1) mesh's) and the split pair once a block of
+    every grid call (Nc times the (No, 1) mesh's narrow launches); a
+    meshed tick's ledger records lie on the ``mesh<N>`` lane only; every
+    lane of the objects axis holds 1/N of the engine's resident bytes and
+    of its previous planes (``resident_state_bytes`` by lane), the
+    default engine's total divided by N (an opt-in engine's own), and
+    the census model's per-device previous planes; every grid entry
+    holds 1/(No * Nc) of the previous planes and a copy of its row's
+    per-row inputs.  Then the kernel against
+    its plain version on the first lane's rows of the first chunk of a
+    mesh of 2, at c3 and at c5's width (2,048 x 5,120 x 3), and the split
+    pair on the first block of a (2, 2) grid at c5's width (2,048 x
+    2,560 x 3) against its plain twins and the kernel on the whole rows.
+    Where the machine has several cards the c3 ticks also run on
+    ``mesh="auto"`` over them, and with four a (2, 2) grid over four
+    cards.  Each tick logs its wall ms, launches, ledger lanes, resident
+    bytes by lane and memory peak; the phase logs its wall."""
     import torch
 
     from kubeadmiral_tpu_torch.parallel.mesh import make_mesh, row_bounds
@@ -2096,6 +2277,8 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
     from kubeadmiral_tpu_torch.runtime.devprof import DispatchLedger
     from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine
     from kubeadmiral_tpu_torch.testing.worlds import churn, drift, drift_fitflip
+
+    t_phase = time.perf_counter()
 
     def worlds_of(units, clusters, labels):
         churned = churn(np.random.default_rng(0), units)
@@ -2112,13 +2295,16 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
     same = ("cache", "fetch_paths", "drift_stats", "survivor_stats", "narrow_stats",
             "changed_rows")
 
-    def run(worlds, n, labels, switches, mesh="given"):
+    def run(worlds, shape, labels, switches, mesh="given"):
         ledger = DispatchLedger()
         if mesh == "given":
-            mesh = None if n == 1 else make_mesh([torch.device("cuda", 0)] * n)
-            engine = SchedulerEngine(flight_recorder=None, devprof=ledger, mesh=mesh, **switches)
-        else:
+            no, nc = shape
+            mesh = None if no * nc == 1 else make_mesh(
+                [torch.device("cuda", 0)] * (no * nc), objects_axis=no)
+        if mesh == "auto":
             engine = SchedulerEngine(flight_recorder=None, devprof=ledger, **switches)
+        else:
+            engine = SchedulerEngine(flight_recorder=None, devprof=ledger, mesh=mesh, **switches)
         out = {}
         for label in labels:
             got, tick, _ = counted_tick(engine, *worlds[label])
@@ -2130,7 +2316,8 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
                 k: resident[k] for k in ("total", "per_device", "device_count", "by_device",
                                          "prev_planes_by_device")
             }
-            tick["resident"]["prev_planes"] = resident["by_family"]["prev_planes"]
+            for family in ("prev_planes", "per_object", "vectors"):
+                tick["resident"][family] = resident["by_family"][family]
             out[label] = (got, tick)
         out["_geometry"] = engine._tick_geometry(len(worlds["cold"][1]))
         out["_mesh"] = None if engine.mesh is None else engine.mesh.shape
@@ -2138,28 +2325,73 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
         torch.cuda.empty_cache()
         return out
 
-    def check(where, name, n, label, got, tick, want, base, switches, world):
+    def check(where, name, shape, label, got, tick, want, base, switches, world, rows_ref):
+        no, nc = shape
+        n = no * nc
         assert_results_equal(f"{where} {name} {label} vs default", got, want)
         # An opt-in engine takes its own paths: its results only.
         for key in () if switches else same:
             if tick[key] != base[key]:
                 raise AssertionError(f"{where} {name} {label}: {key} {tick[key]} != {base[key]}")
-        calls = tick["narrow_dispatches"] + tick["dense_dispatches"]
-        if tick["phase1_launches"] != calls:
-            raise AssertionError(f"{where} {name} {label}: {tick['phase1_launches']} launches "
-                                 f"for {calls} tick program calls")
+        unsplit = tick["phase1_launches"] - tick["split_launches"]
+        if nc == 1:
+            calls = tick["narrow_dispatches"] + tick["dense_dispatches"]
+            if tick["phase1_launches"] != calls or tick["split_launches"]:
+                raise AssertionError(f"{where} {name} {label}: {tick['phase1_launches']} "
+                                     f"launches for {calls} tick program calls")
+        else:
+            # The split pair once a block of every grid call's lanes with
+            # rows; the unsplit kernel once a whole-row call (kind 4).
+            blocks = nc * sum(
+                sum(1 for lo, hi in row_bounds(rows, no) if hi > lo) or 1
+                for rows in tick["grid_rows"]
+            )
+            ref = rows_ref[label]
+            if (
+                tick["split_launches"] != blocks or tick["finish_launches"] != blocks
+                or unsplit != tick["dense_dispatches"] or tick["narrow_dispatches"]
+                or tick["grid_dispatches"] != base["narrow_dispatches"]
+                or tick["split_launches"] != nc * ref["narrow_dispatches"]
+                or unsplit != ref["phase1_launches"] - ref["narrow_dispatches"]
+            ):
+                raise AssertionError(
+                    f"{where} {name} {label}: split {tick['split_launches']} / finish "
+                    f"{tick['finish_launches']} for {blocks} blocks, unsplit {unsplit} for "
+                    f"{tick['dense_dispatches']} whole-row calls; the ({no}, 1) mesh's "
+                    f"narrow {ref['narrow_dispatches']} of {ref['phase1_launches']}")
         if label == "noop" and tick["phase1_launches"]:
             raise AssertionError(f"{where} {name} noop launched: {tick}")
         lanes = set(tick["ledger_lanes"])
         if tick["ledger_lanes"] and lanes != {f"mesh{n}"}:
             raise AssertionError(f"{where} {name} {label}: ledger lanes {lanes}")
+        r, r0 = tick["resident"], base["resident"]
+        total = r["total"] if switches else r0["total"]
+        if nc > 1:
+            # Every entry holds 1/(No * Nc) of the previous planes and a
+            # copy of its row's per-row inputs (1/No); entry (i, 0) also
+            # its row's [B] vectors.
+            share = r0["prev_planes"] // n
+            want = {
+                f"cuda:0/{i}.{j}": share + r["per_object"] // no
+                + (r["vectors"] // no if j == 0 else 0)
+                for i in range(no) for j in range(nc)
+            }
+            if (
+                r["total"] != r0["total"] or r["prev_planes"] != r0["prev_planes"]
+                or r["by_device"] != want or r["device_count"] != no
+                or set(r["prev_planes_by_device"].values()) != {share}
+                or len(r["prev_planes_by_device"]) != n
+                or sum(r["by_device"].values()) != total + (nc - 1) * r["per_object"]
+                or r["per_device"] != max(r["by_device"].values())
+            ):
+                raise AssertionError(f"{where} {name} {label}: resident {r} against {r0}, "
+                                     f"{share} B of previous planes an entry, want {want}")
+            return
         # Every lane holds 1/N of the state: of the default engine's
         # total (an opt-in engine holds other planes: its own), and the
         # model's previous planes per device.
-        r, r0 = tick["resident"], base["resident"]
         model = census.project(len(world[0]), len(world[1]), n,
                                score_f16=bool(switches.get("score_f16")))
-        total = r["total"] if switches else r0["total"]
         if (
             r["total"] != total or r["device_count"] != n
             or len(r["by_device"]) != n
@@ -2171,55 +2403,65 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
             raise AssertionError(f"{where} {name} {label}: resident {r} against {r0}, "
                                  f"model {model['prev_planes_per_device']} a lane")
 
-    keys = ("tick_ms", "phase1_launches", "narrow_dispatches", "dense_dispatches",
-            "fetch_paths", "drift_stats", "survivor_stats", "dispatch_syncs",
-            "ledger_lanes", "resident", "memory_allocated", "max_memory_allocated",
-            "stage_s", "gc_ms")
+    keys = ("tick_ms", "phase1_launches", "split_launches", "finish_launches",
+            "narrow_dispatches",
+            "grid_dispatches", "dense_dispatches", "fetch_paths", "drift_stats",
+            "survivor_stats", "dispatch_syncs", "ledger_lanes", "resident",
+            "memory_allocated", "max_memory_allocated", "stage_s", "gc_ms")
 
     def world_runs(where, worlds, labels, runs) -> dict:
-        base = run(worlds, 1, labels, {})
+        base = run(worlds, (1, 1), labels, {})
         base.pop("_geometry")
         base.pop("_mesh")
         want = {label: got for label, (got, _t) in base.items()}
         base_ticks = {label: tick for label, (_g, tick) in base.items()}
         del base
         out = {"default": {}}
+        by_shape = {(1, 1): base_ticks}
         for label, tick in base_ticks.items():
             out["default"][label] = {k: tick[k] for k in keys}
             log(f"{where} default {label}: {json.dumps(out['default'][label])}")
         chunks = base_ticks["cold"]["narrow_dispatches"]
-        for name, n, labels, switches in runs:
+        for name, shape, labels, switches in runs:
             t0 = time.perf_counter()
-            ticks = run(worlds, n, labels, switches)
-            geometry, shape = ticks.pop("_geometry"), ticks.pop("_mesh")
+            ticks = run(worlds, shape, labels, switches)
+            geometry, mesh_shape = ticks.pop("_geometry"), ticks.pop("_mesh")
             out[name] = {}
+            rows_ref = by_shape.get((shape[0], 1), {})
             for label, (got, tick) in ticks.items():
-                check(where, name, n, label, got, tick, want[label], base_ticks[label],
-                      switches, worlds[label])
+                check(where, name, shape, label, got, tick, want[label], base_ticks[label],
+                      switches, worlds[label], rows_ref)
                 out[name][label] = {k: tick[k] for k in keys}
                 out[name][label]["launches_over_default"] = [
                     tick["phase1_launches"], base_ticks[label]["phase1_launches"]]
                 log(f"{where} {name} {label}: {json.dumps(out[name][label])}")
+            if not switches:
+                by_shape[shape] = {label: tick for label, (_g, tick) in ticks.items()}
             cold = ticks["cold"][1]
-            if cold["narrow_dispatches"] != n * chunks:
+            n = shape[0] * shape[1]
+            if shape[1] == 1 and cold["narrow_dispatches"] != n * chunks:
                 raise AssertionError(f"{where} {name} cold: {cold['narrow_dispatches']} narrow "
                                      f"calls for {chunks} chunks over {n} shards")
-            log(f"{where} {name}: {time.perf_counter() - t0:.2f} s, mesh {shape}, "
+            log(f"{where} {name}: {time.perf_counter() - t0:.2f} s, mesh {mesh_shape}, "
                 f"geometry {geometry}")
         return out, want
+
+    def grid_runs(grids, ticks):
+        return [(f"grid{no}x{nc}", (no, nc), ticks, {}) for no, nc in grids]
 
     out = {}
     gc.freeze()
     try:
         c3 = worlds_of(units, clusters, MESH_TICKS)
-        runs = [(f"mesh{n}", n, MESH_TICKS, {}) for n in MESH_SIZES]
-        runs += [(f"mesh2 {name}", 2, MESH_OPTIN_TICKS, sw) for name, sw in MESH_OPTIN]
+        runs = [(f"mesh{n}", (n, 1), MESH_TICKS, {}) for n in MESH_C3_SIZES]
+        runs += [(f"mesh2 {name}", (2, 1), MESH_OPTIN_TICKS, sw) for name, sw in MESH_OPTIN]
+        runs += grid_runs(MESH_C3_GRIDS, MESH_TICKS)
         out["c3"], want_c3 = world_runs("mesh c3", c3, MESH_TICKS, runs)
         # Every card of the machine, as the engine's default mesh.
         cards = torch.cuda.device_count()
         if cards > 1:
             t0 = time.perf_counter()
-            ticks = run(c3, cards, MESH_TICKS, {}, mesh="auto")
+            ticks = run(c3, None, MESH_TICKS, {}, mesh="auto")
             geometry, shape = ticks.pop("_geometry"), ticks.pop("_mesh")
             out["auto"] = {}
             for label, (got, tick) in ticks.items():
@@ -2230,17 +2472,40 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
                 f"{time.perf_counter() - t0:.2f} s, geometry {geometry}")
         else:
             log("mesh c3 auto: 1 card: mesh='auto' resolves to no mesh (the default engine)")
+        if cards >= 4:
+            # A (2, 2) grid over four cards: each entry's blocks on its card.
+            t0 = time.perf_counter()
+            four = make_mesh([torch.device("cuda", i) for i in range(4)], objects_axis=2)
+            ticks = run(c3, None, MESH_TICKS, {}, mesh=four)
+            ticks.pop("_geometry"), ticks.pop("_mesh")
+            out["grid cards"] = {}
+            for label, (got, tick) in ticks.items():
+                assert_results_equal(f"mesh c3 grid cards {label} vs default", got,
+                                     want_c3[label])
+                r = tick["resident"]
+                if sorted(r["by_device"]) != [f"cuda:{i}" for i in range(4)] or len(
+                        set(r["prev_planes_by_device"].values())) != 1:
+                    raise AssertionError(f"mesh c3 grid cards {label}: bytes by card {r}")
+                out["grid cards"][label] = {k: tick[k] for k in keys}
+                log(f"mesh c3 grid cards {label}: bytes by card {json.dumps(r['by_device'])}, "
+                    f"{json.dumps(out['grid cards'][label])}")
+            log(f"mesh c3 grid cards: (2, 2) over 4 cards, {time.perf_counter() - t0:.2f} s")
+        else:
+            log(f"mesh c3 grid cards: {cards} card(s): the (2, 2) grid over four cards "
+                "needs four; its entries ran as logical entries on cuda:0 above")
         out["cards"] = cards
         del want_c3, c3
         c5_units = c5_units[:C5_OPTIN_OBJECTS]
         c5 = worlds_of(c5_units, c5_clusters, MESH_C5_TICKS)
-        runs = [(f"mesh{n}", n, MESH_C5_TICKS, {}) for n in MESH_SIZES]
+        runs = [(f"mesh{n}", (n, 1), MESH_C5_TICKS, {}) for n in MESH_SIZES]
+        runs += grid_runs(MESH_GRIDS, MESH_C5_TICKS)
         out["c5"], want_c5 = world_runs("mesh c5", c5, MESH_C5_TICKS, runs)
         del want_c5, c5
     finally:
         gc.unfreeze()
     # The kernel on one lane's rows: the first half of the first chunk
-    # (the chunk's inputs built whole on one card).
+    # (the chunk's inputs built whole on one card); the split pair on
+    # the first block of those rows at c5's width.
     gpu = SchedulerEngine(mesh=None)
     for where, (us, cl) in (("c3", (units, clusters)), ("c5", (c5_units, c5_clusters))):
         inp, _, _ = chunk_tick_inputs(gpu, us, cl)
@@ -2250,9 +2515,13 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
             **{k: v[lo:hi] for k, v in inp._asdict().items() if v.shape[:1] == (b,)}
         )
         out[f"kernel_{where}"] = check_phase1(f"{where}-mesh2-shard", shard, timed=True)
+        if where == "c5":
+            out["split_c5"] = check_split("c5-grid2x2-block", shard, 2, timed=True)
         del inp, shard
     del gpu
     torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase wall: {out['wall_s']:.2f} s")
     return out
 
 
@@ -2284,7 +2553,9 @@ def census_live(engine, units, clusters) -> dict:
 
 def census_phase(c5: dict) -> dict:
     """The memory census on the card: ``validate`` at 8,192 x 256 on one
-    card and over a mesh of 2 lanes on it (the live engine's previous
+    card, over a mesh of 2 lanes on it and over a (2, 2) grid of logical
+    entries (each entry's previous planes and bytes against the model's
+    share of its lane, divided over the clusters axis; the live engine's previous
     planes against the model, within the JAX module's 15 %, in all and
     on every lane, and every lane's bytes against the model's per-device
     share), the c5 check made after the c5 cold tick, and ``decide`` at
@@ -2300,6 +2571,8 @@ def census_phase(c5: dict) -> dict:
     checks = {
         "one card": census.validate(8192, 256),
         "mesh2": census.validate(8192, 256, mesh=make_mesh([torch.device("cuda", 0)] * 2)),
+        "grid2x2": census.validate(
+            8192, 256, mesh=make_mesh([torch.device("cuda", 0)] * 4, objects_axis=2)),
     }
     for key, v in checks.items():
         if not v["ok"]:
@@ -3498,6 +3771,46 @@ def main() -> int:
     log(f"phase extension: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
+    split = mesh["split_c5"]
+    # The split pair's launches on the grid engines' ticks of the mesh
+    # phase (each tick counted from 0), by world, engine and tick.
+    split_ticks = {
+        part: {
+            f"{where} {name} {label}": t[f"{part}_launches"]
+            for where in ("c3", "c5")
+            for name, by_label in mesh[where].items() if name.startswith("grid")
+            for label, t in by_label.items()
+        }
+        for part in ("split", "finish")
+    }
+    if not sum(split_ticks["split"].values()) or not sum(split_ticks["finish"].values()):
+        raise AssertionError(f"the grid engines launched no split pair: {split_ticks}")
+
+    def split_entry(name: str, part: str, ms: float, plain_ms: float) -> dict:
+        counted = split_ticks["split" if part == "partial" else "finish"]
+        bound = split["bounds"][part]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "kubeadmiral_tpu_torch/csrc/phase1.cu",
+            "replaces": "kubeadmiral_tpu/ops/pallas_slab.py:64",
+            "match": True,
+            "launches": sum(counted.values()),
+            "max_abs_err": split["max_abs_err"],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "library_ms": None,
+            "shape": split["shape"],
+            "bound_bytes": bound["bytes"],
+            "launches_by_tick": counted,
+            "pair_ms": split["ms"],
+            "pair_plain_ms": split["plain_ms"],
+            "pair_bound_ms": split["bounds"]["pair"]["bound_ms"],
+            "card": card,
+        }
+
     kernels = {
         "kernels": [
             {
@@ -3736,8 +4049,15 @@ def main() -> int:
                            "turns_ms": native_row["turns_ms"]},
                 "extension_posts": extension["posts"],
                 "process_http_replicas": process_http["replicas"],
+                "mesh_wall_s": mesh["wall_s"],
                 "card": card,
-            }
+            },
+            # The split pair on the mesh's clusters axis: timed on the
+            # first block of a (2, 2) grid at c5's width.
+            split_entry("phase1_partial", "partial", split["partial_ms"],
+                        split["plain_partial_ms"]),
+            split_entry("phase1_finish", "finish", split["finish_ms"],
+                        split["plain_finish_ms"]),
         ]
     }
     log(f"phase total: {time.perf_counter() - t_all:.2f} s")

@@ -58,6 +58,17 @@
 //   where quads are single accesses (c3, c5) and 16 bytes where they load
 //   cell by cell; the two-row kernels 150 registers, no spills.
 //
+// The split pair, for a column block of the mesh's clusters axis, where
+// a row's two normalisation maxima span every block: kt_phase1_partial
+// runs pass 1 alone (phase1_kernel<1, false, kVec, true>: one row a
+// block, the partial totals stored as pass 1 stores them past the
+// shared-memory widths) and writes each row's two masked maxima over the
+// block instead of pass 2; once the maxima are combined over the row's
+// blocks, kt_phase1_finish (finish_kernel, one thread a cell) reads the
+// feasibility and the two score planes again and adds the normalised
+// terms to the totals in place.  Simple and correct first: PERF.md has
+// the pair's times beside its bounds.
+//
 // Division.  Every kept quotient is floor(num / den) with den clamped to
 // [1, ...): num an int64 that may have wrapped (x100 products), den a
 // column's capacity (MostAllocated, LeastAllocated), a column's shifted-
@@ -378,6 +389,7 @@ struct Planes {
   uint8_t* feasible;              // [B, C]
   int32_t* reasons;
   int64_t* totals;
+  int32_t* maxima;                // [B, 2] (kSplit only)
 };
 
 // The column planes: alloc and used [C, R] resource-major, then what the
@@ -455,10 +467,15 @@ constexpr uint32_t kRowNorm = kRowTaint | kRowAffinity;
 
 // kRows rows per block; kShared: keep pass 2's state in shared memory
 // (else in the totals output, with the score planes read again); kVec:
-// every quad is one aligned access (C % 4 == 0, 16-byte aligned planes).
-template <int kRows, bool kShared, bool kVec>
+// every quad is one aligned access (C % 4 == 0, 16-byte aligned planes);
+// kSplit: pass 1 only, on a column block (kt_phase1_partial), the
+// normalised terms left out of the totals and each row's two masked
+// maxima over the block written to `maxima` instead (0 where the row
+// does not normalise that plugin).
+template <int kRows, bool kShared, bool kVec, bool kSplit = false>
 __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
     phase1_kernel(const Planes p, int B, int C, int R) {
+  static_assert(!(kSplit && kShared), "a split block keeps its partial totals in the output");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t s_flags[kRows];
   __shared__ int32_t red[kMaxWarps][2 * kRows];
@@ -709,7 +726,13 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
       }
     }
   }
-  if (!(any & kRowNorm)) return;  // block-uniform
+  if (!(any & kRowNorm)) {  // block-uniform
+    if (kSplit && threadIdx.x < kRows && row0 + threadIdx.x < B) {
+      p.maxima[2 * (size_t)(row0 + threadIdx.x)] = 0;
+      p.maxima[2 * (size_t)(row0 + threadIdx.x) + 1] = 0;
+    }
+    return;
+  }
 
   // The rows' maxima over their C >= 1 masked values.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = (blockDim.x + 31) / 32;
@@ -729,6 +752,18 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
     row_max[threadIdx.x] = m;
   }
   __syncthreads();
+  if (kSplit) {
+    // The block's maxima; kt_phase1_finish adds the normalised terms once
+    // the row's maxima over every block are known.
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (threadIdx.x != i || row0 + i >= B) continue;
+      const size_t row = row0 + i;
+      p.maxima[2 * row] = (rf[i] & kRowTaint) ? row_max[i] : 0;
+      p.maxima[2 * row + 1] = (rf[i] & kRowAffinity) ? row_max[kRows + i] : 0;
+    }
+    return;
+  }
 
   // Pass 2: the normalised terms, on rows that normalise.
   int32_t t_max[kRows], a_max[kRows];
@@ -812,10 +847,10 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
   }
 }
 
-template <int kRows, bool kShared, bool kVec>
+template <int kRows, bool kShared, bool kVec, bool kSplit = false>
 cudaError_t launch(const Planes& p, int B, int C, int R, size_t smem, int threads,
                    cudaStream_t stream) {
-  auto kernel = phase1_kernel<kRows, kShared, kVec>;
+  auto kernel = phase1_kernel<kRows, kShared, kVec, kSplit>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -840,21 +875,60 @@ cudaError_t launch(const Planes& p, int B, int C, int R, size_t smem, int thread
 
 bool aligned16(const void* x) { return (reinterpret_cast<uintptr_t>(x) & 15) == 0; }
 
-}  // namespace
+__global__ void fill_kernel(int32_t* __restrict__ p, int n, int32_t v) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < n) p[k] = v;
+}
 
-// Plain C interface (bound with ctypes from ops/phase1.py).  Launches
-// columns_kernel and phase1_kernel on `stream` without synchronising;
-// returns the first launch error (0 = launched).  The three per-cell
-// score planes are int32, as every featurizer emits them; `cols` is the
-// caller's int64 scratch of [2R + 3, C] for the column planes.
-extern "C" int kt_phase1(
-    const void* filter_enabled, const void* score_enabled, const void* request,
-    const void* placement_has, const void* api_ok, const void* taint_ok_new,
-    const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
-    const void* current_mask, const void* webhook_ok, const void* webhook_scores,
-    const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
-    const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols, int B,
-    int C, int R, void* stream) {
+// kt_phase1_finish's kernel: one thread a cell (a grid-stride loop).  On
+// a feasible cell, the normalised taint and affinity terms of the row's
+// maxima over the whole cluster axis are added to the partial total;
+// elsewhere the total is 0 already.
+__global__ void finish_kernel(const uint8_t* __restrict__ feasible,
+                              const uint8_t* __restrict__ score_enabled,
+                              const int32_t* __restrict__ taint_counts,
+                              const int32_t* __restrict__ affinity_scores,
+                              const int32_t* __restrict__ maxima, int64_t* __restrict__ totals,
+                              int B, int C) {
+  const size_t cells = (size_t)B * C;
+  for (size_t k = blockIdx.x * (size_t)blockDim.x + threadIdx.x; k < cells;
+       k += (size_t)gridDim.x * blockDim.x) {
+    if (!feasible[k]) continue;
+    const size_t row = k / C;
+    const bool taint = score_enabled[row * kPlugins + kTaint];
+    const bool affinity = score_enabled[row * kPlugins + kAffinity];
+    if (!taint && !affinity) continue;
+    long long t = totals[k];
+    if (taint) {
+      const int32_t m = maxima[2 * row];
+      const long long den = m < 1 ? 1 : m;
+      bool bad = false;
+      int32_t v = normalize<false>(taint_counts[k], m, den, div_rcp(den), true, bad);
+      if (bad) v = normalize<true>(taint_counts[k], m, den, 0.0f, true, bad);
+      t = wadd(t, v);
+    }
+    if (affinity) {
+      const int32_t m = maxima[2 * row + 1];
+      const long long den = m < 1 ? 1 : m;
+      bool bad = false;
+      int32_t v = normalize<false>(affinity_scores[k], m, den, div_rcp(den), false, bad);
+      if (bad) v = normalize<true>(affinity_scores[k], m, den, 0.0f, false, bad);
+      t = wadd(t, v);
+    }
+    totals[k] = t;
+  }
+}
+
+// columns_kernel, then phase1_kernel over the B x C planes: whole rows
+// (kSplit false) or pass 1 of a column block (kSplit true).
+template <bool kSplit>
+int launch_phase1(const void* filter_enabled, const void* score_enabled, const void* request,
+                  const void* placement_has, const void* api_ok, const void* taint_ok_new,
+                  const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
+                  const void* current_mask, const void* webhook_ok, const void* webhook_scores,
+                  const void* taint_counts, const void* affinity_scores, const void* alloc,
+                  const void* used, const void* cluster_valid, void* feasible, void* reasons,
+                  void* totals, void* cols, void* maxima, int B, int C, int R, void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (R < kFixedResources) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -870,7 +944,7 @@ extern "C" int kt_phase1(
       (const uint8_t*)current_mask,   (const uint8_t*)webhook_ok,    (const int32_t*)webhook_scores,
       (const int32_t*)taint_counts,   (const int32_t*)affinity_scores, (int64_t*)cols,
       (const uint8_t*)cluster_valid,  (uint8_t*)feasible,            (int32_t*)reasons,
-      (int64_t*)totals};
+      (int64_t*)totals,               (int32_t*)maxima};
   const void* planes[] = {api_ok, taint_ok_new, taint_ok_cur, selector_ok, placement_ok,
                           current_mask, webhook_ok, webhook_scores, taint_counts,
                           affinity_scores, cluster_valid, cols, feasible, reasons, totals};
@@ -890,10 +964,14 @@ extern "C" int kt_phase1(
   auto state = [&](int rows) {
     return requests(rows) + (size_t)rows * quads * (4 * (8 + 4 + 4) + 4);
   };
+  if (kSplit)
+    // One row a block, its partial totals stored in pass 1: no pass 2.
+    err = vec ? launch<1, false, true, true>(p, B, C, R, requests(1), threads, s)
+              : launch<1, false, false, true>(p, B, C, R, requests(1), threads, s);
   // Two rows a block while two such blocks fit on an SM; past that, one
   // row: two one-row blocks on an SM, each loading while the other
   // computes or reduces, beat one two-row block (PERF.md, PR 4).
-  if (state(2) <= half_smem)
+  else if (state(2) <= half_smem)
     err = vec ? launch<2, true, true>(p, B, C, R, state(2), threads, s)
               : launch<2, true, false>(p, B, C, R, state(2), threads, s);
   else if (state(1) <= max_smem)
@@ -903,4 +981,76 @@ extern "C" int kt_phase1(
     err = vec ? launch<1, false, true>(p, B, C, R, requests(1), threads, s)
               : launch<1, false, false>(p, B, C, R, requests(1), threads, s);
   return (int)err;
+}
+
+}  // namespace
+
+// Plain C interface (bound with ctypes from ops/phase1.py).  Each entry
+// launches on `stream` without synchronising and returns the first launch
+// error (0 = launched).  The three per-cell score planes are int32, as
+// every featurizer emits them; `cols` is the caller's int64 scratch of
+// [2R + 3, C] for the column planes.
+
+// The phase-1 triple over whole rows: columns_kernel, then phase1_kernel.
+extern "C" int kt_phase1(
+    const void* filter_enabled, const void* score_enabled, const void* request,
+    const void* placement_has, const void* api_ok, const void* taint_ok_new,
+    const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
+    const void* current_mask, const void* webhook_ok, const void* webhook_scores,
+    const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
+    const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols, int B,
+    int C, int R, void* stream) {
+  return launch_phase1<false>(filter_enabled, score_enabled, request, placement_has, api_ok,
+                              taint_ok_new, taint_ok_cur, selector_ok, placement_ok, current_mask,
+                              webhook_ok, webhook_scores, taint_counts, affinity_scores, alloc,
+                              used, cluster_valid, feasible, reasons, totals, cols, nullptr, B, C,
+                              R, stream);
+}
+
+// Pass 1 on a column block of C columns (the mesh's clusters axis; the
+// planes, `alloc`, `used` and `cluster_valid` are the block's own, so no
+// global column index enters): feasible and reasons in full, the totals
+// without the normalised taint and affinity terms, and `maxima` i32[B, 2],
+// each row's masked taint and affinity maxima over the block (0 where the
+// row does not score that plugin; INT32_MIN on a block of no column).
+extern "C" int kt_phase1_partial(
+    const void* filter_enabled, const void* score_enabled, const void* request,
+    const void* placement_has, const void* api_ok, const void* taint_ok_new,
+    const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
+    const void* current_mask, const void* webhook_ok, const void* webhook_scores,
+    const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
+    const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols,
+    void* maxima, int B, int C, int R, void* stream) {
+  if (B > 0 && C <= 0) {  // an empty block: the maxima over no column, INT32_MIN
+    fill_kernel<<<(2 * B + 255) / 256, 256, 0, (cudaStream_t)stream>>>((int32_t*)maxima, 2 * B,
+                                                                       INT32_MIN);
+    return (int)cudaGetLastError();
+  }
+  return launch_phase1<true>(filter_enabled, score_enabled, request, placement_has, api_ok,
+                             taint_ok_new, taint_ok_cur, selector_ok, placement_ok, current_mask,
+                             webhook_ok, webhook_scores, taint_counts, affinity_scores, alloc,
+                             used, cluster_valid, feasible, reasons, totals, cols, maxima, B, C,
+                             R, stream);
+}
+
+// The rest of a split block: given `maxima` i32[B, 2], each row's maxima
+// over every block of the cluster axis, adds the normalised taint and
+// affinity terms to kt_phase1_partial's totals in place (reading the
+// feasibility and the two score planes again).
+extern "C" int kt_phase1_finish(const void* feasible, const void* score_enabled,
+                                const void* taint_counts, const void* affinity_scores,
+                                const void* maxima, void* totals, int B, int C, void* stream) {
+  if (B <= 0 || C <= 0) return 0;
+  const size_t cells = (size_t)B * C;
+  const int threads = 256;
+  const size_t want = (cells + threads - 1) / threads;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t cap = (size_t)(sms > 0 ? sms : 1) * 16;  // 16 blocks an SM at most
+  const int blocks = (int)(want < cap ? want : cap);
+  finish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)feasible, (const uint8_t*)score_enabled, (const int32_t*)taint_counts,
+      (const int32_t*)affinity_scores, (const int32_t*)maxima, (int64_t*)totals, B, C);
+  return (int)cudaGetLastError();
 }

@@ -144,12 +144,15 @@ def _scatter_rows(b, c, idx, vals, default, dtype):
     return out[: b * c].view(b, c)
 
 
-def expand_compact(ci, key_len_max=None) -> TickInputs:
+def expand_compact(ci, key_len_max=None, col0: int = 0) -> TickInputs:
     """Device-side expansion of CompactInputs into the dense planes the
     tick consumes: vocabulary-table gathers, sparse policy scatters and
     the FNV-1 tie-break plane.  Bit-exact with scheduler/featurize.py.
     ``key_len_max``: a host-side bound on the rows' key lengths, where
-    the FNV scan may stop (``fnv_tiebreak_plane``)."""
+    the FNV scan may stop (``fnv_tiebreak_plane``).  ``col0``: the global
+    column of the tables' first column, on a column block of the mesh's
+    clusters axis (the sparse entries name global columns; those
+    outside the block are dropped)."""
     b = ci.gvk_id.shape[0]
     c = ci.cluster_valid.shape[0]
     device = ci.gvk_id.device
@@ -164,7 +167,7 @@ def expand_compact(ci, key_len_max=None) -> TickInputs:
     affinity_scores = ci.pref_matrix[ci.pref_id.long()]
     placement_ok = ci.place_matrix[ci.place_id.long()]
 
-    idx = ci.sparse_idx
+    idx = ci.sparse_idx if col0 == 0 else ci.sparse_idx - col0
     i32 = torch.int32
     min_replicas = _scatter_rows(b, c, idx, ci.sparse_min, 0, i32)
     max_replicas = _scatter_rows(b, c, idx, ci.sparse_max, _INF, i32)
@@ -227,9 +230,12 @@ def _current_plane(inp: TickInputs):
     return torch.where(inp.current_mask, cur, 0).to(torch.int32)
 
 
-def _planner_weights(inp: TickInputs, selected):
-    """Static-or-dynamic per-cluster weights, zeroed outside the selection."""
-    dyn_w = dynamic_weights(selected, inp.cpu_alloc, inp.cpu_avail)
+def _planner_weights(inp: TickInputs, selected, dyn_w=None):
+    """Static-or-dynamic per-cluster weights, zeroed outside the
+    selection (``dyn_w``: the dynamic weights, given on a column block
+    of the mesh's clusters axis)."""
+    if dyn_w is None:
+        dyn_w = dynamic_weights(selected, inp.cpu_alloc, inp.cpu_avail)
     weights = torch.where(inp.weights_given[:, None], inp.weights, dyn_w).to(torch.int32)
     return torch.where(selected, weights, 0)
 
@@ -269,11 +275,14 @@ def schedule_tick(inp: TickInputs, budget=None) -> TickOutputs:
 
 
 def _finalize(
-    inp: TickInputs, feasible, reasons, totals, selected, divide_replicas
+    inp: TickInputs, feasible, reasons, totals, selected, divide_replicas,
+    sticky_active=None,
 ) -> TickOutputs:
     """Select/divide reason bits, Duplicate-vs-Divide output shaping,
     the sticky-cluster short-circuit, and the reasons==0-iff-selected
-    invariant.  All elementwise."""
+    invariant.  All elementwise but the rows' sticky flag
+    (``sticky_active`` bool[B], given on a column block, where the
+    current mask's row OR spans every block)."""
     i32 = torch.int32
     # Feasible pairs the top-K cut (including K == 0 for a negative
     # maxClusters).
@@ -295,7 +304,9 @@ def _finalize(
     out_counted = mode_divide & divide_selected
 
     # --- Sticky-cluster short-circuit (generic_scheduler.go:103-107) ---
-    sticky_active = (inp.sticky & inp.current_mask.any(dim=-1))[:, None]
+    if sticky_active is None:
+        sticky_active = inp.sticky & inp.current_mask.any(dim=-1)
+    sticky_active = sticky_active[:, None]
     out_selected = torch.where(sticky_active, inp.current_mask, out_selected)
     out_replicas = torch.where(
         sticky_active,
@@ -358,7 +369,8 @@ def _cbits(c: int) -> int:
 def _select_comp(totals, feasible, c, iota, i32_keys):
     """The select stage's collision-free composite key ((-total, index)
     ascending) for the candidate sort and its certificate.  Returns
-    (comp, key_ok bool[B], cert_inf).  With ``i32_keys`` and a cluster
+    (comp, key_ok bool[B]); ``_cert_inf`` is the certificate's
+    sentinel for the same key width.  With ``i32_keys`` and a cluster
     axis that leaves >= 12 value bits the key is int32 (half the bytes
     through the sort); rows whose feasible totals leave the narrowed
     range get ``key_ok`` False and fail the certificate."""
@@ -374,10 +386,10 @@ def _select_comp(totals, feasible, c, iota, i32_keys):
             # key1 * 2**cbits lies in (-2**30, 2**30]: exact in int32,
             # with the low cbits bits free for the index.
             comp = (key1 * (1 << cbits)) | iota.to(torch.int32)
-            return comp, key_ok, _I32_MAX
+            return comp, key_ok
     key1 = torch.where(feasible, -totals.to(torch.int32), _I32_MAX)
     comp = key1.to(torch.int64) * c + iota
-    return comp, torch.ones_like(feasible[:, 0]), _CERT_INF
+    return comp, torch.ones_like(feasible[:, 0])
 
 
 def _decode_comp(sorted_comp, c, i32_keys):
@@ -388,28 +400,184 @@ def _decode_comp(sorted_comp, c, i32_keys):
     return sorted_comp.to(torch.int64) % c
 
 
-def _scatter_mask(shape, cols, values, device):
-    return torch.zeros(shape, dtype=torch.bool, device=device).scatter_(
-        1, cols, values
+def _cert_inf(c: int, i32_keys: bool) -> int:
+    """The select certificate's sentinel for the key width in use."""
+    return _I32_MAX if (i32_keys and _cbits(c) <= 18) else _CERT_INF
+
+
+# -- the narrow solve's stages ---------------------------------------------
+# The narrow solve and the packed wire are written as block stages over
+# the columns [c0, c0 + width) of a padded cluster axis of c columns, and
+# merge stages over the blocks' small [rows, k] partials, given as lists
+# in column order.  ``_narrow_solve``, ``_plan_topm`` and ``pack_rows``
+# are their composition on one block of every column; under the mesh's
+# clusters axis ``ops/split.py`` runs the block stages on every entry and
+# the merges on entry (i, 0).  The row's top-M (top-K) is merged exactly
+# from each block's first M (K): the keys are unique across the row.
+
+
+def reduce_blocks(parts: list, op: str) -> torch.Tensor:
+    """The row's blocks' partials combined elementwise in column order:
+    "sum", "max", "min", "any" or "all"."""
+    out = parts[0]
+    for p in parts[1:]:
+        if op == "sum":
+            out = out + p
+        elif op == "max":
+            out = torch.maximum(out, p)
+        elif op == "min":
+            out = torch.minimum(out, p)
+        elif op == "any":
+            out = out | p
+        elif op == "all":
+            out = out & p
+        else:
+            raise ValueError(f"reduce_blocks: unknown op {op!r}")
+    return out
+
+
+def merge_topk(keys: list, payloads: list, k: int, descending: bool = False):
+    """The first ``k`` of the union of the blocks' ranked candidates:
+    ``keys`` the blocks' ``[rows, t_j]`` keys, each block's in order
+    (unique within a row across blocks), ``payloads`` per block a tuple
+    of ``[rows, t_j]`` values riding with each key.  Returns (the k keys
+    in order, the payloads gathered alongside).  Exact: each block sent
+    at least its share of the union's first k.  One block is its own
+    merge."""
+    if len(keys) == 1:
+        return keys[0][:, :k], [p[:, :k] for p in (payloads[0] if payloads else ())]
+    cat = torch.cat(keys, dim=1)
+    order = torch.sort(cat, dim=1, descending=descending).indices[:, :k]
+    riding = [
+        torch.cat([p[n] for p in payloads], dim=1).gather(1, order)
+        for n in range(len(payloads[0]) if payloads else 0)
+    ]
+    return cat.gather(1, order), riding
+
+
+def _block_iota(rows: int, c0: int, width: int, device) -> torch.Tensor:
+    """The block's global column indices, [rows, width]."""
+    return torch.arange(c0, c0 + width, dtype=torch.int64, device=device).expand(rows, width)
+
+
+def _slots(cols, c0: int, width: int):
+    """Global column indices [rows, k] -> (in this block, the block-local
+    index; the spare column ``width`` for slots of other blocks)."""
+    inside = (cols >= c0) & (cols < c0 + width)
+    return inside, torch.where(inside, cols - c0, width)
+
+
+def _spread(local, vals, width: int, fill, dtype) -> torch.Tensor:
+    """[rows, width] grid of ``vals`` at ``local`` (slots of other blocks
+    land in the spare column past the block and are dropped)."""
+    grid = torch.full((local.shape[0], width + 1), fill, dtype=dtype, device=local.device)
+    grid.scatter_(1, local, vals.to(dtype))
+    return grid[:, :width]
+
+
+def _take_slots(plane, inside, local):
+    """``plane`` at the slots' block-local columns, zero (False) where a
+    slot lies in another block."""
+    got = plane.gather(1, torch.clamp(local, max=plane.shape[1] - 1))
+    return torch.where(inside, got, torch.zeros((), dtype=plane.dtype, device=plane.device))
+
+
+def _own(parts: list, inside: list):
+    """The blocks' ``_take_slots`` gathers joined: each slot from the
+    block that owns it."""
+    out = parts[0]
+    for part, own in zip(parts[1:], inside[1:]):
+        out = torch.where(own, part, out)
+    return out
+
+
+class SelectPart(NamedTuple):
+    """A block's part of the select stage: its feasible count, key
+    range flag, and first M + 1 keys with their cells' feasibility and
+    totals (a field per block in a merge)."""
+
+    nfeas: torch.Tensor  # i32[rows]
+    key_ok: torch.Tensor  # bool[rows]
+    keys: torch.Tensor  # [rows, t] the block's first keys, ascending
+    fea: torch.Tensor  # bool[rows, t]
+    tot: torch.Tensor  # [rows, t]
+
+
+def select_block(totals, feasible, c0: int, c: int, m: int, i32_keys: bool):
+    """Block stage of the narrow select: (the block's composite keys,
+    its ``SelectPart``).  One more key than M, so that the best feasible
+    non-candidate is the merge's too."""
+    rows, width = feasible.shape
+    iota = _block_iota(rows, c0, width, feasible.device)
+    comp, key_ok = _select_comp(totals, feasible, c, iota, i32_keys)
+    t = min(min(m, c) + 1, width)
+    keys, order = torch.sort(comp, dim=-1)
+    order = order[:, :t]
+    return comp, SelectPart(
+        feasible.sum(dim=-1, dtype=torch.int32), key_ok, keys[:, :t],
+        feasible.gather(1, order), totals.gather(1, order),
     )
 
 
-def _plan_topm(inp: TickInputs, selected, weights, m: int, budget=None):
-    """The planner over the top-M member slots in ITS OWN processing
-    order.  Returns (divide_replicas i64[B, C], cert bool[B]); cert holds
-    iff ``plan_batch_narrow``'s phantom-tail certificate held and no
-    selected column with planner structure was left outside the slots."""
-    b, c = selected.shape
-    m = min(m, c)
-    device = selected.device
-    iota = torch.arange(c, dtype=torch.int64, device=device).expand(b, c)
-    special = (
+def select_merge(parts: SelectPart, max_clusters, c: int, m: int, i32_keys: bool):
+    """Merge stage of the narrow select over the blocks' parts (each
+    field a list in column order): (candidate columns ascending [rows,
+    M], their selection, kinf, the certificate but its best feasible
+    non-candidate, the worst selected key)."""
+    cert_inf = _cert_inf(c, i32_keys)
+    nfeas = reduce_blocks(parts.nfeas, "sum")
+    key_ok = reduce_blocks(parts.key_ok, "all")
+    keys, (fea_m, tot_m) = merge_topk(parts.keys, list(zip(parts.fea, parts.tot)), min(m, c))
+    cols = _decode_comp(keys, c, i32_keys)
+    # Ascending: the narrow slot order keeps the dense index order.
+    order = torch.sort(cols, dim=-1).indices
+    cand_s = cols.gather(1, order)
+    fea_s = fea_m.gather(1, order)
+    sel_n = select_topk(tot_m.gather(1, order), fea_s, max_clusters)
+    worst_sel = torch.where(sel_n, keys.gather(1, order), -cert_inf).amax(dim=-1)
+    k_eff = torch.where(max_clusters < 0, 0, torch.clamp(max_clusters, max=c))
+    # The cut cannot engage: selection is the feasible set, no sort.
+    kinf = k_eff >= nfeas
+    # Select certificate: the narrow cut had enough feasible candidates
+    # to fill k (or saw every feasible column); ``select_cert`` adds
+    # that every feasible non-candidate ranks after every selection.
+    nf_cand = fea_s.sum(dim=-1, dtype=torch.int32)
+    pre_cert = key_ok & ((nf_cand >= k_eff) | (nfeas == nf_cand))
+    return cand_s, sel_n, kinf, pre_cert, worst_sel
+
+
+def selected_block(feasible, comp, cand_s, sel_n, kinf, c0: int, cert_inf: int):
+    """Block stage: (the block's selection, its best feasible
+    non-candidate key)."""
+    width = feasible.shape[1]
+    inside, local = _slots(cand_s, c0, width)
+    cand_mask = _spread(local, inside, width, False, torch.bool)
+    sel_scatter = _spread(local, sel_n & inside, width, False, torch.bool)
+    selected = torch.where(kinf[:, None], feasible, sel_scatter)
+    best_out = torch.where(feasible & ~cand_mask, comp, cert_inf).amin(dim=-1)
+    return selected, best_out
+
+
+def select_cert(best_out_b: list, kinf, pre_cert, worst_sel):
+    """Merge stage: the select certificate."""
+    return kinf | (pre_cert & (reduce_blocks(best_out_b, "min") > worst_sel))
+
+
+def _special(inp: TickInputs):
+    """Columns with planner structure."""
+    return (
         (inp.min_replicas > 0)
         | (inp.max_replicas != _INF)
         | (inp.scale_max != _INF)
         | (inp.capacity != _INF)
         | inp.current_mask
     )
+
+
+def planner_block(inp: TickInputs, selected, weights, c0: int, c: int, m: int):
+    """Block stage of the top-M planner: (special, the true processing
+    keys, the block's first M of the negated slot keys, ascending)."""
+    special = _special(inp)
     # Candidate PRIORITY boosts structured columns into the slots; the
     # CERTIFICATE compares the true processing order (no special bit).
     comp_prio = processing_key(weights, inp.tiebreak, special)
@@ -420,53 +588,99 @@ def _plan_topm(inp: TickInputs, selected, weights, m: int, budget=None):
     # the certificate compares TRUE keys, so a mis-pick from the dropped
     # bits falls back to dense.  Selected columns rank above every
     # unselected one; spare slots take the lowest-index unselected
-    # columns (masked off by member_p).  Bit for bit as the JAX package,
-    # including the wrap of the one key that can reach 2**63.
+    # columns (masked off by the members).  Bit for bit as the JAX
+    # package, including the wrap of the one key that can reach 2**63.
     cbits = _cbits(c)
     shift = max(0, 53 + cbits - 63)
-    low = (1 << cbits) - 1
-    inv_iota = low - iota
+    rows, width = selected.shape
+    inv_iota = ((1 << cbits) - 1) - _block_iota(rows, c0, width, selected.device)
     key_p = torch.where(
         selected, (((comp_prio >> shift) + 1) << cbits) | inv_iota, inv_iota
     )
-    sorted_p = -torch.sort(-key_p, dim=-1).values[:, :m]
-    cand_p = torch.sort(low - (sorted_p & low), dim=-1).values
+    t = min(min(m, c), width)
+    return special, comp_true, torch.sort(-key_p, dim=-1).values[:, :t]
 
-    def take_p(plane):
-        return plane.gather(1, cand_p)
 
-    cand_p_mask = _scatter_mask((b, c), cand_p, True, device)
-    outside = selected & ~cand_p_mask
-    tail_w = torch.where(outside, torch.clamp(weights, min=0), 0).sum(
-        dim=-1, dtype=torch.int32
+def planner_members(neg_b: list, c: int, m: int):
+    """Merge stage: the top-M members' columns, ascending [rows, M]."""
+    low = (1 << _cbits(c)) - 1
+    neg, _ = merge_topk(neg_b, [], min(m, c))
+    return torch.sort(low - ((-neg) & low), dim=-1).values
+
+
+def planner_slots_block(inp: TickInputs, selected, weights, special, comp_true, cand_p,
+                        c0: int):
+    """Block stage: (which slots lie here, the planner's planes at them,
+    and the phantom tail's weight sum, best true key and structure flag
+    over the block's members outside the slots)."""
+    width = selected.shape[1]
+    inside, local = _slots(cand_p, c0, width)
+    outside = selected & ~_spread(local, inside, width, False, torch.bool)
+    planes = (
+        selected, weights, inp.min_replicas, inp.max_replicas, inp.scale_max,
+        inp.capacity, inp.tiebreak, _current_plane(inp), comp_true,
     )
-    best_tail = torch.where(outside, comp_true, -1).amax(dim=-1)
-    spec_out = (outside & special).any(dim=-1)
+    return (
+        inside,
+        tuple(_take_slots(p, inside, local) for p in planes),
+        torch.where(outside, torch.clamp(weights, min=0), 0).sum(dim=-1, dtype=torch.int32),
+        torch.where(outside, comp_true, -1).amax(dim=-1),
+        (outside & special).any(dim=-1),
+    )
 
-    member_p = take_p(selected)
+
+def planner_merge(inside_b: list, taken_b: tuple, tail_w_b: list, best_tail_b: list,
+                  spec_out_b: list, total, avoid_disruption, keep_unschedulable, budget=None):
+    """Merge stage: ``plan_batch_narrow`` over the M slots.  Returns
+    (the slots' replicas i64[rows, M], the planner certificate)."""
+    member, w, mn, mx, smax, cap, tb, cur, ctrue = (
+        _own(blocks, inside_b) for blocks in taken_b
+    )
     plan_out, pcert = plan_batch_narrow(
         PlannerInputs(
-            weight=take_p(weights),
-            min_replicas=torch.where(member_p, take_p(inp.min_replicas), 0),
-            max_replicas=take_p(inp.max_replicas),
-            scale_max=take_p(inp.scale_max),
-            capacity=take_p(inp.capacity),
-            tiebreak=take_p(inp.tiebreak),
-            member=member_p,
-            total=inp.total,
-            current=take_p(_current_plane(inp)),
-            avoid_disruption=inp.avoid_disruption,
-            keep_unschedulable=inp.keep_unschedulable,
+            weight=w,
+            min_replicas=torch.where(member, mn, 0),
+            max_replicas=mx,
+            scale_max=smax,
+            capacity=cap,
+            tiebreak=tb,
+            member=member,
+            total=total,
+            current=cur,
+            avoid_disruption=avoid_disruption,
+            keep_unschedulable=keep_unschedulable,
         ),
-        tail_w,
-        best_tail,
-        take_p(comp_true),
+        reduce_blocks(tail_w_b, "sum"),
+        reduce_blocks(best_tail_b, "max"),
+        ctrue,
         budget,
     )
     divide_n = (plan_out.plan + plan_out.overflow).to(torch.int64)
-    divide_replicas = torch.zeros((b, c), dtype=torch.int64, device=device)
-    divide_replicas.scatter_(1, cand_p, divide_n)
-    return divide_replicas, pcert & ~spec_out
+    return divide_n, pcert & ~reduce_blocks(spec_out_b, "any")
+
+
+def planner_spread(cand_p, divide_n, c0: int, width: int):
+    """Block stage: the slots' replicas on the block's columns."""
+    inside, local = _slots(cand_p, c0, width)
+    return _spread(local, torch.where(inside, divide_n, 0), width, 0, torch.int64)
+
+
+def _plan_topm(inp: TickInputs, selected, weights, m: int, budget=None):
+    """The planner over the top-M member slots in ITS OWN processing
+    order.  Returns (divide_replicas i64[B, C], cert bool[B]); cert holds
+    iff ``plan_batch_narrow``'s phantom-tail certificate held and no
+    selected column with planner structure was left outside the slots."""
+    c = selected.shape[1]
+    special, comp_true, neg = planner_block(inp, selected, weights, 0, c, m)
+    cand_p = planner_members([neg], c, m)
+    inside, taken, tail_w, best_tail, spec_out = planner_slots_block(
+        inp, selected, weights, special, comp_true, cand_p, 0
+    )
+    divide_n, plan_cert = planner_merge(
+        [inside], tuple([t] for t in taken), [tail_w], [best_tail], [spec_out],
+        inp.total, inp.avoid_disruption, inp.keep_unschedulable, budget,
+    )
+    return planner_spread(cand_p, divide_n, 0, c), plan_cert
 
 
 def _narrow_solve(
@@ -474,43 +688,15 @@ def _narrow_solve(
 ):
     """Select + planner over M candidate columns, given the phase-1
     triple.  Returns (outputs, cert i8[B])."""
-    b, c = feasible.shape
-    m = min(m, c)
-    device = feasible.device
-    iota = torch.arange(c, dtype=torch.int64, device=device).expand(b, c)
-
-    # --- select resolution ------------------------------------------------
-    nfeas = feasible.sum(dim=-1, dtype=torch.int32)
-    k_eff = torch.where(
-        inp.max_clusters < 0, 0, torch.clamp(inp.max_clusters, max=c)
+    c = feasible.shape[1]
+    comp, part = select_block(totals, feasible, 0, c, m, i32_keys)
+    cand_s, sel_n, kinf, pre_cert, worst_sel = select_merge(
+        SelectPart(*([f] for f in part)), inp.max_clusters, c, m, i32_keys
     )
-    # The cut cannot engage: selection is the feasible set, no sort.
-    kinf = k_eff >= nfeas
-
-    comp_sel, key_ok, cert_inf = _select_comp(totals, feasible, c, iota, i32_keys)
-    cand_s = _decode_comp(torch.sort(comp_sel, dim=-1).values[:, :m], c, i32_keys)
-    # Ascending: the narrow slot order keeps the dense index order.
-    cand_s = torch.sort(cand_s, dim=-1).values
-    fea_s = feasible.gather(1, cand_s)
-    sel_n = select_topk(totals.gather(1, cand_s), fea_s, inp.max_clusters)
-    sel_scatter = _scatter_mask((b, c), cand_s, sel_n, device)
-    selected = torch.where(kinf[:, None], feasible, sel_scatter)
-
-    # Select certificate: every feasible non-candidate ranks strictly
-    # after every selected column, and the narrow cut had enough feasible
-    # candidates to fill k (or saw every feasible column).
-    cand_mask = _scatter_mask((b, c), cand_s, True, device)
-    out_feas = feasible & ~cand_mask
-    best_out = torch.where(out_feas, comp_sel, cert_inf).amin(dim=-1)
-    worst_sel = torch.where(
-        sel_n, comp_sel.gather(1, cand_s), -cert_inf
-    ).amax(dim=-1)
-    nf_cand = fea_s.sum(dim=-1, dtype=torch.int32)
-    cert_sel = kinf | (
-        key_ok
-        & ((nf_cand >= k_eff) | (nfeas == nf_cand))
-        & (best_out > worst_sel)
+    selected, best_out = selected_block(
+        feasible, comp, cand_s, sel_n, kinf, 0, _cert_inf(c, i32_keys)
     )
+    cert_sel = select_cert([best_out], kinf, pre_cert, worst_sel)
 
     # --- planner candidates: top-M members in processing order ------------
     weights = _planner_weights(inp, selected)
@@ -559,40 +745,79 @@ class PackedRows(NamedTuple):
     #                     bit (ops.reasons.REASON_BITS order), valid slots only
 
 
-def pack_rows(selected, replicas, counted, scores, reasons, k: int) -> PackedRows:
-    """Top-k-compact [N, C] output planes into the packed layout.  Slot
-    order is (score desc, cluster index asc) over the selected clusters —
-    select's own ranking — from one sort of the collision-free int64
-    composite ``key1 * C + iota``, decoded by floor-mod."""
-    n, c = selected.shape
-    k = min(k, c)
+class PackPart(NamedTuple):
+    """A block's part of the packed wire: its first K selected cells by
+    the wire's (-score, index) key with their values, and its counts (a
+    field per block in a merge)."""
+
+    keys: torch.Tensor   # i64[rows, t] the block's first keys, ascending
+    sel: torch.Tensor    # bool[rows, t]
+    rep: torch.Tensor    # i32[rows, t]
+    cnt: torch.Tensor    # i32[rows, t]
+    sco: torch.Tensor    # i32[rows, t]
+    nsel: torch.Tensor   # i32[rows]
+    nfeas: torch.Tensor  # i64[rows]
+    rsum: torch.Tensor   # i64[rows, NUM_REASON_BITS]
+
+
+def pack_block(selected, replicas, counted, scores, reasons, c0: int, c: int,
+               k: int) -> PackPart:
+    """Block stage of ``pack_rows`` over the columns [c0, c0 + width):
+    one sort of the collision-free int64 composite ``key1 * C + iota``
+    with the global index."""
+    rows, width = selected.shape
     selb = selected != 0
-    iota = torch.arange(c, dtype=torch.int64, device=selected.device).expand(n, c)
     key1 = torch.where(selb, -scores.to(torch.int32), _I32_MAX)
-    comp = key1.to(torch.int64) * c + iota
-    order = (torch.sort(comp, dim=-1).values % c)[:, :k]
-    valid = selb.gather(1, order)
-    gidx = torch.where(valid, order, 0)
-
-    def take(plane):
-        return torch.where(valid, plane.to(torch.int32).gather(1, gidx), 0)
-
+    comp = key1.to(torch.int64) * c + _block_iota(rows, c0, width, selected.device)
+    keys, order = torch.sort(comp, dim=-1)
+    t = min(min(k, c), width)
+    order = order[:, :t]
     rsn = reasons.to(torch.int32)
     valid_slot = (rsn & RSN.REASON_CLUSTER_INVALID) == 0
     rsum = torch.stack(
         [(((rsn & bit) != 0) & valid_slot).sum(dim=-1) for bit in RSN.REASON_BITS],
         dim=-1,
-    ).to(torch.int32)
-    nfeas = (((rsn & RSN.FILTER_REASON_MASK) == 0) & valid_slot).sum(dim=-1)
-    return PackedRows(
-        idx=torch.where(valid, order, PACK_FILL).to(torch.int32),
-        rep=take(replicas),
-        cnt=take(counted),
-        sco=take(scores),
-        nsel=selb.sum(dim=-1, dtype=torch.int32),
-        nfeas=nfeas.to(torch.int32),
-        rsum=rsum,
     )
+    return PackPart(
+        keys[:, :t],
+        selb.gather(1, order),
+        *(p.to(torch.int32).gather(1, order) for p in (replicas, counted, scores)),
+        selb.sum(dim=-1, dtype=torch.int32),
+        (((rsn & RSN.FILTER_REASON_MASK) == 0) & valid_slot).sum(dim=-1),
+        rsum,
+    )
+
+
+def pack_merge(parts: PackPart, c: int, k: int) -> PackedRows:
+    """Merge stage of ``pack_rows`` over the blocks' parts (each field a
+    list in column order): the first K slots of the row, decoded by
+    floor-mod, and the counts summed."""
+    keys, (valid, rep, cnt, sco) = merge_topk(
+        parts.keys, list(zip(parts.sel, parts.rep, parts.cnt, parts.sco)), min(k, c)
+    )
+
+    def take(v):
+        return torch.where(valid, v, 0)
+
+    return PackedRows(
+        idx=torch.where(valid, keys % c, PACK_FILL).to(torch.int32),
+        rep=take(rep),
+        cnt=take(cnt),
+        sco=take(sco),
+        nsel=reduce_blocks(parts.nsel, "sum"),
+        nfeas=reduce_blocks(parts.nfeas, "sum").to(torch.int32),
+        rsum=reduce_blocks(parts.rsum, "sum").to(torch.int32),
+    )
+
+
+def pack_rows(selected, replicas, counted, scores, reasons, k: int) -> PackedRows:
+    """Top-k-compact [N, C] output planes into the packed layout.  Slot
+    order is (score desc, cluster index asc) over the selected clusters —
+    select's own ranking: ``pack_block`` and ``pack_merge`` on one block
+    of every column."""
+    c = selected.shape[1]
+    part = pack_block(selected, replicas, counted, scores, reasons, 0, c, k)
+    return pack_merge(PackPart(*([f] for f in part)), c, k)
 
 
 def wire_width(k: int) -> int:
@@ -601,14 +826,18 @@ def wire_width(k: int) -> int:
     return 4 * k + 2 + RSN.NUM_REASON_BITS
 
 
-def pack_wire(selected, replicas, counted, scores, reasons, k: int) -> torch.Tensor:
-    """The packed layout as ONE i32[N, wire_width(k)] tensor: a single
-    device->host copy per fetch."""
-    p = pack_rows(selected, replicas, counted, scores, reasons, k)
+def wire_of(p: PackedRows) -> torch.Tensor:
+    """The packed layout as ONE i32[N, wire_width(k)] tensor."""
     return torch.cat(
         [p.idx, p.rep, p.cnt, p.sco, p.nsel[:, None], p.nfeas[:, None], p.rsum],
         dim=-1,
     )
+
+
+def pack_wire(selected, replicas, counted, scores, reasons, k: int) -> torch.Tensor:
+    """The packed layout as ONE i32[N, wire_width(k)] tensor: a single
+    device->host copy per fetch."""
+    return wire_of(pack_rows(selected, replicas, counted, scores, reasons, k))
 
 
 def unpack_wire(arr, k: int) -> PackedRows:
@@ -955,80 +1184,148 @@ def _drift_classify(
     nfeas,          # i32[B] the stored per-row feasible counts
 ):
     """Shared tail of the dense and compact gates.  Returns (i8[B] mask,
-    i32[B, D] the changed columns' new totals)."""
+    i32[B, D] the changed columns' new totals).  The composition of
+    the split stages below over the whole cluster axis."""
     b, c = prev_feas.shape
-    device = prev_feas.device
-    d = delta_idx.shape[0]
     d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
     pf_d = prev_feas[:, d_safe] != 0
+    tot_old_d = prev_scores[:, d_safe].to(torch.int64)
+    head = _classify_head(
+        fea_new_d, pf_d, tot_old_d, res_old_d, res_new_d, delta_idx, delta_valid, delta_cpu,
+        max_clusters, nfeas, fin_idx, c,
+    )
+    counts = None
+    if delta_idx.shape[0] <= DRIFT_REFINE_MAX_COLS:
+        counts = _refine_counts(
+            prev_feas, prev_scores, delta_idx, delta_valid, fin_idx, head.key_old,
+            head.key_new, 0, c,
+        )
+    return _classify_tail(head, counts, delta_valid, mode_divide, weights_given,
+                          sticky_active, fin_idx, b)
+
+
+# The gate's classification in three stages, so that a column block of
+# the mesh's clusters axis runs the one stage that reads whole rows:
+# _classify_head (per row, from the changed columns' gathered values),
+# _refine_counts (per block: the exact top-K refinement's counts over
+# the block's columns, summed over the blocks) and _classify_tail (per
+# row).
+
+
+class _GateHead(NamedTuple):
+    fea_new_d: torch.Tensor  # bool[B, D]
+    fitflip: torch.Tensor   # bool[B]
+    dcpu: torch.Tensor      # bool[D]
+    dcpu_any: torch.Tensor  # bool[B]
+    kinf: torch.Tensor      # bool[B]
+    pf_d: torch.Tensor      # bool[B, D]
+    tot_new_d: torch.Tensor  # i64[B, D]
+    key_old: torch.Tensor   # i64[Nf, D] the changed columns' keys, finite rows
+    key_new: torch.Tensor
+    k_fin: torch.Tensor     # i32[Nf, 1] the finite rows' K, clamped to [0, C]
+
+
+def _classify_head(fea_new_d, pf_d, tot_old_d, res_old_d, res_new_d, delta_idx,
+                   delta_valid, delta_cpu, max_clusters, nfeas, fin_idx, c: int):
+    """The gate's per-row part before the refinement's counts: fit
+    flips, cpu-changed columns, kinf, the new totals at the changed
+    columns and their composite keys on the finite-K rows."""
+    b = pf_d.shape[0]
     valid = delta_valid[None, :]
     fitflip = ((fea_new_d != pf_d) & valid).any(dim=1)
     dcpu = delta_cpu & delta_valid
     dcpu_any = (pf_d & dcpu[None, :]).any(dim=1)
     # The top-K cut cannot engage: unlimited, K >= nfeas, or negative K.
     kinf = (max_clusters == _INF) | (max_clusters < 0) | (max_clusters >= nfeas)
-
-    tot_old_d = prev_scores[:, d_safe].to(torch.int64)
     tot_new_d = torch.where(pf_d, tot_old_d - res_old_d + res_new_d, 0)
+    ridx = torch.clamp(fin_idx.to(torch.int64), 0, max(b - 1, 0))
+    didx64 = delta_idx.to(torch.int64)
+    key_old = (-tot_old_d[ridx]) * c + didx64[None, :]   # [Nf, D]
+    key_new = (-tot_new_d[ridx]) * c + didx64[None, :]
+    k_fin = torch.clamp(max_clusters[ridx], 0, c)[:, None]
+    return _GateHead(fea_new_d, fitflip, dcpu, dcpu_any, kinf, pf_d, tot_new_d, key_old,
+                     key_new, k_fin)
 
-    if d <= DRIFT_REFINE_MAX_COLS:
+
+def _refine_counts(prev_feas, prev_scores, delta_idx, delta_valid, fin_idx, key_old,
+                   key_new, c0: int, c: int):
+    """The exact top-K refinement's counts over a block of columns
+    starting at global column ``c0`` (of ``c``): per finite row and
+    delta slot, the unchanged feasible columns whose (-total, index) key
+    beats the slot's old and new keys.  i32[Nf, D] each; summed over
+    the blocks they are the counts over the whole axis.  Scatters send
+    out-of-range slots to a spare last slot (no boolean indexing: that
+    would wait on the device)."""
+    b, cb = prev_feas.shape
+    d = delta_idx.shape[0]
+    device = prev_feas.device
+    local = delta_idx.to(torch.int64) - c0
+    is_delta = torch.zeros(cb + 1, dtype=torch.bool, device=device)
+    is_delta[torch.where((local >= 0) & (local < cb), local, cb)] = delta_valid
+    is_delta = is_delta[:cb]
+    ridx = torch.clamp(fin_idx.to(torch.int64), 0, max(b - 1, 0))
+    pf_g = prev_feas[ridx] != 0                          # [Nf, Cb]
+    iota = torch.arange(c0, c0 + cb, dtype=torch.int64, device=device)[None, :]
+    comp = (-prev_scores[ridx].to(torch.int64)) * c + iota
+    comp_u = torch.where(pf_g & ~is_delta[None, :], comp, _CERT_INF)
+
+    def counts(key_d):
+        return torch.stack(
+            [(comp_u < key_d[:, t : t + 1]).sum(dim=1, dtype=torch.int32) for t in range(d)],
+            dim=1,
+        )
+
+    return counts(key_old), counts(key_new)
+
+
+def _classify_tail(head: _GateHead, counts, delta_valid, mode_divide, weights_given,
+                   sticky_active, fin_idx, b: int):
+    """The gate's rows classified, given the refinement's counts over
+    the whole axis (None: the conservative rule past
+    DRIFT_REFINE_MAX_COLS).  Returns (i8[B] mask, i32[B, D] new totals)."""
+    device = head.pf_d.device
+    valid = delta_valid[None, :]
+    pf_d = head.pf_d
+    if counts is not None:
         # Exact top-K refinement over the finite-K rows: a delta
         # column's membership before and after, counted with the select
         # stage's comparator packed into one collision-free int64 key.
-        # Scatters send out-of-range slots to a spare last slot (no
-        # boolean indexing: that would wait on the device).
-        didx64 = delta_idx.to(torch.int64)
-        is_delta = torch.zeros(c + 1, dtype=torch.bool, device=device)
-        is_delta[torch.where(didx64 < c, didx64, c)] = delta_valid
-        is_delta = is_delta[:c]
         fin = fin_idx.to(torch.int64)
-        ridx = torch.clamp(fin, 0, b - 1)
-        pf_g = prev_feas[ridx] != 0                          # [Nf, C]
+        ridx = torch.clamp(fin, 0, max(b - 1, 0))
         pf_d_g = pf_d[ridx]                                  # [Nf, D]
-        iota = torch.arange(c, dtype=torch.int64, device=device)[None, :]
-        comp = (-prev_scores[ridx].to(torch.int64)) * c + iota
-        comp_u = torch.where(pf_g & ~is_delta[None, :], comp, _CERT_INF)
-        key_old = (-tot_old_d[ridx]) * c + didx64[None, :]   # [Nf, D]
-        key_new = (-tot_new_d[ridx]) * c + didx64[None, :]
         e_mask = (pf_d_g & valid)[:, :, None]
 
-        def above_counts(key_d):
-            cnt = torch.stack(
-                [
-                    (comp_u < key_d[:, t : t + 1]).sum(dim=1, dtype=torch.int32)
-                    for t in range(d)
-                ],
-                dim=1,
-            )
+        def above_counts(key_d, cnt):
             e_beats = key_d[:, :, None] < key_d[:, None, :]
             return cnt + (e_beats & e_mask).sum(dim=1, dtype=torch.int32)
 
-        k = torch.clamp(max_clusters[ridx], 0, c)[:, None]
-        member_old = pf_d_g & (above_counts(key_old) < k)
-        member_new = pf_d_g & (above_counts(key_new) < k)
+        k = head.k_fin
+        member_old = pf_d_g & (above_counts(head.key_old, counts[0]) < k)
+        member_new = pf_d_g & (above_counts(head.key_new, counts[1]) < k)
         sel_moved_g = ((member_old != member_new) & valid).any(dim=1)
         # Finite-K dynamic-weight rows whose selection touches a
         # cpu-changed column: the wcheck cannot decide them.
-        dyn_fin_g = ((member_old | member_new) & dcpu[None, :]).any(dim=1)
+        dyn_fin_g = ((member_old | member_new) & head.dcpu[None, :]).any(dim=1)
         exposed_g = sel_moved_g | (mode_divide[ridx] & ~weights_given[ridx] & dyn_fin_g)
         sel_exposed = torch.zeros(b + 1, dtype=torch.bool, device=device)
         sel_exposed[torch.where(fin < b, fin, b)] = exposed_g
         sel_exposed = sel_exposed[:b]
     else:
         # Conservative: any feasible delta column may cross the K cut.
-        sel_exposed = ((fea_new_d | pf_d) & valid).any(dim=1)
+        sel_exposed = ((head.fea_new_d | pf_d) & valid).any(dim=1)
 
-    recompute = ~sticky_active & (fitflip | (~kinf & sel_exposed))
+    recompute = ~sticky_active & (head.fitflip | (~head.kinf & sel_exposed))
     # Sound only where the selection is the feasible set (kinf).
     wcheck = (
-        ~sticky_active & ~recompute & kinf & mode_divide & ~weights_given & dcpu_any
+        ~sticky_active & ~recompute & head.kinf & mode_divide & ~weights_given
+        & head.dcpu_any
     )
     mask = (
         recompute.to(torch.int8) * DRIFT_RECOMPUTE
         + wcheck.to(torch.int8) * DRIFT_WCHECK
-        + (fitflip & ~sticky_active).to(torch.int8) * DRIFT_FITFLIP
+        + (head.fitflip & ~sticky_active).to(torch.int8) * DRIFT_FITFLIP
     )
-    return mask, tot_new_d.to(torch.int32)
+    return mask, head.tot_new_d.to(torch.int32)
 
 
 def _gate_tail(per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
@@ -1054,6 +1351,76 @@ def _gate_tail(per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
     )
 
 
+_GATE_PLANES = (
+    "api_ok", "taint_ok_new", "taint_ok_cur", "current_mask", "placement_ok",
+    "selector_ok", "webhook_ok",
+)
+
+
+def _dense_delta_filters(per_object: dict, planes_d: dict, alloc_new_d, used_new_d):
+    """New feasibility at the changed columns from the dense per-object
+    planes gathered there (``planes_d``, each [B, D])."""
+    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
+    fea_new_d, _ = F.combine_filters_explain(
+        per_object["filter_enabled"],
+        planes_d["api_ok"],
+        planes_d["taint_ok_new"],
+        planes_d["taint_ok_cur"],
+        planes_d["current_mask"],
+        fit_new,
+        per_object["placement_has"],
+        planes_d["placement_ok"],
+        planes_d["selector_ok"],
+    )
+    return fea_new_d & planes_d["webhook_ok"]
+
+
+def _delta_tables(tables: dict, d_safe) -> dict:
+    """The vocabulary tables' columns at the changed columns (the taint
+    tables whole): what the compact gate reads of them."""
+    return {
+        "api_matrix": tables["api_matrix"][:, d_safe],
+        "taint_set_id": tables["taint_set_id"][d_safe],
+        "taint_new": tables["taint_new"],
+        "taint_cur": tables["taint_cur"],
+        "sel_matrix": tables["sel_matrix"][:, d_safe],
+        "place_matrix": tables["place_matrix"][:, d_safe],
+    }
+
+
+def _compact_delta_filters(per_object: dict, tables_d: dict, delta_idx, alloc_new_d,
+                           used_new_d, cur_absent):
+    """(new feasibility at the changed columns, sticky_active) of
+    compact rows, from the tables' columns there (``_delta_tables``): a
+    D-column slice of ``expand_compact``, no [B, C] plane built."""
+    tol_id = per_object["tol_id"].long()
+    api = tables_d["api_matrix"][per_object["gvk_id"].long()]
+    trow = tables_d["taint_set_id"].long()
+    taint_new = tables_d["taint_new"][tol_id][:, trow]
+    taint_cur = tables_d["taint_cur"][tol_id][:, trow]
+    selector = tables_d["sel_matrix"][per_object["sel_id"].long()]
+    placement = tables_d["place_matrix"][per_object["place_id"].long()]
+    cur_present = per_object["sparse_cur"] != int(cur_absent)  # [B, P]
+    current_d = (
+        (per_object["sparse_idx"].to(torch.int64)[:, :, None]
+         == delta_idx.to(torch.int64)[None, None, :])
+        & cur_present[:, :, None]
+    ).any(dim=1)
+    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
+    fea_new_d, _ = F.combine_filters_explain(
+        per_object["filter_enabled"],
+        api,
+        taint_new,
+        taint_cur,
+        current_d,
+        fit_new,
+        per_object["placement_has"],
+        placement,
+        selector,
+    )
+    return fea_new_d, per_object["sticky"] & cur_present.any(dim=1)
+
+
 def drift_gate_dense(
     per_object: dict, prev_feas, prev_scores, alloc_old_d, used_old_d,
     alloc_new_d, used_new_d, delta_idx, delta_valid, delta_cpu, fin_idx, nfeas,
@@ -1068,19 +1435,8 @@ def drift_gate_dense(
     the changed columns' new totals, for ``refresh_scores``)."""
     c = prev_feas.shape[1]
     d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
-    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
-    fea_new_d, _ = F.combine_filters_explain(
-        per_object["filter_enabled"],
-        per_object["api_ok"][:, d_safe],
-        per_object["taint_ok_new"][:, d_safe],
-        per_object["taint_ok_cur"][:, d_safe],
-        per_object["current_mask"][:, d_safe],
-        fit_new,
-        per_object["placement_has"],
-        per_object["placement_ok"][:, d_safe],
-        per_object["selector_ok"][:, d_safe],
-    )
-    fea_new_d = fea_new_d & per_object["webhook_ok"][:, d_safe]
+    planes_d = {name: per_object[name][:, d_safe] for name in _GATE_PLANES}
+    fea_new_d = _dense_delta_filters(per_object, planes_d, alloc_new_d, used_new_d)
     sticky_active = per_object["sticky"] & per_object["current_mask"].any(dim=1)
     return _gate_tail(
         per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
@@ -1100,32 +1456,10 @@ def drift_gate_compact(
     Returns what ``drift_gate_dense`` returns."""
     c = prev_feas.shape[1]
     d_safe = torch.clamp(delta_idx.to(torch.int64), 0, c - 1)
-    tol_id = per_object["tol_id"].long()
-    api = tables["api_matrix"][:, d_safe][per_object["gvk_id"].long()]
-    trow = tables["taint_set_id"][d_safe].long()
-    taint_new = tables["taint_new"][tol_id][:, trow]
-    taint_cur = tables["taint_cur"][tol_id][:, trow]
-    selector = tables["sel_matrix"][:, d_safe][per_object["sel_id"].long()]
-    placement = tables["place_matrix"][:, d_safe][per_object["place_id"].long()]
-    cur_present = per_object["sparse_cur"] != int(cur_absent)  # [B, P]
-    current_d = (
-        (per_object["sparse_idx"].to(torch.int64)[:, :, None]
-         == delta_idx.to(torch.int64)[None, None, :])
-        & cur_present[:, :, None]
-    ).any(dim=1)
-    fit_new = F.resources_fit(per_object["request"], alloc_new_d, used_new_d)
-    fea_new_d, _ = F.combine_filters_explain(
-        per_object["filter_enabled"],
-        api,
-        taint_new,
-        taint_cur,
-        current_d,
-        fit_new,
-        per_object["placement_has"],
-        placement,
-        selector,
+    fea_new_d, sticky_active = _compact_delta_filters(
+        per_object, _delta_tables(tables, d_safe), delta_idx, alloc_new_d, used_new_d,
+        cur_absent,
     )
-    sticky_active = per_object["sticky"] & cur_present.any(dim=1)
     return _gate_tail(
         per_object, fea_new_d, sticky_active, prev_feas, prev_scores,
         alloc_old_d, used_old_d, alloc_new_d, used_new_d,

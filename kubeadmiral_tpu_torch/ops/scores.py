@@ -112,7 +112,15 @@ def normalize(scores, feasible, reverse: bool):
     clusters of each object: scale to [0,100] by the per-object max; if
     the max is 0 -> all 100 when reversed, else left as-is."""
     masked = torch.where(feasible, scores, 0)
-    max_count = masked.amax(dim=-1, keepdim=True)
+    return normalize_by(scores, feasible, reverse, masked.amax(dim=-1))
+
+
+def normalize_by(scores, feasible, reverse: bool, max_count):
+    """``normalize`` given each row's maximum of the masked scores
+    (``max_count`` [B]), which a column block of the cluster axis cannot
+    see whole: the rows' maxima over every block."""
+    masked = torch.where(feasible, scores, 0)
+    max_count = max_count.to(masked.dtype)[:, None]
     scaled = floordiv(MAX_CLUSTER_SCORE * masked, max_count)
     if reverse:
         scaled = MAX_CLUSTER_SCORE - scaled

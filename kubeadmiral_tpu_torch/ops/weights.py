@@ -27,15 +27,46 @@ def _round_half_div(num, den):
 
 def dynamic_weights(selected, cpu_alloc, cpu_avail):
     """selected bool[B,C]; cpu_alloc/cpu_avail i64[C] -> i32[B,C]
-    weights, zero outside the selection mask."""
+    weights, zero outside the selection mask.  The composition of the
+    split stages below on one block of the cluster axis."""
+    sums = weight_sums(selected, cpu_alloc, cpu_avail)
+    tmp = weight_shares(selected, cpu_alloc, cpu_avail, sums)
+    weight = weight_round(tmp, tmp.sum(dim=-1), selected)
+    residual, max_w, first = combine_peaks([weight_peak(weight, selected, 0)])
+    return weight_residual(weight, residual, max_w, first, 0)
+
+
+# -- the split stages ---------------------------------------------------------
+# On a column block of the mesh's clusters axis the weights need three
+# per-row reductions over every block: the selection's count and cpu
+# sums (weight_sums, summed), the shares' sum (weight_shares, summed),
+# and the rounding's sum, maximum and first column at the maximum
+# (weight_peak, combined by combine_peaks); weight_residual then hands
+# the residual to that column in its own block.
+
+_NO_COLUMN = 1 << 62  # weight_peak: no selected column at the maximum
+
+
+def weight_sums(selected, cpu_alloc, cpu_avail):
+    """i64[B, 3] over a block: the selected count, the selected
+    cpu_alloc sum and the selected positive cpu_avail sum."""
     sel = selected
-    cpu_alloc = cpu_alloc.to(torch.int64)
-    cpu_avail = cpu_avail.to(torch.int64)
-    n = torch.clamp(sel.sum(dim=-1, keepdim=True), min=1)
+    alloc = torch.where(sel, cpu_alloc.to(torch.int64)[None, :], 0)
+    avail_pos = torch.clamp(torch.where(sel, cpu_avail.to(torch.int64)[None, :], 0), min=0)
+    return torch.stack(
+        [sel.sum(dim=-1), alloc.sum(dim=-1), avail_pos.sum(dim=-1)], dim=-1
+    )
+
+
+def weight_shares(selected, cpu_alloc, cpu_avail, sums):
+    """The block's pre-rounding shares (i64), given ``sums``, the rows'
+    weight_sums over the whole cluster axis."""
+    sel = selected
+    n = torch.clamp(sums[:, 0:1], min=1)
+    alloc_sum, avail_sum = sums[:, 1:2], sums[:, 2:3]
 
     # CalcWeightLimit: allocatable-CPU share * 1000 * 1.4 (rsp.go:183-213).
-    alloc = torch.where(sel, cpu_alloc[None, :], 0)
-    alloc_sum = alloc.sum(dim=-1, keepdim=True)
+    alloc = torch.where(sel, cpu_alloc.to(torch.int64)[None, :], 0)
     equal = _round_half_div(torch.full_like(n, SUM_WEIGHT), n)
     limit = torch.where(
         alloc_sum == 0,
@@ -44,9 +75,8 @@ def dynamic_weights(selected, cpu_alloc, cpu_avail):
     )
 
     # AvailableToPercentage (rsp.go:215-272): available-CPU share, clamped.
-    avail = torch.where(sel, cpu_avail[None, :], 0)
+    avail = torch.where(sel, cpu_avail.to(torch.int64)[None, :], 0)
     avail_pos = torch.clamp(avail, min=0)
-    avail_sum = avail_pos.sum(dim=-1, keepdim=True)
     tmp = torch.where(
         avail_sum == 0,
         equal,
@@ -55,22 +85,54 @@ def dynamic_weights(selected, cpu_alloc, cpu_avail):
             limit,
         ),
     )
-    tmp = torch.where(sel, tmp, 0)
-    tmp_sum = tmp.sum(dim=-1, keepdim=True)
+    return torch.where(sel, tmp, 0)
+
+
+def weight_round(tmp, tmp_sum, selected):
+    """The block's rounded weights (i64), given ``tmp_sum`` [B], the
+    rows' share sums over the whole cluster axis."""
+    tmp_sum = tmp_sum[:, None]
     weight = torch.where(
         tmp_sum > 0,
         _round_half_div(tmp * SUM_WEIGHT, torch.clamp(tmp_sum, min=1)),
         0,
     )
-    weight = torch.where(sel, weight, 0)
+    return torch.where(selected, weight, 0)
 
-    # Residual of the second rounding pass goes to the heaviest cluster
-    # (first index on ties), clamped at zero.
-    residual = SUM_WEIGHT - weight.sum(dim=-1, keepdim=True)
-    max_w = weight.amax(dim=-1, keepdim=True)
-    at_max = (weight == max_w) & sel
-    is_first_max = (torch.cumsum(at_max.to(torch.int32), dim=-1) == 1) & at_max
+
+def weight_peak(weight, selected, c0: int):
+    """i64[B, 3] over a block starting at global column ``c0``: the
+    weights' sum, their maximum, and the first global column where a
+    selected weight equals that maximum (``_NO_COLUMN``: none)."""
+    max_w = weight.amax(dim=-1)
+    at_max = (weight == max_w[:, None]) & selected
+    first = torch.where(
+        at_max.any(dim=-1),
+        at_max.to(torch.int32).argmax(dim=-1).to(torch.int64) + c0,
+        _NO_COLUMN,
+    )
+    return torch.stack([weight.sum(dim=-1), max_w, first], dim=-1)
+
+
+def combine_peaks(peaks: list):
+    """The blocks' weight_peak partials in column order -> (residual,
+    maximum, first column at the maximum) per row: the residual of the
+    rounding goes to the heaviest selected cluster, first index on
+    ties."""
+    stack = torch.stack(peaks)  # [blocks, B, 3]
+    max_w = stack[:, :, 1].amax(dim=0)
+    first = torch.where(stack[:, :, 1] == max_w[None, :], stack[:, :, 2], _NO_COLUMN)
+    return SUM_WEIGHT - stack[:, :, 0].sum(dim=0), max_w, first.amin(dim=0)
+
+
+def weight_residual(weight, residual, max_w, first, c0: int):
+    """The block's final weights (i32): the residual added, clamped at
+    zero, at the row's first maximum where it lies in this block."""
+    iota = torch.arange(weight.shape[-1], dtype=torch.int64, device=weight.device) + c0
+    is_first_max = iota[None, :] == first[:, None]
     weight = torch.where(
-        is_first_max & (max_w > 0), torch.clamp(weight + residual, min=0), weight
+        is_first_max & (max_w > 0)[:, None],
+        torch.clamp(weight + residual[:, None], min=0),
+        weight,
     )
     return weight.to(torch.int32)

@@ -30,19 +30,43 @@ stream waits for the lane's stream, so work queued outside ``run_rows``
 (a holder's gathers, scatters and reads, on the current streams) is
 ordered after the lanes' and before their next programs.
 
-The clusters axis holds no work here.  JAX's GSPMD turns the per-row
-normalize maxima, top-K and planner scans over a sharded cluster axis
-into collectives, measured about 11x slower there, and the JAX engine
-gives that axis devices only past 64 of them (``_resolve_mesh``).  The
-port runs each program on whole rows on the first device of the
-objects shard, so no sort or scan ever runs across devices, and the
-other entries of a clusters-axis row stay idle.
-"""
+The clusters axis splits the cluster columns, as the JAX module's grid
+layout does (every ``[B, C]`` field ``P(OBJECTS, CLUSTERS)``).  Under a
+mesh of shape (No, Nc) with Nc > 1, a ``GridShards`` holds a ``[B, C]``
+plane as one piece per entry (i, j): objects shard i's rows, column
+block ``col_bounds(C, Nc)[j]`` of the padded cluster axis, on
+``devices[i, j]``.  The per-row ``[B, ...]`` inputs are held on every
+entry of their row (``RowReplicas``), as the JAX module replicates them
+over the clusters axis, so each block reads its own copy.  The ``[B]``
+vectors of the state, which only kinds 2 and 4 read, stay ``RowShards``
+on entry (i, 0).  Every program falls in one of four kinds, each with
+its runner:
+
+1. cell-local, per entry on its device and stream: ``run_grid`` (a
+   ``GridShards`` argument gives the entry its own piece; a cluster
+   table its column block; the outputs come back as ``Blocks``, one
+   value per entry, and ``Blocks.grid()`` holds planes as a
+   ``GridShards``);
+2. per-row reductions and 3. per-row sorts and merges: each block's
+   small ``[rows, k]`` partials go to entry (i, 0), where ``run_rows``
+   hands a ``Blocks`` argument to the program as the list of the
+   row's blocks in column order (``ops.pipeline``'s ``reduce_blocks``
+   and ``merge_topk`` are the common combinations); the results are
+   ``RowShards`` that a later ``run_grid`` sends back to the blocks;
+4. whole-row programs: ``run_whole`` gathers the rows' columns on entry
+   (i, 0) (``GridShards.lane``), runs the program there and splits its
+   ``[rows, C]`` outputs back into the blocks (the JAX module's
+   ``rows_only_sharding``).
+
+No program of kinds 1-3 receives a whole ``[rows, C]`` plane.  With
+Nc = 1 nothing here changes: ``run_rows`` runs each program on whole
+rows of entry (i, 0), as before."""
 
 from __future__ import annotations
 
+import weakref
 from contextlib import ExitStack
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -153,10 +177,40 @@ class Mesh:
             grid[k // clusters_axis, k % clusters_axis] = dev
         self.devices = grid
         self._streams: dict[tuple, torch.cuda.Stream] = {}
+        # Each cluster table's column blocks on the entries' devices, by
+        # the table's id, kept while the table lives (``column_block``).
+        self._blocks: dict[int, dict] = {}
 
     @property
     def shape(self) -> tuple[int, int]:
         return tuple(int(d) for d in self.devices.shape)
+
+    def column_block(self, t: torch.Tensor, axis: int, c0: int, c1: int, i: int, j: int):
+        """Columns [c0, c1) of a cluster table ``t`` (along ``axis``) on
+        entry (i, j)'s device: a view where the table lies there, else a
+        copy made at first use and kept while the table lives, so that
+        every entry holds its own block of the tables it reads."""
+        block = t.narrow(axis, c0, c1 - c0)
+        dev = self.devices[i, j]
+        if t.device == dev:
+            return block
+        per_table = self._blocks.get(id(t))
+        if per_table is None:
+            per_table = self._blocks[id(t)] = {}
+            weakref.finalize(t, self._blocks.pop, id(t), None)
+        key = (axis, c0, c1, str(dev))
+        got = per_table.get(key)
+        if got is None:
+            got = per_table[key] = block.to(dev, non_blocking=True).contiguous()
+        return got
+
+    def entry_label(self, i: int, j: int) -> str:
+        """What entry (i, j)'s bytes book under on a mesh with a
+        clusters axis: its device, or ``"<device>/<i>.<j>"`` where
+        entries share one."""
+        devs = [str(d) for d in self.devices.ravel()]
+        dev = str(self.devices[i, j])
+        return f"{dev}/{i}.{j}" if len(set(devs)) < len(devs) else dev
 
     def stream(self, i: int, j: int = 0):
         """The CUDA stream of entry (i, j), or None on the CPU."""
@@ -204,6 +258,19 @@ def row_bounds(n: int, parts: int) -> list[tuple[int, int]]:
         out.append((lo, hi))
         lo = hi
     return out
+
+
+def col_bounds(c: int, parts: int) -> list[tuple[int, int]]:
+    """The column blocks of a padded cluster axis of ``c`` columns over
+    ``parts`` entries of the clusters axis (``row_bounds``' split)."""
+    return row_bounds(c, parts)
+
+
+def clusters_axis_size(mesh: Optional["Mesh"]) -> int:
+    """Device count along the clusters axis (1 for no mesh)."""
+    if mesh is None:
+        return 1
+    return int(mesh.devices.shape[1])
 
 
 def on_lane(device: torch.device, stream) -> ExitStack:
@@ -278,6 +345,17 @@ def _take(pieces: list, bounds: list, rows: np.ndarray, device) -> torch.Tensor:
     return out
 
 
+def _slice_rows(pieces: list, bounds: list, a: int, b: int) -> tuple[list, list]:
+    """Rows [a, b) of a holder's pieces: (the pieces' views, their row
+    ranges from 0)."""
+    out, out_bounds = [], []
+    for p, (lo, hi) in zip(pieces, bounds):
+        s, e = min(max(lo, a), b), min(max(hi, a), b)
+        out.append(p[s - lo : e - lo] if e > s else p[:0])
+        out_bounds.append((s - a, max(s, e) - a))
+    return out, out_bounds
+
+
 class RowShards:
     """One ``[B, ...]`` tensor held as one piece per lane of ``mesh``
     (piece i on ``mesh.devices[i, 0]``), piece i holding rows
@@ -313,11 +391,16 @@ class RowShards:
         )
 
     @classmethod
-    def zeros(cls, like: "RowShards", dtype) -> "RowShards":
-        """A zero ``[B]`` vector laid out as ``like``'s rows."""
+    def zeros(cls, like, dtype) -> "RowShards":
+        """A zero ``[B]`` vector laid out as ``like``'s rows (a holder of
+        either kind)."""
+        devices = [like.mesh.devices[i, 0] for i in range(len(like.bounds))]
         return cls(
             like.mesh,
-            [torch.zeros(p.shape[0], dtype=dtype, device=p.device) for p in like.pieces],
+            [
+                torch.zeros(hi - lo, dtype=dtype, device=dev)
+                for dev, (lo, hi) in zip(devices, like.bounds)
+            ],
             like.bounds,
         )
 
@@ -354,12 +437,7 @@ class RowShards:
         if not isinstance(key, slice) or key.step not in (None, 1):
             raise TypeError(f"RowShards takes a row slice or a RowIndex, not {key!r}")
         a, b, _ = key.indices(len(self))
-        b = max(a, b)
-        pieces, bounds = [], []
-        for p, (lo, hi) in zip(self.pieces, self.bounds):
-            s, e = min(max(lo, a), b), min(max(hi, a), b)
-            pieces.append(p[s - lo : e - lo] if e > s else p[:0])
-            bounds.append((s - a, max(s, e) - a))
+        pieces, bounds = _slice_rows(self.pieces, self.bounds, a, max(a, b))
         return RowShards(self.mesh, pieces, bounds)
 
     def __setitem__(self, key, src) -> None:
@@ -412,11 +490,291 @@ class RowShards:
         return [f"{d}/{i}" if shared else d for i, d in enumerate(devs)]
 
 
+class RowReplicas(RowShards):
+    """A per-row ``[B, ...]`` input held on every entry of its objects
+    shard's row, as the JAX module replicates the per-row fields over
+    the clusters axis: ``copies[j][i]`` holds rows ``bounds[i]`` on
+    ``mesh.devices[i, j]``.  As a ``RowShards`` it is its lanes' copy
+    (``copies[0]``): what kinds 2-4 read on entry (i, 0).  A cell-local
+    program on (i, j) reads its own copy (``_cell_piece``), so nothing
+    moves between entries; a row gather or scatter runs on every copy
+    on its own entries.  ``nbytes`` counts one copy (the logical
+    tensor); ``entries`` lists every copy."""
+
+    def __init__(self, mesh: "Mesh", copies: list, bounds: list):
+        super().__init__(mesh, copies[0], bounds)
+        self.copies = [list(c) for c in copies]
+        self.pieces = self.copies[0]
+
+    @classmethod
+    def from_host(cls, mesh: "Mesh", arr) -> "RowReplicas":
+        """A host array split by rows, one host-to-device copy per entry
+        straight to its device, all from one host copy."""
+        host = tensor(arr, "cpu")
+        if any(torch.device(d).type == "cuda" for d in mesh.devices.ravel()):
+            host = host.pin_memory()
+        no, nc = mesh.devices.shape
+        bounds = row_bounds(host.shape[0], no)
+        return cls(
+            mesh,
+            [
+                [
+                    host[lo:hi].to(mesh.devices[i, j], non_blocking=True, copy=True)
+                    for i, (lo, hi) in enumerate(bounds)
+                ]
+                for j in range(nc)
+            ],
+            bounds,
+        )
+
+    def copy(self, j: int) -> RowShards:
+        """Column j's copy as a row holder."""
+        return RowShards(self.mesh, self.copies[j], self.bounds)
+
+    def map(self, fn: Callable) -> "RowReplicas":
+        return RowReplicas(self.mesh, [[fn(p) for p in c] for c in self.copies], self.bounds)
+
+    def __getitem__(self, key):
+        if isinstance(key, RowIndex):
+            return self.index_select(0, key)
+        if not isinstance(key, slice) or key.step not in (None, 1):
+            raise TypeError(f"RowReplicas takes a row slice or a RowIndex, not {key!r}")
+        a, b, _ = key.indices(len(self))
+        sliced = [_slice_rows(c, self.bounds, a, max(a, b)) for c in self.copies]
+        return RowReplicas(self.mesh, [p for p, _b in sliced], sliced[0][1])
+
+    def index_select(self, dim: int, idx: RowIndex) -> "RowReplicas":
+        """Rows ``idx``, every copy gathered on its own entries."""
+        if dim != 0:
+            raise ValueError("RowReplicas selects rows only")
+        rows = idx.rows
+        bounds = row_bounds(rows.size, self.mesh.devices.shape[0])
+        return RowReplicas(
+            self.mesh,
+            [
+                [
+                    _take(c, self.bounds, rows[lo:hi], self.mesh.devices[i, j])
+                    for i, (lo, hi) in enumerate(bounds)
+                ]
+                for j, c in enumerate(self.copies)
+            ],
+            bounds,
+        )
+
+    def index_copy_(self, dim: int, idx: RowIndex, src) -> "RowReplicas":
+        """Rows of ``src`` written into rows ``idx`` of every copy (from
+        the same copy of ``src`` where it is replicated too)."""
+        for j in range(len(self.copies)):
+            part = src.copy(j) if isinstance(src, RowReplicas) else src
+            self.copy(j).index_copy_(dim, idx, part)
+        return self
+
+    def entries(self) -> list[tuple[str, torch.Tensor]]:
+        """(label, piece) per entry, row-major (``Mesh.entry_label``)."""
+        return [
+            (self.mesh.entry_label(i, j), c[i])
+            for i in range(len(self.bounds))
+            for j, c in enumerate(self.copies)
+        ]
+
+
+# -- the grid: [B, C] planes split by rows and columns ------------------------
+class GridShards:
+    """One ``[B, C]`` plane held as one piece per mesh entry: piece
+    ``pieces[r][j]`` holds rows ``bounds[r]`` (contiguous, in order) and
+    columns ``cols[j]`` (``col_bounds``), on ``mesh.devices[r, j]``.  A
+    concatenation of holders (``cat_rows``) has more row pieces than
+    lanes and serves only as a source of ``index_select``."""
+
+    def __init__(self, mesh: "Mesh", pieces: list, bounds: list, cols: list):
+        self.mesh = mesh
+        self.pieces = [list(row) for row in pieces]
+        self.bounds = [tuple(b) for b in bounds]
+        self.cols = [tuple(c) for c in cols]
+        if self.bounds[0][0] != 0:
+            raise ValueError("a holder's rows start at 0")
+
+    # -- building ---------------------------------------------------------
+    @classmethod
+    def from_host(cls, mesh: "Mesh", arr) -> "GridShards":
+        """A host ``[B, C]`` array split by rows and columns, one
+        host-to-device copy per entry straight to its device."""
+        host = tensor(arr, "cpu")
+        if any(torch.device(d).type == "cuda" for d in mesh.devices.ravel()):
+            host = host.pin_memory()
+        no, nc = mesh.devices.shape
+        bounds = row_bounds(host.shape[0], no)
+        cols = col_bounds(host.shape[1], nc)
+        return cls(
+            mesh,
+            [
+                [
+                    host[lo:hi, c0:c1].to(mesh.devices[i, j], non_blocking=True, copy=True)
+                    for j, (c0, c1) in enumerate(cols)
+                ]
+                for i, (lo, hi) in enumerate(bounds)
+            ],
+            bounds,
+            cols,
+        )
+
+    @classmethod
+    def split(cls, mesh: "Mesh", lanes: list, bounds: list) -> "GridShards":
+        """Whole-row ``[rows, C]`` tensors, one per lane, split into the
+        lanes' column blocks on their entries (a kind-4 program's
+        output going back to the blocks)."""
+        cols = col_bounds(int(lanes[0].shape[1]), mesh.devices.shape[1])
+        return cls(
+            mesh,
+            [
+                [
+                    t[:, c0:c1].to(mesh.devices[i, j], non_blocking=True).contiguous()
+                    for j, (c0, c1) in enumerate(cols)
+                ]
+                for i, t in enumerate(lanes)
+            ],
+            bounds,
+            cols,
+        )
+
+    # -- tensor-like surface ------------------------------------------------
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((self.bounds[-1][1], self.cols[-1][1]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0][0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for row in self.pieces for p in row)
+
+    def __len__(self) -> int:
+        return self.bounds[-1][1]
+
+    def map(self, fn: Callable) -> "GridShards":
+        """``fn`` on every piece (a cell-wise function)."""
+        return GridShards(
+            self.mesh, [[fn(p) for p in row] for row in self.pieces], self.bounds, self.cols
+        )
+
+    def to(self, dtype) -> "GridShards":
+        return self.map(lambda p: p.to(dtype))
+
+    def clone(self) -> "GridShards":
+        return self.map(torch.clone)
+
+    def column(self, j: int) -> RowShards:
+        """Column block j as a row holder over its pieces (the gathers
+        and scatters by row work block by block)."""
+        return RowShards(self.mesh, [row[j] for row in self.pieces], self.bounds)
+
+    @classmethod
+    def of_columns(cls, blocks: list, cols: list) -> "GridShards":
+        """The inverse of ``column``: one row holder per column block."""
+        first = blocks[0]
+        return cls(
+            first.mesh,
+            [list(row) for row in zip(*(b.pieces for b in blocks))],
+            first.bounds,
+            cols,
+        )
+
+    def __getitem__(self, key):
+        if isinstance(key, RowIndex):
+            return self.index_select(0, key)
+        blocks = [self.column(j)[key] for j in range(len(self.cols))]
+        return GridShards.of_columns(blocks, self.cols)
+
+    def __setitem__(self, key, src) -> None:
+        if not isinstance(key, RowIndex):
+            raise TypeError(f"GridShards assigns through a RowIndex, not {key!r}")
+        self.index_copy_(0, key, src)
+
+    def index_select(self, dim: int, idx: RowIndex) -> "GridShards":
+        """Rows ``idx`` laid out as ``row_bounds(len(idx), No)``: each
+        entry takes its share of the index, in its own column block,
+        from the entries that own the rows."""
+        if dim != 0:
+            raise ValueError("GridShards selects rows only")
+        rows = idx.rows
+        bounds = row_bounds(rows.size, self.mesh.devices.shape[0])
+        return GridShards(
+            self.mesh,
+            [
+                [
+                    _take([row[j] for row in self.pieces], self.bounds, rows[lo:hi],
+                          self.mesh.devices[i, j])
+                    for j in range(len(self.cols))
+                ]
+                for i, (lo, hi) in enumerate(bounds)
+            ],
+            bounds,
+            self.cols,
+        )
+
+    def index_copy_(self, dim: int, idx: RowIndex, src: "GridShards") -> "GridShards":
+        """Write rows of ``src`` (a grid holder over the index's
+        positions, in the same column blocks) into rows ``idx``, block by
+        block."""
+        if dim != 0:
+            raise ValueError("GridShards copies rows only")
+        if not isinstance(src, GridShards) or src.cols != self.cols:
+            raise ValueError("GridShards copies rows of a holder in its own column blocks")
+        for j in range(len(self.cols)):
+            self.column(j).index_copy_(0, idx, src.column(j))
+        return self
+
+    def index_copy_cols_(self, cols: np.ndarray, values: RowShards) -> "GridShards":
+        """Write ``values`` ([B, >= len(cols)] per row, on the lanes) into
+        the global columns ``cols`` (host int64), each column routed to
+        the block that owns it."""
+        for j, (c0, c1) in enumerate(self.cols):
+            pos = np.nonzero((cols >= c0) & (cols < c1))[0]
+            if not pos.size:
+                continue
+            for i, row in enumerate(self.pieces):
+                piece = row[j]
+                local = tensor(cols[pos] - c0, piece.device)
+                vals = values.pieces[i].index_select(1, tensor(pos, values.pieces[i].device))
+                piece.index_copy_(1, local, vals.to(piece.device).to(piece.dtype))
+        return self
+
+    # -- whole rows (kind 4) and the host read -----------------------------
+    def lane(self, i: int) -> torch.Tensor:
+        """Lane i's rows, every column, joined on entry (i, 0): what a
+        whole-row program (``run_whole``) reads, and nothing else."""
+        dev = self.mesh.devices[i, 0]
+        return torch.cat([p.to(dev, non_blocking=True) for p in self.pieces[i]], dim=1)
+
+    def numpy(self) -> np.ndarray:
+        """Each entry's piece copied to the host, joined there in row and
+        column order."""
+        return np.concatenate(
+            [np.concatenate([p.cpu().numpy() for p in row], axis=1) for row in self.pieces]
+        )
+
+    def entries(self) -> list[tuple[str, torch.Tensor]]:
+        """(label, piece) per entry, row-major (``Mesh.entry_label``)."""
+        return [
+            (self.mesh.entry_label(i, j), p)
+            for i, row in enumerate(self.pieces)
+            for j, p in enumerate(row)
+        ]
+
+
 def cat_rows(parts: list):
     """Several row-wise values end to end: tensors concatenated; holders
     as one holder of all their pieces (a gather source)."""
+    if isinstance(parts[0], GridShards):
+        blocks = [cat_rows([h.column(j) for h in parts]) for j in range(len(parts[0].cols))]
+        return GridShards.of_columns(blocks, parts[0].cols)
     if not isinstance(parts[0], RowShards):
         return torch.cat(parts)
+    if all(isinstance(h, RowReplicas) for h in parts):
+        copies = [cat_rows([h.copy(j) for h in parts]) for j in range(len(parts[0].copies))]
+        return RowReplicas(parts[0].mesh, [c.pieces for c in copies], copies[0].bounds)
     pieces, bounds, off = [], [], 0
     for h in parts:
         for p, (lo, hi) in zip(h.pieces, h.bounds):
@@ -426,9 +784,36 @@ def cat_rows(parts: list):
     return RowShards(parts[0].mesh, pieces, bounds)
 
 
+class Blocks:
+    """Per-entry values of a cell-local program (``run_grid``):
+    ``values[i][j]`` on entry (i, j)'s device, None where the entry ran
+    nothing; the rows are ``bounds[i]``, the columns ``cols[j]``."""
+
+    def __init__(self, mesh: "Mesh", values: list, bounds: list, cols: list):
+        self.mesh = mesh
+        self.values = values
+        self.bounds = [tuple(b) for b in bounds]
+        self.cols = [tuple(c) for c in cols]
+
+    def grid(self) -> GridShards:
+        """The per-entry ``[rows, cols]`` tensors as a plane holder (an
+        entry that ran nothing: an empty piece)."""
+        ref = next(v for row in self.values for v in row if v is not None)
+        pieces = [
+            [
+                v if v is not None
+                else torch.empty((0, c1 - c0) + tuple(ref.shape[2:]), dtype=ref.dtype,
+                                 device=self.mesh.devices[i, j])
+                for j, (v, (c0, c1)) in enumerate(zip(row, self.cols))
+            ]
+            for i, row in enumerate(self.values)
+        ]
+        return GridShards(self.mesh, pieces, self.bounds, self.cols)
+
+
 def _holders(value, found: list) -> list:
-    """Every RowShards inside a row argument (tensor, dict, NamedTuple)."""
-    if isinstance(value, RowShards):
+    """Every holder inside a row argument (tensor, dict, NamedTuple)."""
+    if isinstance(value, (RowShards, GridShards, Blocks)):
         found.append(value)
     elif isinstance(value, dict):
         for v in value.values():
@@ -446,7 +831,9 @@ def _specs_of(value) -> Optional[dict]:
         return None
     if set(fields) <= set(_FIELD_SPECS):
         return _FIELD_SPECS
-    return _COMPACT_FIELD_SPECS
+    if set(fields) <= set(_COMPACT_FIELD_SPECS):
+        return _COMPACT_FIELD_SPECS
+    return None
 
 
 def _place(t, device, stream):
@@ -464,25 +851,39 @@ def _place(t, device, stream):
     return t.to(device, non_blocking=True)
 
 
-def _rows_piece(value, i: int, lo: int, hi: int, device, stream):
+def _rows_piece(value, i: int, lo: int, hi: int, device, stream, whole_rows: bool = False):
     """Lane ``i``'s rows [lo, hi) of a row-sharded argument on its
     device: a holder's own piece (in place), a RowIndex's positions, a
     tensor's rows, a dict of them, or a TickInputs/CompactInputs (fields
-    split by their table's spec, the rest placed whole); None stays."""
+    split by their table's spec, the rest placed whole); None stays.  A
+    ``Blocks`` gives the list of the row's per-entry values, moved to
+    the lane's device; a ``GridShards`` its whole rows (``whole_rows``,
+    kind 4 only)."""
     if value is None:
         return None
     if isinstance(value, RowShards):
         return value.pieces[i]
+    if isinstance(value, GridShards):
+        if not whole_rows:
+            raise TypeError("a [B, C] grid plane goes whole to a lane only in run_whole")
+        return value.lane(i)
+    if isinstance(value, Blocks):
+        return [None if v is None else _place(v, device, stream) for v in value.values[i]]
     if isinstance(value, RowIndex):
         return value.on(device, lo, hi)
     if isinstance(value, torch.Tensor):
         return _place(value[lo:hi], device, stream)
     if isinstance(value, dict):
-        return {k: _rows_piece(v, i, lo, hi, device, stream) for k, v in value.items()}
+        return {
+            k: _rows_piece(v, i, lo, hi, device, stream, whole_rows) for k, v in value.items()
+        }
     specs = _specs_of(value)
+    if specs is None:
+        parts = (_rows_piece(v, i, lo, hi, device, stream, whole_rows) for v in value)
+        return type(value)(*parts) if hasattr(value, "_fields") else tuple(parts)
     return type(value)(
         **{
-            name: _rows_piece(v, i, lo, hi, device, stream)
+            name: _rows_piece(v, i, lo, hi, device, stream, whole_rows)
             if specs.get(name, (None,))[:1] == (OBJECTS,)
             else _place(v, device, stream)
             for name, v in value._asdict().items()
@@ -504,11 +905,13 @@ def leading_rows(value) -> int:
     raise ValueError("no row-sharded field")
 
 
-def _keep(parts: list, mesh: Mesh, ranges: list):
+def _keep(parts: list, mesh: Mesh, ranges: list, cols: Optional[int] = None):
     """Per-lane outputs of one structure as holders on ``ranges``
     (tensors; tuples and NamedTuples field by field; None stays; other
     values from the first lane).  A lane that ran nothing (None in
-    ``parts``) gets an empty piece of the same trailing shape."""
+    ``parts``) gets an empty piece of the same trailing shape.  With
+    ``cols``, a ``[rows, cols]`` tensor is split into the lanes' column
+    blocks (``GridShards``)."""
     first = next((p for p in parts if p is not None), None)
     if first is None:
         return None
@@ -519,16 +922,57 @@ def _keep(parts: list, mesh: Mesh, ranges: list):
                              device=mesh.devices[i, 0])
             for i, p in enumerate(parts)
         ]
+        if cols is not None and first.dim() == 2 and first.shape[1] == cols:
+            return GridShards.split(mesh, pieces, ranges)
         return RowShards(mesh, pieces, ranges)
     if isinstance(first, (tuple, list)):
         kept = [
-            _keep([None if p is None else p[k] for p in parts], mesh, ranges)
+            _keep([None if p is None else p[k] for p in parts], mesh, ranges, cols)
             for k in range(len(first))
         ]
         if isinstance(first, list):
             return kept
         return type(first)(*kept) if hasattr(first, "_fields") else tuple(kept)
     return first
+
+
+def _row_ranges(mesh: Mesh, rows: tuple) -> tuple[int, list]:
+    """(row count, the lanes' row ranges) of a program's row arguments:
+    the holders' (which must agree), else ``row_bounds``."""
+    held = [h for a in rows for h in _holders(a, [])]
+    if held:
+        ranges = held[0].bounds
+        n = ranges[-1][1]
+    else:
+        n = leading_rows(next(a for a in rows if a is not None))
+        ranges = row_bounds(n, mesh.devices.shape[0])
+    for h in held:
+        lanes = len(h.pieces) if not isinstance(h, Blocks) else len(h.values)
+        if h.bounds != ranges or lanes != mesh.devices.shape[0]:
+            raise ValueError(f"holders on other rows: {h.bounds} against {ranges}")
+    return n, ranges
+
+
+def _on_lanes(mesh: Mesh, fn: Callable, rows: tuple, whole: tuple, bounds: bool,
+              kw: dict, whole_rows: bool, cols: Optional[int]):
+    n, ranges = _row_ranges(mesh, rows)
+    parts, waits = [], []
+    for i, (lo, hi) in enumerate(ranges):
+        # A lane with no row runs nothing (on an empty batch, the first
+        # lane runs once, so the output has its structure).
+        if hi == lo and (n > 0 or i > 0):
+            parts.append(None)
+            continue
+        dev, stream = mesh.devices[i, 0], mesh.stream(i, 0)
+        with on_lane(dev, stream):
+            pieces = [_rows_piece(a, i, lo, hi, dev, stream, whole_rows) for a in rows]
+            rest = [_place(a, dev, stream) for a in whole]
+            parts.append(fn(*((lo, hi) if bounds else ()), *pieces, *rest, **kw))
+        if stream is not None:
+            waits.append((dev, stream))
+    for dev, stream in waits:
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return _keep(parts, mesh, ranges, cols)
 
 
 def run_rows(mesh: Mesh, fn: Callable, rows: tuple, whole: tuple = (),
@@ -539,31 +983,132 @@ def run_rows(mesh: Mesh, fn: Callable, rows: tuple, whole: tuple = (),
     argument; ``whole`` arguments go to every shard.  The shards' rows
     are the holders' (``RowShards`` arguments are taken in place, piece
     by piece, and must share their rows), else ``row_bounds``; a shard
-    with no row runs nothing.  The outputs are returned as holders on
-    those rows, and every lane device's current stream waits for the
-    shards' streams.  With ``bounds`` the shard's row range (lo, hi)
-    leads ``fn``'s arguments.  Nothing here waits on the host."""
-    lead = next(a for a in rows if a is not None)
-    held = [h for a in rows for h in _holders(a, [])]
-    n = leading_rows(lead)
-    ranges = held[0].bounds if held else row_bounds(n, mesh.devices.shape[0])
-    for h in held:
-        if h.bounds != ranges or len(h.pieces) != mesh.devices.shape[0]:
-            raise ValueError(f"holders on other rows: {h.bounds} against {ranges}")
+    with no row runs nothing.  A ``Blocks`` argument (a cell-local
+    program's per-entry partials) comes as the list of the row's blocks
+    in column order: the kind-2 and kind-3 combinations.  A
+    ``GridShards`` plane is refused (``run_whole`` takes it).  The
+    outputs are returned as holders on those rows, and every lane
+    device's current stream waits for the shards' streams.  With
+    ``bounds`` the shard's row range (lo, hi) leads ``fn``'s arguments.
+    Nothing here waits on the host."""
+    return _on_lanes(mesh, fn, rows, whole, bounds, kw, False, None)
+
+
+def run_whole(mesh: Mesh, fn: Callable, rows: tuple, whole: tuple = (), cols=None,
+              bounds: bool = False, **kw):
+    """A whole-row program (kind 4): ``run_rows``, with every
+    ``GridShards`` argument gathered as the lane's whole rows on entry
+    (i, 0); with ``cols`` (the padded cluster axis), each ``[rows,
+    cols]`` output goes back to the blocks as a ``GridShards``."""
+    return _on_lanes(mesh, fn, rows, whole, bounds, kw, True, cols)
+
+
+class Cell(NamedTuple):
+    """Where a cell-local program runs: entry (i, j), its rows [lo, hi)
+    and columns [c0, c1) of a cluster axis of ``c`` columns."""
+
+    i: int
+    j: int
+    lo: int
+    hi: int
+    c0: int
+    c1: int
+    c: int
+
+
+def _cell_piece(value, cell: Cell, device, stream, mesh: "Mesh"):
+    """Entry ``cell``'s part of a ``run_grid`` argument on its device:
+    a grid plane's, a ``Blocks``' or a ``RowReplicas``' own piece, a
+    row holder's rows (moved to the entry: a kind-2 result going back
+    to the blocks), a TickInputs/CompactInputs split by its
+    table's spec (the cluster tables by their column block:
+    ``Mesh.column_block``), a dict or tuple field by field; a tensor
+    goes whole."""
+    if value is None:
+        return None
+    if isinstance(value, GridShards):
+        return value.pieces[cell.i][cell.j]
+    if isinstance(value, Blocks):
+        return value.values[cell.i][cell.j]
+    if isinstance(value, RowReplicas):
+        return value.copies[cell.j][cell.i]
+    if isinstance(value, RowShards):
+        return _place(value.pieces[cell.i], device, stream)
+    if isinstance(value, dict):
+        return {k: _cell_piece(v, cell, device, stream, mesh) for k, v in value.items()}
+    specs = _specs_of(value)
+    if specs is not None:
+        out = {}
+        for name, v in value._asdict().items():
+            spec = specs.get(name, (None,))
+            if isinstance(v, torch.Tensor) and CLUSTERS in spec:
+                # A cluster table: the entry's own column block.
+                out[name] = mesh.column_block(v, spec.index(CLUSTERS), cell.c0, cell.c1,
+                                              cell.i, cell.j)
+                continue
+            out[name] = _cell_piece(v, cell, device, stream, mesh)
+        return type(value)(**out)
+    if isinstance(value, tuple):
+        parts = (_cell_piece(v, cell, device, stream, mesh) for v in value)
+        return type(value)(*parts) if hasattr(value, "_fields") else tuple(parts)
+    if isinstance(value, torch.Tensor):
+        return _place(value, device, stream)
+    return value
+
+
+def _keep_blocks(parts: list, mesh: Mesh, ranges: list, cols: list):
+    """Per-entry outputs of one structure: each tensor leaf as a
+    ``Blocks``; dicts, tuples and NamedTuples field by field; None
+    stays."""
+    first = next((v for row in parts for v in row if v is not None), None)
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return Blocks(mesh, parts, ranges, cols)
+    if isinstance(first, dict):
+        return {
+            k: _keep_blocks([[None if v is None else v[k] for v in row] for row in parts],
+                            mesh, ranges, cols)
+            for k in first
+        }
+    if isinstance(first, (tuple, list)):
+        kept = [
+            _keep_blocks([[None if v is None else v[k] for v in row] for row in parts],
+                         mesh, ranges, cols)
+            for k in range(len(first))
+        ]
+        if isinstance(first, list):
+            return kept
+        return type(first)(*kept) if hasattr(first, "_fields") else tuple(kept)
+    return first
+
+
+def run_grid(mesh: Mesh, fn: Callable, c: int, *args):
+    """A cell-local program (kind 1): ``fn(cell, *pieces)`` on every
+    entry (i, j) of ``mesh``, on its device and stream, over objects
+    shard i's rows and column block j of a padded cluster axis of ``c``
+    columns (``col_bounds``).  Each argument gives the entry its part
+    (``_cell_piece``); the rows are the holders' (they must agree).  An
+    entry with no row runs nothing.  Returns the outputs' structure with
+    every tensor a ``Blocks``; every entry device's current stream then
+    waits for the entries' streams."""
+    n, ranges = _row_ranges(mesh, tuple(a for a in args if _holders(a, [])))
+    cols = col_bounds(c, mesh.devices.shape[1])
     parts, waits = [], []
     for i, (lo, hi) in enumerate(ranges):
-        # A lane with no row runs nothing (on an empty batch, the first
-        # lane runs once, so the output has its structure).
-        if hi == lo and (n > 0 or i > 0):
-            parts.append(None)
-            continue
-        dev, stream = mesh.devices[i, 0], mesh.stream(i, 0)
-        with on_lane(dev, stream):
-            pieces = [_rows_piece(a, i, lo, hi, dev, stream) for a in rows]
-            rest = [_place(a, dev, stream) for a in whole]
-            parts.append(fn(*((lo, hi) if bounds else ()), *pieces, *rest, **kw))
-        if stream is not None:
-            waits.append((dev, stream))
+        row = []
+        for j, (c0, c1) in enumerate(cols):
+            if hi == lo and (n > 0 or i > 0):
+                row.append(None)
+                continue
+            dev, stream = mesh.devices[i, j], mesh.stream(i, j)
+            cell = Cell(i, j, lo, hi, c0, c1, c)
+            with on_lane(dev, stream):
+                pieces = [_cell_piece(a, cell, dev, stream, mesh) for a in args]
+                row.append(fn(cell, *pieces))
+            if stream is not None:
+                waits.append((dev, stream))
+        parts.append(row)
     for dev, stream in waits:
         torch.cuda.current_stream(dev).wait_stream(stream)
-    return _keep(parts, mesh, ranges)
+    return _keep_blocks(parts, mesh, ranges, cols)

@@ -27,7 +27,13 @@ a number before a c6 run, not a discovery during it:
   (``SchedulerEngine.resident_state_bytes``, summed by lane) and
   compares them with the model at the same shape, within 15 %: the
   previous planes in all, and each lane's previous planes and bytes
-  against the model's per-device share.
+  against the model's per-device share.  Under a mesh with a clusters
+  axis (Nc > 1) each [B, C] plane lies in column blocks, one per entry
+  (i, j): every entry's previous planes are checked against the
+  model's per-device share divided by Nc, and its bytes against that
+  share of the planes plus, on entry (i, 0), the lane's per-object
+  inputs and vectors.  ``project`` and ``decide`` stay the
+  objects-axis model, as the JAX census is.
 
 * :func:`decide` — the compress-or-shard decision against a per-device
   budget (``budget_bytes``, default 16 GiB, the JAX package's
@@ -193,9 +199,23 @@ def validate(n_objects: int = 8192, n_clusters: int = 256, device="cuda", mesh="
     lp, mp = live["by_family"]["prev_planes"], model["by_family"]["prev_planes"]
     md, mt = model["prev_planes_per_device"], model["per_device"]
     lanes = live["prev_planes_by_device"]
+    nc = 1 if eng.mesh is None else int(eng.mesh.devices.shape[1])
+    want_entry = {label: mt for label in live["by_device"]}
+    if nc > 1:
+        # Entry (i, j) holds 1/Nc of its lane's planes and a copy of the
+        # lane's per-object inputs; (i, 0) also the lane's vectors.
+        md //= nc
+        planes_share = model["by_family"]["prev_planes"] // (model["device_count"] * nc)
+        inputs_share = model["by_family"]["per_object"] // model["device_count"]
+        rest = mt - model["prev_planes_per_device"]
+        first = {eng.mesh.entry_label(i, 0) for i in range(eng.mesh.devices.shape[0])}
+        want_entry = {
+            label: planes_share + (rest if label in first else inputs_share)
+            for label in live["by_device"]
+        }
     e = err(lp, mp)
     e_dev = max((err(v, md) for v in lanes.values()), default=1.0)
-    e_lane = max((err(v, mt) for v in live["by_device"].values()), default=1.0)
+    e_lane = max((err(v, want_entry[k]) for k, v in live["by_device"].items()), default=1.0)
     return {
         "shape": f"{n_objects}x{n_clusters}",
         "live": live,

@@ -54,7 +54,15 @@ shard keeps its rows of every chunk's resident state (``RowShards``,
 ``parallel/mesh.py``) and solves them in place with every row-wise
 program on its own device and stream; the shards are collected in row
 order only on the host, where it reads, so a meshed tick equals the
-single-device one.
+single-device one.  A mesh with a clusters axis (Nc > 1) also splits
+every [B, C] plane by columns, one block per entry (``GridShards``):
+the narrow tick, the packed wire, the diff, the feasible counts, the
+f16 planes and the drift gate run split (``ops/split.py``: cell-local
+stages on the blocks, per-row reductions and merges on each lane's
+entry (i, 0)), and the programs that read whole rows (the dense solve,
+the certificate fallback, the survivor programs, the weight check,
+the overflow and dense-fetch gathers) gather them on (i, 0) and send
+their planes back to the blocks.
 
 ``schedule`` takes the JAX engine's whole call surface: a caller-built
 cluster ``view``; ``webhook_eval`` (webhook planes are per-tick results,
@@ -101,6 +109,7 @@ import torch
 from kubeadmiral_tpu_torch.convert import tensor
 from kubeadmiral_tpu_torch.models import types as T
 from kubeadmiral_tpu_torch.ops import phase1 as phase1_mod
+from kubeadmiral_tpu_torch.ops import split as split_mod
 from kubeadmiral_tpu_torch.ops.pipeline import (
     DRIFT_RECOMPUTE,
     DRIFT_WCHECK,
@@ -109,7 +118,7 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
     DRIFT_REFINE_MAX_COLS,
     PackedRows,
     TickInputs,
-    compress_scores,
+    _delta_tables,
     drift_gate_compact,
     drift_gate_dense,
     drift_replan,
@@ -127,13 +136,20 @@ from kubeadmiral_tpu_torch.ops.pipeline import (
 )
 from kubeadmiral_tpu_torch.ops.planner import INT32_INF, RoundBudget
 from kubeadmiral_tpu_torch.parallel.mesh import (
+    _FIELD_SPECS,
+    CLUSTERS,
+    Blocks,
+    GridShards,
     RowIndex,
+    RowReplicas,
     RowShards,
     cat_rows,
+    clusters_axis_size,
     leading_rows,
     make_mesh,
     objects_axis_size,
     run_rows,
+    run_whole,
 )
 from kubeadmiral_tpu_torch.runtime import devprof as devprof_mod
 from kubeadmiral_tpu_torch.runtime import flightrec as flightrec_mod
@@ -596,6 +612,11 @@ class _InFlight:
 def _pieces_of(out):
     """``out`` with every holder replaced by the list of its pieces (what
     the dispatch ledger walks for a ready marker)."""
+    if isinstance(out, GridShards):
+        out = RowShards(out.mesh, [p for row in out.pieces for p in row], out.bounds)
+    if isinstance(out, Blocks):
+        out = RowShards(out.mesh, [v for row in out.values for v in row if v is not None],
+                        out.bounds)
     if isinstance(out, RowShards):
         return [p for p in out.pieces if p.numel()] or out.pieces
     if isinstance(out, tuple):
@@ -647,7 +668,11 @@ class SchedulerEngine:
     its own device and runs every row-wise program on them in place, on
     its own stream; gathers and scatters by global row go to the lanes
     that own the rows, and reads collect the lanes' pieces on the host.
-    The window, the cell budget and the row cap are per device.
+    Under a clusters axis each entry (i, j) holds column block j of lane
+    i's [B, C] planes (the prev planes, feasibility, reasons and the
+    dense format's per-object planes) and runs the cell-local programs
+    on it.  The window, the cell budget and the row cap are per device
+    of the objects axis.
 
     ``schedule`` treats the unit list and the units as immutable: derive
     a changed batch as a fresh list with fresh unit objects.
@@ -821,7 +846,13 @@ class SchedulerEngine:
         # The window is per device (the JAX engine's KT_PIPELINE_DEPTH):
         # a mesh multiplies it by its objects axis.
         self.mesh = self._resolve_mesh(mesh)
-        self._mesh_rows = self.mesh if objects_axis_size(self.mesh) > 1 else None
+        # Under a clusters axis (Nc > 1) every [B, C] plane lies in
+        # column blocks on the mesh's entries (GridShards) and the
+        # tick's programs run split (ops/split.py).
+        self._grid = clusters_axis_size(self.mesh) > 1
+        self._mesh_rows = (
+            self.mesh if objects_axis_size(self.mesh) > 1 or self._grid else None
+        )
         self._lane = None if self.mesh is None else f"mesh{self.mesh.devices.size}"
         self.pipeline_depth_per_device = PIPELINE_DEPTH
         self.pipeline_depth = PIPELINE_DEPTH * objects_axis_size(self.mesh)
@@ -922,6 +953,53 @@ class SchedulerEngine:
             return fn(*rows, *whole)
         return run_rows(self._mesh_rows, fn, rows, whole, bounds=bounds)
 
+    def _whole(self, fn, rows: tuple, whole: tuple = (), cols: Optional[int] = None,
+               bounds: bool = False):
+        """A whole-row program (kind 4 under a clusters axis): ``_on_rows``,
+        with every [B, C] grid plane gathered as each lane's whole rows
+        on entry (i, 0) and each ``[rows, cols]`` output split back into
+        the blocks (``parallel.mesh.run_whole``).  Without a clusters
+        axis it is ``_on_rows``."""
+        if not self._grid:
+            return self._on_rows(fn, rows, whole, bounds=bounds)
+        return run_whole(self._mesh_rows, fn, rows, whole, cols=cols, bounds=bounds)
+
+    def _reduce_rows(self, fn, planes: tuple, op: str):
+        """``fn`` of [rows, C] planes to a per-row value (or a tuple of
+        them), by rows under a mesh (``_on_rows``); under a clusters axis
+        on every block, combined per row on (i, 0) by ``op`` (kinds 1
+        and 2: ``split.grid_reduce_rows``)."""
+        if self._grid:
+            return split_mod.grid_reduce_rows(self._mesh_rows, fn, planes, op)
+        return self._on_rows(fn, planes)
+
+    def _map_cells(self, fn, planes: tuple):
+        """A cell-local ``fn`` of [rows, C] planes, by rows under a mesh;
+        under a clusters axis on every block (kind 1)."""
+        if self._grid:
+            return split_mod.grid_map(self._mesh_rows, fn, planes)
+        return self._on_rows(fn, planes)
+
+    def _cols_index(self, cols) -> torch.Tensor:
+        """Changed columns for ``_write_cols``: on the device for the row
+        programs, on the host under a clusters axis (which routes each
+        column to its block)."""
+        cols = np.asarray(cols, np.int64)
+        return cols if self._grid else tensor(cols, self.device)
+
+    def _write_cols(self, plane, cols, values) -> None:
+        """``refresh_scores``: ``values`` [B, >= len(cols)] written into
+        the columns ``cols`` (``_cols_index``) of ``plane`` in place, by
+        rows; under a clusters axis each column to the block that owns
+        it (kind 1)."""
+        if self._grid:
+            plane.index_copy_cols_(cols, values)
+            return
+        self._on_rows(
+            lambda sco, new_cols, cols: refresh_scores(sco, cols, new_cols),
+            (plane, values), (cols,),
+        )
+
     def _upload_rows(self, arr) -> torch.Tensor:
         """A host ``[n, ...]`` array on the device; under a mesh split by
         rows, one copy straight to each lane."""
@@ -929,9 +1007,27 @@ class SchedulerEngine:
             return tensor(arr, self.device)
         return RowShards.from_host(self._mesh_rows, arr)
 
+    def _upload_inputs(self, arr) -> torch.Tensor:
+        """A host per-row input on the device: under a clusters axis on
+        every entry of its rows' shard (``RowReplicas``), else as
+        ``_upload_rows``."""
+        if not self._grid:
+            return self._upload_rows(arr)
+        return RowReplicas.from_host(self._mesh_rows, arr)
+
+    def _upload_plane(self, arr) -> torch.Tensor:
+        """A host ``[n, C]`` plane on the device: under a clusters axis
+        split by rows and columns, one copy straight to each entry."""
+        if not self._grid:
+            return self._upload_rows(arr)
+        return GridShards.from_host(self._mesh_rows, arr)
+
     def _pack(self, planes: tuple, k: int) -> torch.Tensor:
         """The packed wire of five [N, C] planes (``pack_wire``), by rows
-        under a mesh."""
+        under a mesh; split over the column blocks under a clusters axis
+        (kinds 1 and 3: ``split.grid_pack_wire``)."""
+        if isinstance(planes[0], GridShards):
+            return split_mod.grid_pack_wire(self._mesh_rows, planes, k)
         return self._on_rows(pack_wire, planes, (k,))
 
     def _gather_planes(self, out, planes: int, idx) -> torch.Tensor:
@@ -939,20 +1035,24 @@ class SchedulerEngine:
         the dense format's delta fetch: selected, replicas, counted, then
         the score plane (``planes`` >= 4) and the reason plane (5).  Under
         a mesh each lane takes its share of the index from the lanes that
-        own the rows and lays the planes side by side."""
-        return self._on_rows(
+        own the rows and lays the planes side by side (kind 4: the dense
+        fetch format reads whole rows)."""
+        return self._whole(
             _int32_side_by_side, tuple(p.index_select(0, idx) for p in _planes(out)[:planes])
         )
 
     def _diff(self, out, prev: tuple, n: int) -> torch.Tensor:
         """``_diff_bits`` of a dispatch's first n rows, by rows under a
-        mesh."""
+        mesh (kinds 1 and 2 under a clusters axis: each block's per-row
+        OR, OR-ed on (i, 0))."""
+        planes = (out.selected, out.replicas, out.counted, out.scores) + tuple(prev)
+        planes = tuple(p[:n] for p in planes)
 
         def diff(sel, rep, cnt, sco, *old):
             return _diff_bits(TickPlanes(sel, rep, cnt, sco, None), old, sel.shape[0])
 
-        planes = (out.selected, out.replicas, out.counted, out.scores) + tuple(prev)
-        return self._on_rows(diff, tuple(p[:n] for p in planes))
+        # The two diff bits of the blocks OR-ed: those of the whole row.
+        return self._reduce_rows(diff, planes, "any")
 
     def _observe(self, kind: str, out) -> None:
         """One dispatch into the ledger; a meshed engine's programs on
@@ -1416,7 +1516,9 @@ class SchedulerEngine:
     # -- device uploads --------------------------------------------------
     def _cluster_planes_device(self, view: ClusterView, c_bucket: int) -> dict:
         """The padded cluster-axis tensors, uploaded once per (view,
-        c_bucket) and shared by every dispatch."""
+        c_bucket) and shared by every dispatch; under a clusters axis
+        each entry reads its column block (``Mesh.column_block``: a view
+        on the engine's device, a copy kept on another)."""
         key = (id(view), c_bucket)
         if self._cluster_device is not None and self._cluster_device[0] == key:
             return self._cluster_device[2]
@@ -1440,7 +1542,9 @@ class SchedulerEngine:
 
     def _tables_device(self, vocab: CompactVocab, c_bucket: int) -> dict:
         """Device copies of the vocabulary tables, re-uploaded only when
-        the vocabulary grows or the cluster padding changes."""
+        the vocabulary grows or the cluster padding changes; under a
+        clusters axis each entry reads the cluster-axis tables' column
+        block (``Mesh.column_block``)."""
         key = (vocab.uid, vocab.version, c_bucket)
         if self._device_tables is None or self._device_tables[0] != key:
             tables = Cmp.pad_tables(vocab.tables(), c_bucket)
@@ -1453,11 +1557,17 @@ class SchedulerEngine:
 
     def _upload_per_object(self, padded, fmt: str) -> dict:
         """The per-object tensors of ``padded`` on the device (split by
-        rows over the lanes under a mesh)."""
+        rows over the lanes under a mesh; the dense format's [B, C]
+        planes by rows and columns under a clusters axis)."""
         names = self._per_object_fields(fmt)
         host = {name: np.asarray(getattr(padded, name)) for name in names}
         self.upload_bytes["object"] += sum(a.nbytes for a in host.values())
-        return {name: self._upload_rows(a) for name, a in host.items()}
+        return {
+            name: self._upload_plane(a)
+            if fmt == "dense" and CLUSTERS in _FIELD_SPECS[name]
+            else self._upload_inputs(a)
+            for name, a in host.items()
+        }
 
     def _assemble(self, per_object: dict, fmt: str, vocab, c_bucket: int, cluster_dev):
         if fmt == "compact":
@@ -1538,8 +1648,8 @@ class SchedulerEngine:
 
     def _read_np(self, t: torch.Tensor) -> np.ndarray:
         """Blocking device->host copy, counted in fetch_bytes_total (a
-        holder lane by lane, concatenated on the host)."""
-        arr = t.numpy() if isinstance(t, RowShards) else t.cpu().numpy()
+        holder piece by piece, joined on the host)."""
+        arr = t.numpy() if isinstance(t, (RowShards, GridShards)) else t.cpu().numpy()
         self.fetch_bytes_total += arr.nbytes
         return arr
 
@@ -1571,11 +1681,29 @@ class SchedulerEngine:
             self.narrow_last_m = m
         budgets: list = []
 
-        def solve(piece):
+        def lane_budget():
             sub = budget
             if budget is not None and self._mesh_rows is not None:
                 sub = RoundBudget(budget.rounds, record=budget.per_row is not None)
             budgets.append(sub)
+            return sub
+
+        if self._grid and m is not None:
+            # Kinds 1-3: each block expands, runs the split phase 1 and
+            # its cell-local stages; the rows' reductions, merges and the
+            # planner's scans over [rows, M] run on (i, 0).
+            c = device_in.cluster_valid.shape[0]
+            out, cert, unsettled = split_mod.grid_tick_narrow(
+                self._mesh_rows, device_in, fmt, c, m, self.phase1_i32, key_max,
+                lane_budget if budget is not None else None,
+                observe=self._observe,
+            )
+            self._join_budgets(budget, budgets, unsettled)
+            self._observe("tick_narrow", (out, cert))
+            return out, cert
+
+        def solve(piece):
+            sub = lane_budget()
             if fmt == "compact":
                 tick_in = expand_compact(piece, key_max)
                 if len(budgets) == 1:
@@ -1589,17 +1717,26 @@ class SchedulerEngine:
             )
             return out, cert, _unsettled(sub)
 
-        out, cert, unsettled = self._on_rows(solve, (device_in,))
-        if budget is not None and self._mesh_rows is not None:
-            budget.unsettled = unsettled
-            if budget.per_row is not None:
-                loops = zip(*(b.per_row for b in budgets))
-                budget.per_row.extend(np.concatenate(rounds) for rounds in loops)
+        # Kind 4 under a clusters axis: the dense solve reads whole rows.
+        out, cert, unsettled = self._whole(
+            solve, (device_in,), cols=device_in.cluster_valid.shape[0]
+        )
+        self._join_budgets(budget, budgets, unsettled)
         if m is None:
             self._observe("tick", out)
         else:
             self._observe("tick_narrow", (out, cert))
         return out, cert
+
+    def _join_budgets(self, budget, budgets: list, unsettled) -> None:
+        """Under a mesh, the lanes' planner budgets joined into the
+        tick's: their unsettled rows and recorded rounds, in row order."""
+        if budget is None or self._mesh_rows is None:
+            return
+        budget.unsettled = unsettled
+        if budget.per_row is not None:
+            loops = zip(*(b.per_row for b in budgets))
+            budget.per_row.extend(np.concatenate(rounds) for rounds in loops)
 
     # -- the tick ----------------------------------------------------------
     def schedule(
@@ -1780,6 +1917,8 @@ class SchedulerEngine:
         arrays of their dtypes and shapes.  Holders: one read per lane
         (its pieces joined on its device), the lanes' rows concatenated
         on the host."""
+        if isinstance(planes[0], GridShards):
+            return [p.numpy() for p in planes]
         if isinstance(planes[0], RowShards):
             lanes = [
                 SchedulerEngine._planes_to_host([p.pieces[i] for p in planes])
@@ -1873,7 +2012,14 @@ class SchedulerEngine:
         budget is compared against).  Under a mesh every family is split
         by rows over the lanes, the [B] vectors too, so each lane holds
         its share of the chunks' padded rows (the census's "rows"
-        layout)."""
+        layout).  Under a clusters axis (Nc > 1) the keys are the mesh's
+        entries: each [B, C] plane's block books under its entry's device,
+        or ``"<device>/<i>.<j>"`` where entries share one, each per-row
+        input's copy (``RowReplicas``) under its entry, and the [B]
+        vectors under entry (i, 0)'s; the [B, C] families thus divide by
+        No * Nc and the rest by No, and ``by_family`` counts one copy of
+        each input (the JAX engine's figure divides every family by the
+        objects axis alone)."""
         fams = {"prev_planes": 0, "per_object": 0, "tiebreak": 0, "vectors": 0}
         by_device: dict[str, int] = {}
         prev_by_device: dict[str, int] = {}
@@ -1882,7 +2028,12 @@ class SchedulerEngine:
             if t is None:
                 return
             fams[family] += t.nbytes
-            if isinstance(t, RowShards):
+            if isinstance(t, (GridShards, RowReplicas)):
+                lanes = [(label, p.nbytes) for label, p in t.entries()]
+            elif self._grid and isinstance(t, RowShards):
+                # A [B] vector: on its lane's entry (i, 0).
+                lanes = [(self.mesh.entry_label(i, 0), p.nbytes) for i, p in enumerate(t.pieces)]
+            elif isinstance(t, RowShards):
                 lanes = zip(t.lane_labels(), (p.nbytes for p in t.pieces))
             else:
                 lanes = [(str(t.device), t.nbytes)]
@@ -2045,8 +2196,8 @@ class SchedulerEngine:
                     np.asarray(padded.key_bytes).shape[1],
                 )
 
-            def put(name, dtype):
-                return self._upload_rows(np.ascontiguousarray(cs[name], dtype=dtype))
+            def put(name, dtype, upload=self._upload_plane):
+                return upload(np.ascontiguousarray(cs[name], dtype=dtype))
 
             entry.prev_out = (
                 put("sel", np.int8), put("rep", np.int32),
@@ -2056,7 +2207,7 @@ class SchedulerEngine:
             entry.prev_feas = put("feas", np.int8)
             entry.prev_reasons = put("rsn", np.int32)
             if self.score_f16 and cs.get("sco_exact") is not None:
-                entry.prev_sco_exact = put("sco_exact", np.int8)
+                entry.prev_sco_exact = put("sco_exact", np.int8, self._upload_rows)
             # The feasible counts are derived on the host, not stored:
             # the snapshot's format stays the JAX engine's and nothing is
             # launched.
@@ -2406,11 +2557,9 @@ class SchedulerEngine:
         self.upload_bytes["object"] += sel.nbytes + rep.nbytes + cnt.nbytes
         idx = self._index(late)
         out = it.out
-        moved = self._on_rows(
-            _placement_moved,
-            tuple(p.index_select(0, idx) for p in (out.selected, out.replicas, out.counted))
-            + tuple(self._upload_rows(a) for a in (sel, rep, cnt)),
-        )
+        now = tuple(p.index_select(0, idx) for p in (out.selected, out.replicas, out.counted))
+        old = tuple(self._upload_plane(a) for a in (sel, rep, cnt))
+        moved = self._reduce_rows(_placement_moved, now + old, "any")
         mask = it.mask.clone()
         mask[idx] = moved
         return mask
@@ -2767,7 +2916,10 @@ class SchedulerEngine:
         """Start a device->host copy of ``t`` that a later _finish_read
         waits for: on the card a copy into pinned memory behind an
         event, so the wait covers only the work queued before it.  A
-        holder starts one copy per lane."""
+        holder starts one copy per lane (a grid plane one per entry, each
+        lane's blocks joined side by side on the host)."""
+        if isinstance(t, GridShards):
+            return [{"cols": [self._start_read(p) for p in row]} for row in t.pieces]
         if isinstance(t, RowShards):
             return [self._start_read(p) for p in t.pieces]
         if t.device.type != "cuda":
@@ -2781,6 +2933,8 @@ class SchedulerEngine:
     def _finish_read(self, handle) -> np.ndarray:
         if isinstance(handle, list):
             return np.concatenate([self._finish_read(h) for h in handle])
+        if isinstance(handle, dict):
+            return np.concatenate([self._finish_read(h) for h in handle["cols"]], axis=1)
         host, done = handle
         if done is not None:
             done.synchronize()
@@ -2793,12 +2947,21 @@ class SchedulerEngine:
         past the first axis and one device are joined there (torch.cat)
         and read in one copy, then split by their row counts; every copy
         is queued before the first wait.  A holder's pieces are read
-        with their lanes' groups and concatenated on the host."""
-        pieces, owner = [], []
-        for i, t in enumerate(tensors):
-            for p in t.pieces if isinstance(t, RowShards) else (t,):
-                pieces.append(p)
-                owner.append(i)
+        with their lanes' groups and joined on the host (a grid plane's
+        blocks side by side, then its lanes' rows)."""
+        pieces, layouts = [], []
+        for t in tensors:
+            if isinstance(t, GridShards):
+                rows = t.pieces
+            elif isinstance(t, RowShards):
+                rows = [[p] for p in t.pieces]
+            else:
+                rows = [[t]]
+            layout = []
+            for row in rows:
+                layout.append(list(range(len(pieces), len(pieces) + len(row))))
+                pieces.extend(row)
+            layouts.append(layout)
         groups: dict[tuple, list[int]] = {}
         for k, t in enumerate(pieces):
             groups.setdefault((tuple(t.shape[1:]), t.dtype, str(t.device)), []).append(k)
@@ -2821,10 +2984,14 @@ class SchedulerEngine:
                 rows = pieces[k].shape[0]
                 got[k] = arr[start : start + rows]
                 start += rows
-        out: list = [[] for _ in tensors]
-        for k, i in enumerate(owner):
-            out[i].append(got[k])
-        return [parts[0] if len(parts) == 1 else np.concatenate(parts) for parts in out]
+        out = []
+        for layout in layouts:
+            rows = [
+                got[row[0]] if len(row) == 1 else np.concatenate([got[k] for k in row], axis=1)
+                for row in layout
+            ]
+            out.append(rows[0] if len(rows) == 1 else np.concatenate(rows))
+        return out
 
     def _dispatch_drift_gate(self, entry, fmt: str, c_bucket: int, info: dict, vocab) -> dict:
         """Queue one chunk's drift gate and the copy of its row mask (read
@@ -2862,17 +3029,30 @@ class SchedulerEngine:
                 return drift_gate_compact(per_object, tables, *args, Cmp.CUR_ABSENT)
             return drift_gate_dense(per_object, *args)
 
-        mask, new_cols = self._on_rows(
-            gate,
-            (entry.device_per_object, entry.prev_feas, scores, self._ensure_nfeas(entry)),
-            (fin, tables, *delta),
-            bounds=True,
-        )
+        if self._grid:
+            # Kinds 1 and 2: the changed columns' cells from the blocks
+            # that own them, the rows classified on (i, 0), the exact
+            # refinement's counts summed over the blocks.
+            tables_d = None
+            if fmt == "compact":
+                d_safe = torch.clamp(delta[4].to(torch.int64), 0, c_bucket - 1)
+                tables_d = _delta_tables(tables, d_safe)
+            mask, new_cols = split_mod.grid_drift_gate(
+                self._mesh_rows, fmt, entry.device_per_object, entry.prev_feas, scores,
+                self._ensure_nfeas(entry), fin, delta, tables_d, Cmp.CUR_ABSENT,
+            )
+        else:
+            mask, new_cols = self._on_rows(
+                gate,
+                (entry.device_per_object, entry.prev_feas, scores, self._ensure_nfeas(entry)),
+                (fin, tables, *delta),
+                bounds=True,
+            )
         self._observe("gate", (mask, new_cols))
         return {
             "mask": self._start_read(mask),
             "new_cols": new_cols,
-            "cols": tensor(np.asarray(info["cols"], np.int64), dev),
+            "cols": self._cols_index(info["cols"]),
             "scores": scores,
             "delta": delta,
         }
@@ -2912,13 +3092,14 @@ class SchedulerEngine:
     def _run_group(self, survivor_in, fmt: str, sub, fn, rows: tuple, whole: tuple = ()):
         """``fn(expanded group inputs, *rows, *whole)`` over a gathered
         survivor group; under a mesh each objects shard expands and
-        solves G/N of its rows (the JAX engine's row-sharded groups)."""
+        solves G/N of its rows (the JAX engine's row-sharded groups):
+        a whole-row program (kind 4) under a clusters axis."""
         key_max = survivor_in[2]
 
         def run(piece, *rest):
             return fn(expand_compact(piece, key_max) if fmt == "compact" else piece, *rest)
 
-        return self._on_rows(run, (sub,) + rows, whole)
+        return self._whole(run, (sub,) + rows, whole, cols=sub.cluster_valid.shape[0])
 
     def _survivor_job(self, pi: int, entry, seg, out, cert, pack_k: int, kind: str,
                       program: str) -> dict:
@@ -3171,10 +3352,7 @@ class SchedulerEngine:
                 forced.update(int(r) for r in self._sco_inexact_rows(entry) if r < n)
             # Skipped rows keep exact stored totals; recomputed rows are
             # overwritten by their write-back after this.
-            self._on_rows(
-                lambda sco, new_cols, cols: refresh_scores(sco, cols, new_cols),
-                (gate["scores"], gate["new_cols"]), (gate["cols"],),
-            )
+            self._write_cols(gate["scores"], gate["cols"], gate["new_cols"])
             if self.score_f16:
                 entry.prev_out = entry.prev_out[:3] + (
                     self._compress_scores(entry, gate["scores"], and_old=True),
@@ -3200,8 +3378,9 @@ class SchedulerEngine:
                     ridx[: len(seg)] = seg
                     self.dispatches_total += 1
                     # The group's stored feasibility rows, gathered from
-                    # the lanes that own them; each lane checks its share.
-                    flags = self._on_rows(
+                    # the lanes that own them; each lane checks its share
+                    # (kind 4: the weight check reads whole rows).
+                    flags = self._whole(
                         lambda feas, *cpu: drift_wcheck(
                             feas, torch.arange(feas.shape[0], device=feas.device), *cpu
                         ),
@@ -3329,9 +3508,10 @@ class SchedulerEngine:
         sub = device_in._replace(
             **{name: getattr(device_in, name)[idx] for name in self._per_object_fields(fmt)}
         )
-        fb = self._on_rows(
+        # Kind 4 under a clusters axis: the dense re-solve reads whole rows.
+        fb = self._whole(
             lambda piece: schedule_tick(expand_compact(piece) if fmt == "compact" else piece),
-            (sub,),
+            (sub,), cols=sub.cluster_valid.shape[0],
         )
         self._observe("narrow_fallback", fb)
         for name in ("selected", "replicas", "counted", "reasons"):
@@ -3681,12 +3861,11 @@ class SchedulerEngine:
         )
         for plane, out_plane in zip(planes, out_planes):
             plane.index_copy_(0, dst, out_plane.index_select(0, src).to(plane.dtype))
-        nfeas.index_copy_(
-            0, dst, self._on_rows(_feasible_counts, (out.feasible.index_select(0, src),))
-        )
+        nfeas.index_copy_(0, dst, self._feasible_counts(out.feasible.index_select(0, src)))
         if self.score_f16:
             exact = self._ensure_sco_exact_vec(entry)
-            exact.index_copy_(0, dst, self._on_rows(exact_rows, (out.scores.index_select(0, src),)))
+            scores = out.scores.index_select(0, src)
+            exact.index_copy_(0, dst, self._reduce_rows(exact_rows, (scores,), "all"))
             entry.sco_inexact_host = None
         self._observe("repair", nfeas)
 
@@ -3708,7 +3887,12 @@ class SchedulerEngine:
         vector in (a gate refresh writes through the stored plane)."""
         self.dispatches_total += 1
         old = entry.prev_sco_exact if and_old else None
-        f16, exact = self._on_rows(compress_scores, (scores, old))
+        f16 = self._map_cells(lambda s: s.to(torch.float16), (scores,))
+        # ``ops.pipeline.compress_scores``, its per-row exactness AND-ed
+        # over the blocks under a clusters axis.
+        exact = self._reduce_rows(exact_rows, (scores,), "all")
+        if old is not None:
+            exact = self._on_rows(torch.mul, (exact, old))
         self._observe("score_pack", (f16, exact))
         entry.prev_sco_exact = exact
         entry.sco_inexact_host = None
@@ -3717,7 +3901,7 @@ class SchedulerEngine:
     def _upcast_scores(self, f16) -> torch.Tensor:
         """A stored f16 score plane as i32 (exact rows bit for bit)."""
         self.dispatches_total += 1
-        up = self._on_rows(upcast_scores, (f16,))
+        up = self._map_cells(upcast_scores, (f16,))
         self._observe("score_pack", up)
         return up
 
@@ -3749,7 +3933,7 @@ class SchedulerEngine:
         b_pad = entry.prev_out[0].shape[0]
         vec = entry.prev_sco_exact
         if vec is None or tuple(vec.shape) != (b_pad,):
-            if isinstance(entry.prev_out[0], RowShards):
+            if isinstance(entry.prev_out[0], (RowShards, GridShards)):
                 vec = RowShards.zeros(entry.prev_out[0], torch.int8)
             else:
                 vec = torch.zeros(b_pad, dtype=torch.int8, device=self.device)
@@ -3757,9 +3941,14 @@ class SchedulerEngine:
             entry.sco_inexact_host = None
         return vec
 
+    def _feasible_counts(self, feas):
+        """``_feasible_counts`` of a feasibility plane; under a clusters
+        axis each block's counts summed on (i, 0) (kinds 1 and 2)."""
+        return self._reduce_rows(_feasible_counts, (feas,), "sum")
+
     def _store_nfeas(self, entry, feas) -> None:
         """The per-row feasible counts kept beside a stored prev_feas."""
-        entry.prev_nfeas = self._on_rows(_feasible_counts, (feas,))
+        entry.prev_nfeas = self._feasible_counts(feas)
 
     def _ensure_nfeas(self, entry) -> torch.Tensor:
         """The entry's feasible counts, derived when a store predates them."""
@@ -3873,8 +4062,10 @@ class SchedulerEngine:
             planes = (out.selected, out.counted, out.replicas)
             if with_scores:
                 planes += (out.scores,)
+            # Kind 4 under a clusters axis: the overflow rows' dense
+            # re-fetch reads whole rows.
             gathers.append(
-                self._on_rows(_overflow_words, tuple(p.index_select(0, idx) for p in planes))
+                self._whole(_overflow_words, tuple(p.index_select(0, idx) for p in planes))
             )
             self._observe("overflow", gathers[-1])
         arrs = self._read_all(gathers)

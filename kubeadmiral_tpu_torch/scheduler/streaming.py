@@ -140,7 +140,10 @@ class StreamingScheduler:
             # each lane solving its share and the results written into
             # the lanes that own the rows), so a meshed engine's row
             # watermark scales with its objects axis; an explicit
-            # slab_rows is taken verbatim.
+            # slab_rows is taken verbatim.  A clusters axis splits each
+            # row's columns over the entries of its lane, not the rows,
+            # so a lane's share of a slab's rows is the same: the
+            # watermark scales with the objects axis alone.
             slab_rows = SLAB_ROWS
             mesh = getattr(engine, "mesh", None)
             if mesh is not None:

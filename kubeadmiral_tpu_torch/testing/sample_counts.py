@@ -118,10 +118,18 @@ def round_distribution(log: list) -> dict:
 def recorded_dispatches(keep: Optional[list] = None):
     """Record every tick dispatch the engine makes as (kind, rows,
     clusters), kind "narrow" or "dense" (certificate fallbacks are the
-    dense ones on a narrow path).  With a ``keep`` list, the first
-    dispatch's expanded inputs are appended to it."""
+    dense ones on a narrow path), or "grid": a narrow tick split over a
+    mesh's clusters axis (``ops.split.grid_tick_narrow``, one call for
+    the whole batch).  With a ``keep`` list, the first dispatch's
+    expanded inputs are appended to it (not a grid call's)."""
     shapes = []
     real = {"narrow": engine_mod.schedule_tick_narrow, "dense": engine_mod.schedule_tick}
+    split = engine_mod.split_mod
+    real_grid = split.grid_tick_narrow
+
+    def grid(mesh, device_in, fmt, c, *args, **kwargs):
+        shapes.append(("grid", int(device_in.total.shape[0]), c))
+        return real_grid(mesh, device_in, fmt, c, *args, **kwargs)
 
     def counted(kind):
         def fn(inp, *args, **kwargs):
@@ -133,11 +141,13 @@ def recorded_dispatches(keep: Optional[list] = None):
 
     engine_mod.schedule_tick_narrow = counted("narrow")
     engine_mod.schedule_tick = counted("dense")
+    split.grid_tick_narrow = grid
     try:
         yield shapes
     finally:
         engine_mod.schedule_tick_narrow = real["narrow"]
         engine_mod.schedule_tick = real["dense"]
+        split.grid_tick_narrow = real_grid
 
 
 def full_size_slabs(config: str, seed: int = 0, fraction: float = 0.01) -> dict:

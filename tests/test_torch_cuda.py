@@ -16,7 +16,11 @@ with the same switch; engines over meshes of 2 and 4 logical devices on
 the card against the CPU engine, each lane's resident rows on its lane,
 with no host synchronisation in a meshed window dispatch; over several
 cards (where the machine has them) each lane's state on its own card;
-the memory census against the card's buffers;
+the memory census against the card's buffers; the split phase-1 pair
+(``kt_phase1_partial`` then ``kt_phase1_finish`` over column blocks)
+against its plain twins and against the kernel on whole rows, and an
+engine over a (2, 2) logical mesh on the card (each entry a column
+block of every [B, C] plane) against the CPU engine;
 the geometry keywords on the card; the native host library built on
 the card's machine.
 
@@ -567,6 +571,47 @@ def test_mesh_over_cards_keeps_each_lane_on_its_card(cuda):
         assert sorted(lanes) == [f"cuda:{i}" for i in range(cards)], lanes
 
 
+def test_grid_over_cards_keeps_each_block_on_its_card(cuda):
+    """A (2, 2) grid over four cards: entry (i, j)'s blocks of every
+    [B, C] plane and its copy of the per-row inputs lie on card 2i + j,
+    the [B] vectors on the lanes' cards, each card books its own bytes,
+    and the results equal the CPU engine's."""
+    from kubeadmiral_tpu_torch.parallel.mesh import (
+        GridShards,
+        RowReplicas,
+        RowShards,
+        make_mesh,
+    )
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    mesh = make_mesh([torch.device("cuda", i) for i in range(4)], objects_axis=2)
+    units, clusters, _ = build_world(700, 600, "5", seed=7)
+    gpu = SchedulerEngine(chunk_size=256, mesh=mesh)
+    cpu = SchedulerEngine(device="cpu", chunk_size=256)
+    churned = churn(np.random.default_rng(1), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters),
+        ("drift", churned, drift(clusters)), ("back", churned, clusters),
+    ):
+        want = [r.clusters for r in cpu.schedule(batch, cl)]
+        assert [r.clusters for r in gpu.schedule(batch, cl)] == want, kind
+        for entry in gpu._chunk_cache.values():
+            for t in entry.prev_out + (entry.prev_feas, entry.prev_reasons):
+                assert isinstance(t, GridShards)
+                assert [[p.device for p in row] for row in t.pieces] == mesh.devices.tolist()
+            assert isinstance(entry.prev_nfeas, RowShards)
+            assert [p.device for p in entry.prev_nfeas.pieces] == list(mesh.devices[:, 0])
+            for t in entry.device_per_object.values():
+                assert isinstance(t, (GridShards, RowReplicas))
+                if isinstance(t, RowReplicas):
+                    got = [[c[i].device for c in t.copies] for i in range(2)]
+                    assert got == mesh.devices.tolist()
+        by_card = gpu.resident_state_bytes()["prev_planes_by_device"]
+        assert sorted(by_card) == [f"cuda:{i}" for i in range(4)], by_card
+        assert len(set(by_card.values())) == 1, by_card
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_meshed_window_dispatch_makes_no_host_sync(cuda, n):
     from kubeadmiral_tpu_torch.parallel.mesh import make_mesh
@@ -575,6 +620,79 @@ def test_meshed_window_dispatch_makes_no_host_sync(cuda, n):
     got = first_chunk_syncs(units, clusters, windowed=True, mode="error",
                             mesh=make_mesh([cuda] * n))
     assert got["sites"] == []
+
+
+@pytest.mark.parametrize("b,c,r,invalid,seed", EDGE_SHAPES)
+@pytest.mark.parametrize("blocks", [2, 3, 4])
+def test_split_pair_matches_plain_and_whole_rows(cuda, b, c, r, invalid, seed, blocks):
+    """The split pair on every column block against its plain twins, and
+    the blocks joined against the kernel on the whole rows."""
+    from kubeadmiral_tpu_torch.ops import phase1 as P1
+    from kubeadmiral_tpu_torch.parallel.mesh import _FIELD_SPECS, CLUSTERS, col_bounds
+
+    inp = to_device(edge_tick_inputs(b, c, r, invalid, seed), "cuda")
+    parts, plains, pieces = [], [], []
+    for c0, c1 in col_bounds(c, blocks):
+        blk = inp._replace(**{
+            name: v.narrow(_FIELD_SPECS[name].index(CLUSTERS), c0, c1 - c0).contiguous()
+            for name, v in inp._asdict().items() if CLUSTERS in _FIELD_SPECS[name]
+        })
+        pieces.append(blk)
+        parts.append(P1.phase1_partial(blk))
+        plains.append(P1.phase1_partial_plain(blk))
+        for g, w in zip(parts[-1], plains[-1]):
+            assert torch.equal(g, w)
+    maxima = torch.stack([p[3] for p in parts]).amax(dim=0)
+    totals = []
+    for blk, part, plain in zip(pieces, parts, plains):
+        got = P1.phase1_finish(part[0], blk.score_enabled, blk.taint_counts,
+                               blk.affinity_scores, maxima, part[2])
+        want = P1.phase1_finish_plain(plain[0], blk.score_enabled, blk.taint_counts,
+                                      blk.affinity_scores, maxima, plain[2])
+        assert torch.equal(got, want)
+        totals.append(got)
+    whole = phase1(inp)
+    assert torch.equal(torch.cat([p[0] for p in parts], 1), whole[0])
+    assert torch.equal(torch.cat([p[1] for p in parts], 1), whole[1])
+    assert torch.equal(torch.cat(totals, 1), whole[2])
+
+
+@pytest.mark.parametrize("config", ["3", "5"])
+def test_grid_engine_on_card_matches_cpu(cuda, config):
+    """An engine over a (2, 2) mesh of logical entries on the card:
+    results and counters equal the CPU engine's every tick, every [B, C]
+    plane lies in column blocks on the entries, the narrow ticks launch
+    the split pair once a block and the no-op tick nothing."""
+    from kubeadmiral_tpu_torch.ops import phase1 as P1
+    from kubeadmiral_tpu_torch.parallel.mesh import GridShards, make_mesh
+
+    units, clusters, _ = build_world(700, 600, config, seed=7)
+    gpu = SchedulerEngine(chunk_size=256, mesh=make_mesh([cuda] * 4, objects_axis=2))
+    cpu = SchedulerEngine(device="cpu", chunk_size=256)
+    churned = churn(np.random.default_rng(1), units, fraction=0.02)
+    for kind, batch, cl in (
+        ("cold", units, clusters), ("churn", churned, clusters), ("noop", churned, clusters),
+        ("drift", churned, drift(clusters)), ("fitflip", churned, drift_fitflip(clusters)),
+        ("back", churned, clusters),
+    ):
+        split = P1.phase1_partial.launches
+        finish = P1.phase1_finish.launches
+        got = gpu.schedule(batch, cl)
+        split = P1.phase1_partial.launches - split
+        assert P1.phase1_finish.launches - finish == split, kind
+        want = cpu.schedule(batch, cl)
+        assert [r.clusters for r in got] == [r.clusters for r in want], kind
+        for name in ("cache_stats", "fetch_stats", "drift_stats", "survivor_stats",
+                     "narrow_stats"):
+            assert getattr(gpu, name) == getattr(cpu, name), (kind, name)
+        # Two column blocks a lane: the pair launches on both.
+        assert split % 2 == 0 and (split > 0 if kind == "cold" else True), (kind, split)
+        assert split == 0 or kind != "noop", (kind, split)
+        for entry in gpu._chunk_cache.values():
+            for t in entry.prev_out + (entry.prev_feas, entry.prev_reasons):
+                assert isinstance(t, GridShards) and len(t.pieces[0]) == 2
+        lanes = gpu.resident_state_bytes()["prev_planes_by_device"]
+        assert len(lanes) == 4 and len(set(lanes.values())) == 1, (kind, lanes)
 
 
 def test_census_validates_against_card_buffers(cuda):

@@ -3,7 +3,8 @@
 Mirrors ``tests/test_mesh.py`` on the engine's own path: a
 ``SchedulerEngine`` over a port mesh (``parallel/mesh.py``) dispatches
 a batch through ``_tick`` (each objects shard runs the program on its
-rows, the clusters axis holds no work; ``run_rows``) and equals the JAX
+rows; with a clusters axis the dense tick reads the lanes' whole rows,
+``run_whole``, and its planes go back to the column blocks) and equals the JAX
 package's unsharded ``schedule_tick`` field by field (exact), at the
 layouts (1,1) (4,2) (2,4) (8,1) (1,8); the same engine schedules the
 batch's world as the engine without a mesh does.  The mesh's entries
