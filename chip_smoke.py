@@ -181,9 +181,10 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    logged; fewer cards: a line says so); the kernel on one lane's rows
    of a mesh of 2 (``phase1 c3-mesh2-shard``, ``phase1
    c5-mesh2-shard``); the split pair on the first block of a (2, 2)
-   grid at c5's width (2,048 x 2,560 x 3) against its plain twins and
-   the kernel on the whole rows, timed with its bounds (``phase1 split
-   c5-grid2x2-block``); ``mesh c3 <engine> <tick>`` and ``mesh c5 ...``
+   grid at c5's width (2,048 x 2,560 x 3) and at c3's (2,048 x 256 x 2)
+   against its plain twins and the kernel on the whole rows, timed with
+   its bounds (``phase1 split c5-grid2x2-block``, ``phase1 split
+   c3-grid2x2-block``); ``mesh c3 <engine> <tick>`` and ``mesh c5 ...``
    lines, and the phase's wall (``mesh phase wall``); then the census
    phase (``census_phase``): ``validate`` at 8,192 x 256 on one card,
    over 2 lanes and over a (2, 2) grid, the c5 projection against the c5 cold tick's
@@ -272,7 +273,8 @@ Drives ``kubeadmiral_tpu_torch`` on the card:
    walls by controller kind beside REFERENCE_CONTROL_*; a ``native`` line;
 11. prints the kernels JSON line (``phase1``; then the split pair,
    ``phase1_partial`` and ``phase1_finish``, their launches the grid
-   engines' of the mesh phase), then ``{"ok": true, "device": ...}`` as
+   engines' of the mesh phase, their times at both block widths), then
+   ``{"ok": true, "device": ...}`` as
    the last line.
 
 Any failed check exits nonzero without the final line, and every
@@ -282,7 +284,9 @@ anything.  Usage: ``python3 chip_smoke.py``.
 Phases are cut to fit the time limit: c5's depth turns run over its
 first C5_BUDGET_OBJECTS objects, and the planner-round budget turns run
 at c3 only (c5's were dropped for the mesh, census and native phases;
-c3's check the same equality).  The opt-in phase's c5 engines run over
+c3's check the same equality).  C5_BUDGET_OBJECTS is 25,000: with the
+split pair timed at both block widths a whole run took 1,014 to 1,174 s
+of phases on one H100 at 700 W, the slower past 1,100 s.  The opt-in phase's c5 engines run over
 the world's first C5_OPTIN_OBJECTS objects.  The worlds are frozen out
 of the garbage collector once built (``gc.freeze``): they live until the
 control phase, and every collection would otherwise walk them.
@@ -314,7 +318,7 @@ CONV_OPS_PER_S = 67e12 / 16
 C5_CHECK_ROWS = 1024       # c5 rows re-solved on the CPU engine
 C5_NARROW_ROWS = 512       # c5 chunk rows of the GPU-vs-CPU narrow tick check
 C5_DENSE_OBJECTS = 20000   # c5 depth of the dense-path engine run
-C5_BUDGET_OBJECTS = 50000  # c5 depth of the depth turns
+C5_BUDGET_OBJECTS = 25000  # c5 depth of the depth turns
 FALLBACK_OBJECTS = 4096    # depth of the forced-fallback run (one chunk)
 FALLBACK_NARROW_M = 8      # M = 32 over maxClusters <= 19: many rows fail the cert
 
@@ -2265,7 +2269,8 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
     its plain version on the first lane's rows of the first chunk of a
     mesh of 2, at c3 and at c5's width (2,048 x 5,120 x 3), and the split
     pair on the first block of a (2, 2) grid at c5's width (2,048 x
-    2,560 x 3) against its plain twins and the kernel on the whole rows.
+    2,560 x 3) and at c3's (2,048 x 256 x 2) against its plain twins and
+    the kernel on the whole rows, timed beside its bounds.
     Where the machine has several cards the c3 ticks also run on
     ``mesh="auto"`` over them, and with four a (2, 2) grid over four
     cards.  Each tick logs its wall ms, launches, ledger lanes, resident
@@ -2505,7 +2510,7 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
         gc.unfreeze()
     # The kernel on one lane's rows: the first half of the first chunk
     # (the chunk's inputs built whole on one card); the split pair on
-    # the first block of those rows at c5's width.
+    # the first block of those rows, at both widths.
     gpu = SchedulerEngine(mesh=None)
     for where, (us, cl) in (("c3", (units, clusters)), ("c5", (c5_units, c5_clusters))):
         inp, _, _ = chunk_tick_inputs(gpu, us, cl)
@@ -2515,8 +2520,7 @@ def mesh_phase(units, clusters, c5_units, c5_clusters) -> dict:
             **{k: v[lo:hi] for k, v in inp._asdict().items() if v.shape[:1] == (b,)}
         )
         out[f"kernel_{where}"] = check_phase1(f"{where}-mesh2-shard", shard, timed=True)
-        if where == "c5":
-            out["split_c5"] = check_split("c5-grid2x2-block", shard, 2, timed=True)
+        out[f"split_{where}"] = check_split(f"{where}-grid2x2-block", shard, 2, timed=True)
         del inp, shard
     del gpu
     torch.cuda.empty_cache()
@@ -3771,7 +3775,7 @@ def main() -> int:
     log(f"phase extension: {time.perf_counter() - t0:.2f} s")
 
     c5, c3 = rows["5"], rows["3"]
-    split = mesh["split_c5"]
+    split, split_c3 = mesh["split_c5"], mesh["split_c3"]
     # The split pair's launches on the grid engines' ticks of the mesh
     # phase (each tick counted from 0), by world, engine and tick.
     split_ticks = {
@@ -3786,9 +3790,9 @@ def main() -> int:
     if not sum(split_ticks["split"].values()) or not sum(split_ticks["finish"].values()):
         raise AssertionError(f"the grid engines launched no split pair: {split_ticks}")
 
-    def split_entry(name: str, part: str, ms: float, plain_ms: float) -> dict:
+    def split_entry(name: str, part: str) -> dict:
         counted = split_ticks["split" if part == "partial" else "finish"]
-        bound = split["bounds"][part]
+        bound, bound_c3 = split["bounds"][part], split_c3["bounds"][part]
         return {
             "name": name,
             "route": "cuda",
@@ -3796,18 +3800,26 @@ def main() -> int:
             "replaces": "kubeadmiral_tpu/ops/pallas_slab.py:64",
             "match": True,
             "launches": sum(counted.values()),
-            "max_abs_err": split["max_abs_err"],
-            "ms": ms,
-            "plain_ms": plain_ms,
+            "max_abs_err": max(split["max_abs_err"], split_c3["max_abs_err"]),
+            "ms": split[f"{part}_ms"],
+            "plain_ms": split[f"plain_{part}_ms"],
             "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"],
             "library_ms": None,
             "shape": split["shape"],
             "bound_bytes": bound["bytes"],
+            "ms_c3": split_c3[f"{part}_ms"],
+            "plain_ms_c3": split_c3[f"plain_{part}_ms"],
+            "bound_ms_c3": bound_c3["bound_ms"],
+            "bound_by_c3": bound_c3["bound_by"],
+            "shape_c3": split_c3["shape"],
             "launches_by_tick": counted,
             "pair_ms": split["ms"],
             "pair_plain_ms": split["plain_ms"],
             "pair_bound_ms": split["bounds"]["pair"]["bound_ms"],
+            "pair_ms_c3": split_c3["ms"],
+            "pair_plain_ms_c3": split_c3["plain_ms"],
+            "pair_bound_ms_c3": split_c3["bounds"]["pair"]["bound_ms"],
             "card": card,
         }
 
@@ -4053,11 +4065,10 @@ def main() -> int:
                 "card": card,
             },
             # The split pair on the mesh's clusters axis: timed on the
-            # first block of a (2, 2) grid at c5's width.
-            split_entry("phase1_partial", "partial", split["partial_ms"],
-                        split["plain_partial_ms"]),
-            split_entry("phase1_finish", "finish", split["finish_ms"],
-                        split["plain_finish_ms"]),
+            # first block of a (2, 2) grid at c5's width (and at c3's,
+            # the "_c3" keys).
+            split_entry("phase1_partial", "partial"),
+            split_entry("phase1_finish", "finish"),
         ]
     }
     log(f"phase total: {time.perf_counter() - t_all:.2f} s")

@@ -59,15 +59,36 @@
 //   cell by cell; the two-row kernels 150 registers, no spills.
 //
 // The split pair, for a column block of the mesh's clusters axis, where
-// a row's two normalisation maxima span every block: kt_phase1_partial
-// runs pass 1 alone (phase1_kernel<1, false, kVec, true>: one row a
-// block, the partial totals stored as pass 1 stores them past the
-// shared-memory widths) and writes each row's two masked maxima over the
-// block instead of pass 2; once the maxima are combined over the row's
-// blocks, kt_phase1_finish (finish_kernel, one thread a cell) reads the
-// feasibility and the two score planes again and adds the normalised
-// terms to the totals in place.  Simple and correct first: PERF.md has
-// the pair's times beside its bounds.
+// a row's two normalisation maxima span every block.  Both halves are
+// bound by bytes (chip_smoke.py: split_bounds): the partial reads what
+// phase 1 reads and writes its three planes and the rows' maxima; the
+// finish reads the feasibility and, on the feasible cells of rows that
+// normalise, the score planes and totals, and writes those totals.
+// - kt_phase1_partial: maxima_init_kernel (each row's maxima start at
+//   INT32_MIN, or at 0 where the row does not normalise that plugin),
+//   then partial_kernel as its programmatic dependent: one wave of
+//   resident blocks, each on a tile of rows x quads, so the tile's
+//   column values are read and derived once a block and the rows' flags
+//   and requests once a block, not once a row.  Each thread walks its
+//   rows behind a cp.async ring kStages rows deep (masks, webhook scores
+//   and the normalised planes, these read whether or not the quad is
+//   feasible, so no load waits on a row's feasibility): a row's bytes
+//   are in flight while the rows before it compute, in shared memory,
+//   not registers.  Each warp folds its row's maxima by shuffles and
+//   sends one atomicMax a plugin.  Two blocks of 256 threads an SM: the
+//   resource plugins' 64-bit work holds about 120 registers a thread,
+//   and three blocks (85) spill.
+// - kt_phase1_finish: finish_kernel, one thread a quad, block (x, y) on
+//   segment x of row y: the row's flags, maxima, divisors and
+//   reciprocals with no division by C, loaded in the feasibility word's
+//   round trip; 16-byte score and totals accesses, none where a quad has
+//   no feasible cell.
+// On an H100 (700 W), at the c5-width block (2,048 x 2,560 x 3): the
+// partial 0.0665-0.0670 ms against its 0.0336 ms bound; the finish
+// 0.0387 ms against 0.0149 ms: it moves the 32-byte sectors that hold
+// the cells it needs, 93.5 MB against the bound's 50.0 MB (a totals quad
+// with one feasible cell is read and written whole), at about the
+// card's copy rate.  PERF.md has the measurements.
 //
 // Division.  Every kept quotient is floor(num / den) with den clamped to
 // [1, ...): num an int64 that may have wrapped (x100 products), den a
@@ -96,6 +117,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -389,7 +411,7 @@ struct Planes {
   uint8_t* feasible;              // [B, C]
   int32_t* reasons;
   int64_t* totals;
-  int32_t* maxima;                // [B, 2] (kSplit only)
+  int32_t* maxima;                // [B, 2] (the split partial only)
 };
 
 // The column planes: alloc and used [C, R] resource-major, then what the
@@ -467,15 +489,10 @@ constexpr uint32_t kRowNorm = kRowTaint | kRowAffinity;
 
 // kRows rows per block; kShared: keep pass 2's state in shared memory
 // (else in the totals output, with the score planes read again); kVec:
-// every quad is one aligned access (C % 4 == 0, 16-byte aligned planes);
-// kSplit: pass 1 only, on a column block (kt_phase1_partial), the
-// normalised terms left out of the totals and each row's two masked
-// maxima over the block written to `maxima` instead (0 where the row
-// does not normalise that plugin).
-template <int kRows, bool kShared, bool kVec, bool kSplit = false>
+// every quad is one aligned access (C % 4 == 0, 16-byte aligned planes).
+template <int kRows, bool kShared, bool kVec>
 __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
     phase1_kernel(const Planes p, int B, int C, int R) {
-  static_assert(!(kSplit && kShared), "a split block keeps its partial totals in the output");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t s_flags[kRows];
   __shared__ int32_t red[kMaxWarps][2 * kRows];
@@ -726,13 +743,7 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
       }
     }
   }
-  if (!(any & kRowNorm)) {  // block-uniform
-    if (kSplit && threadIdx.x < kRows && row0 + threadIdx.x < B) {
-      p.maxima[2 * (size_t)(row0 + threadIdx.x)] = 0;
-      p.maxima[2 * (size_t)(row0 + threadIdx.x) + 1] = 0;
-    }
-    return;
-  }
+  if (!(any & kRowNorm)) return;  // block-uniform
 
   // The rows' maxima over their C >= 1 masked values.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = (blockDim.x + 31) / 32;
@@ -752,18 +763,6 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
     row_max[threadIdx.x] = m;
   }
   __syncthreads();
-  if (kSplit) {
-    // The block's maxima; kt_phase1_finish adds the normalised terms once
-    // the row's maxima over every block are known.
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (threadIdx.x != i || row0 + i >= B) continue;
-      const size_t row = row0 + i;
-      p.maxima[2 * row] = (rf[i] & kRowTaint) ? row_max[i] : 0;
-      p.maxima[2 * row + 1] = (rf[i] & kRowAffinity) ? row_max[kRows + i] : 0;
-    }
-    return;
-  }
 
   // Pass 2: the normalised terms, on rows that normalise.
   int32_t t_max[kRows], a_max[kRows];
@@ -847,10 +846,10 @@ __global__ void __launch_bounds__(kMaxThreads, kRows == 1 ? 2 : 1)
   }
 }
 
-template <int kRows, bool kShared, bool kVec, bool kSplit = false>
+template <int kRows, bool kShared, bool kVec>
 cudaError_t launch(const Planes& p, int B, int C, int R, size_t smem, int threads,
                    cudaStream_t stream) {
-  auto kernel = phase1_kernel<kRows, kShared, kVec, kSplit>;
+  auto kernel = phase1_kernel<kRows, kShared, kVec>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -875,60 +874,535 @@ cudaError_t launch(const Planes& p, int B, int C, int R, size_t smem, int thread
 
 bool aligned16(const void* x) { return (reinterpret_cast<uintptr_t>(x) & 15) == 0; }
 
+// ---- The split pair ---------------------------------------------------------
+
+constexpr int kSplitThreads = 256;  // most threads a block, both kernels
+constexpr int kPartialBlocks = 2;   // partial blocks an SM (the register bound)
+constexpr int kPartialSpan = 64;    // most quads a partial block's column tile spans
+constexpr int kPartialRows = 256;   // most rows a partial block walks
+
 __global__ void fill_kernel(int32_t* __restrict__ p, int n, int32_t v) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k < n) p[k] = v;
 }
 
-// kt_phase1_finish's kernel: one thread a cell (a grid-stride loop).  On
-// a feasible cell, the normalised taint and affinity terms of the row's
-// maxima over the whole cluster axis are added to the partial total;
-// elsewhere the total is 0 already.
-__global__ void finish_kernel(const uint8_t* __restrict__ feasible,
-                              const uint8_t* __restrict__ score_enabled,
-                              const int32_t* __restrict__ taint_counts,
-                              const int32_t* __restrict__ affinity_scores,
-                              const int32_t* __restrict__ maxima, int64_t* __restrict__ totals,
-                              int B, int C) {
-  const size_t cells = (size_t)B * C;
-  for (size_t k = blockIdx.x * (size_t)blockDim.x + threadIdx.x; k < cells;
-       k += (size_t)gridDim.x * blockDim.x) {
-    if (!feasible[k]) continue;
-    const size_t row = k / C;
-    const bool taint = score_enabled[row * kPlugins + kTaint];
-    const bool affinity = score_enabled[row * kPlugins + kAffinity];
-    if (!taint && !affinity) continue;
-    long long t = totals[k];
-    if (taint) {
-      const int32_t m = maxima[2 * row];
-      const long long den = m < 1 ? 1 : m;
-      bool bad = false;
-      int32_t v = normalize<false>(taint_counts[k], m, den, div_rcp(den), true, bad);
-      if (bad) v = normalize<true>(taint_counts[k], m, den, 0.0f, true, bad);
-      t = wadd(t, v);
+// kt_phase1_partial's first kernel: each row's two maxima start at the
+// max's identity, INT32_MIN, where the row normalises that plugin, and
+// at 0 where it does not.  partial_kernel is launched as its programmatic
+// dependent and waits for it before its first atomicMax.
+__global__ void maxima_init_kernel(const uint8_t* __restrict__ score_enabled,
+                                   int32_t* __restrict__ maxima, int B) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < 2 * B)
+    maxima[k] = score_enabled[(size_t)(k / 2) * kPlugins + (k % 2 ? kAffinity : kTaint)]
+                    ? INT32_MIN
+                    : 0;
+}
+
+// The split partial's row flags, fit test and reason bits: the
+// expressions phase1_kernel writes inline (it keeps its own text, so
+// that its build stays instruction for instruction what it was).
+
+// A row's flags (row < B).
+__device__ __forceinline__ uint32_t row_flags(const Planes& p, int row, int R) {
+  const uint8_t* fe = p.filter_enabled + row * kPlugins;
+  const uint8_t* se = p.score_enabled + row * kPlugins;
+  bool no_request = true;
+  for (int r = 0; r < R; ++r) no_request &= p.request[(size_t)row * R + r] <= 0;
+  return kPresent | (fe[kApi] ? kRowApi : 0) | (fe[kTaintFilter] ? kRowTaintFilter : 0) |
+         (fe[kFit] && !no_request ? kRowFit : 0) |
+         (fe[kPlacement] && p.placement_has[row] ? kRowPlacement : 0) |
+         (fe[kSelector] ? kRowSelector : 0) | (se[kTaint] ? kRowTaint : 0) |
+         (se[kAffinity] ? kRowAffinity : 0) | (se[kBalanced] ? kRowBalanced : 0) |
+         (se[kLeast] ? kRowLeast : 0) | (se[kMost] ? kRowMost : 0);
+}
+
+// One resource's fit test on a quad: a byte of 1 per cell that fails.
+__device__ __forceinline__ uint32_t fit_fail4(const long long (&a)[4], const long long (&u)[4],
+                                              long long rq) {
+  uint32_t fail = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) fail |= (a[j] >= wadd(rq, u[j]) ? 0u : 1u) << (8 * j);
+  return fail;
+}
+
+// A quad's reason bits, a byte a cell, from its mask words (a byte of 1
+// per passing cell) and fit failures; the taint filter's bits apart.
+__device__ __forceinline__ uint32_t reason_bits(uint32_t wok, uint32_t valid4, uint32_t api,
+                                                uint32_t plc, uint32_t sel, uint32_t fit_fail) {
+  return ((wok ^ kOnes) << kReasonWebhookFilter) | ((valid4 ^ kOnes) << kReasonClusterInvalid) |
+         ((api ^ kOnes) << kApi) | ((plc ^ kOnes) << kPlacement) | ((sel ^ kOnes) << kSelector) |
+         (fit_fail << kFit);
+}
+
+__device__ __forceinline__ uint32_t taint_reason(uint32_t cur, uint32_t t_cur, uint32_t t_new) {
+  return (((cur & t_cur) | ((cur ^ kOnes) & t_new)) ^ kOnes) << kTaintFilter;
+}
+
+// Feasibility, a byte of 1 per cell with no reason bit.  Every reason
+// byte is below 0x80: adding 0x7f sets its top bit iff it is nonzero.
+__device__ __forceinline__ uint32_t feasible_bits(uint32_t r4) {
+  return (((r4 + 0x7f7f7f7fu) & 0x80808080u) ^ 0x80808080u) >> 7;
+}
+
+// The partial's prefetch ring in shared memory: kStages stages, each
+// holding what a thread loads of one row's quad before it knows the
+// quad's feasibility — six mask words (a disabled filter's slot holds its
+// pass value) and three int4 quads (webhook scores, taint counts,
+// affinity scores) — in slots [field][thread], each thread's own.  The
+// loads are cp.async copies: in flight kStages - 1 rows ahead without
+// holding a register.
+constexpr int kStages = 3;
+constexpr int kRingWords = 6, kRingQuads = 3;
+constexpr int kWok = 0, kWApi = 1, kWCur = 2, kWTaintNew = 3, kWSel = 4, kWPlc = 5;
+constexpr int kQWebhook = 0, kQTaint = 1, kQAffinity = 2;
+constexpr size_t kRingBytes = kRingWords * 4 + kRingQuads * 16;  // a thread's stage
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// One row's quad into a thread's ring slots (w: its stage's words, field
+// f at w[f * T]; q: its stage's quads, field g at q[g * T]).  Aligned
+// quads are copied asynchronously; the cell-by-cell path loads and stores.
+template <bool kVec>
+__device__ __forceinline__ void ring_fetch(const Planes& p, uint32_t rf, size_t base, int n,
+                                           uint32_t* w, int4* q, int T) {
+  const uint8_t* masks[] = {p.webhook_ok, p.api_ok, p.current_mask, p.taint_ok_new,
+                            p.selector_ok, p.placement_ok};
+  const bool on[] = {true, (rf & kRowApi) != 0, (rf & kRowTaintFilter) != 0,
+                     (rf & kRowTaintFilter) != 0, (rf & kRowSelector) != 0,
+                     (rf & kRowPlacement) != 0};
+  const uint32_t pass[] = {kOnes, kOnes, 0, kOnes, kOnes, kOnes};
+  const int32_t* planes[] = {p.webhook_scores, p.taint_counts, p.affinity_scores};
+  const bool scored[] = {true, (rf & kRowTaint) != 0, (rf & kRowAffinity) != 0};
+#pragma unroll
+  for (int f = 0; f < kRingWords; ++f) {
+    if (!on[f])
+      w[f * T] = pass[f];
+    else if (kVec)
+      cp_async4(w + f * T, masks[f] + base);
+    else
+      w[f * T] = ld_mask4(masks[f], base, n, false);
+  }
+#pragma unroll
+  for (int g = 0; g < kRingQuads; ++g) {
+    if (!scored[g]) continue;
+    if (kVec) {
+      cp_async16(q + g * T, planes[g] + base);
+    } else {
+      int32_t v[4];
+      ld_i32x4(planes[g], base, n, false, v);
+      q[g * T] = make_int4(v[0], v[1], v[2], v[3]);
     }
-    if (affinity) {
-      const int32_t m = maxima[2 * row + 1];
-      const long long den = m < 1 ? 1 : m;
-      bool bad = false;
-      int32_t v = normalize<false>(affinity_scores[k], m, den, div_rcp(den), false, bad);
-      if (bad) v = normalize<true>(affinity_scores[k], m, den, 0.0f, false, bad);
-      t = wadd(t, v);
-    }
-    totals[k] = t;
   }
 }
 
-// columns_kernel, then phase1_kernel over the B x C planes: whole rows
-// (kSplit false) or pass 1 of a column block (kSplit true).
-template <bool kSplit>
-int launch_phase1(const void* filter_enabled, const void* score_enabled, const void* request,
-                  const void* placement_has, const void* api_ok, const void* taint_ok_new,
-                  const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
-                  const void* current_mask, const void* webhook_ok, const void* webhook_scores,
-                  const void* taint_counts, const void* affinity_scores, const void* alloc,
-                  const void* used, const void* cluster_valid, void* feasible, void* reasons,
-                  void* totals, void* cols, void* maxima, int B, int C, int R, void* stream) {
+// A partial block's column tile in shared memory: the cpu and mem
+// alloc/used of its 4 * span columns, then what the resource plugins
+// derive from them; each array holds the tile's columns in order, so a
+// thread's quad is 16-byte aligned.
+struct TileColumns {
+  long long *ac, *am, *uc, *um, *tot;
+  float *rc, *rm, *rt;
+  int32_t* sh;
+};
+
+__device__ __forceinline__ TileColumns tile_columns(unsigned char* base, int span) {
+  long long* l = reinterpret_cast<long long*>(base);
+  const int w = 4 * span;
+  float* f = reinterpret_cast<float*>(l + 5 * w);
+  return TileColumns{l, l + w, l + 2 * w, l + 3 * w, l + 4 * w,
+                     f, f + w, f + 2 * w, reinterpret_cast<int32_t*>(f + 3 * w)};
+}
+
+constexpr size_t kTileColumnBytes = 5 * 8 + 3 * 4 + 4;  // shared bytes a tile column
+constexpr size_t kPartialRowBytes = 8 * 1024;  // shared bytes for a block's rows' flags, requests
+// A partial block's most shared memory: the widest tile, the ring at
+// kSplitThreads, the rows (two blocks fit an SM's 227 KB).
+constexpr size_t kPartialSmem = 4 * kPartialSpan * kTileColumnBytes +
+                                kStages * kSplitThreads * kRingBytes + kPartialRowBytes;
+
+__device__ __forceinline__ void lds_i64x4(const long long* p, long long (&v)[4]) {
+  const longlong2 a = reinterpret_cast<const longlong2*>(p)[0];
+  const longlong2 b = reinterpret_cast<const longlong2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void lds_32x4(const T* p, T (&v)[4]) {
+  static_assert(sizeof(T) == 4, "a 4-byte array");
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  const float w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) memcpy(&v[j], &w[j], 4);
+}
+
+// kt_phase1_partial's kernel: pass 1 on a tile of rows x quads.  Block
+// (x, y) takes column tile x (`span` quads, a multiple of 32) for rows
+// [y * block_rows, ...); its threads are blockDim / span row lanes of
+// `span` threads, thread t of a lane on quad x * span + t and rows lane,
+// lane + lanes, ..., so each warp is on one row at a time and every
+// branch on the row's flags is warp-uniform.  The tile's column values go
+// to shared memory once a block, and a thread's quad of them to registers
+// once a row; the ring brings each row's masks and planes kStages - 1
+// rows ahead.  A row's two masked maxima: a warp's by shuffles, then one
+// atomicMax a warp (order-free, so exact) on maxima_init_kernel's start.
+template <bool kVec>
+__global__ void __launch_bounds__(kSplitThreads, kPartialBlocks)
+    partial_kernel(const Planes p, const int64_t* __restrict__ alloc,
+                   const int64_t* __restrict__ used, int B, int C, int R, int span,
+                   int block_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileColumns tc = tile_columns(smem, span);
+  const int T = blockDim.x;
+  int4* ring_q = reinterpret_cast<int4*>(smem + 4 * span * kTileColumnBytes);  // [stage][3][T]
+  uint32_t* ring_w = reinterpret_cast<uint32_t*>(ring_q + kStages * kRingQuads * T);
+  int64_t* s_req = reinterpret_cast<int64_t*>(ring_w + kStages * kRingWords * T);
+  uint32_t* s_flags = reinterpret_cast<uint32_t*>(s_req + (size_t)block_rows * R);
+
+  const int quads = (C + 3) / 4;
+  const int lanes = blockDim.x / span, lane = threadIdx.x / span, t = threadIdx.x % span;
+  const int q = blockIdx.x * span + t;
+  const int c0 = 4 * q;
+  const int n = q >= quads ? 0 : C - c0 < 4 ? C - c0 : 4;  // the quad's cells (0: no quad)
+  const int row0 = blockIdx.y * block_rows;
+  const int rows = B - row0 < block_rows ? B - row0 : block_rows;
+
+  // The block's rows' flags and requests, and its column tile, once (the
+  // tile's derived values as columns_kernel derives them; that kernel
+  // keeps its own text, whose build a shared helper changed).
+  for (int k = threadIdx.x; k < rows; k += blockDim.x) s_flags[k] = row_flags(p, row0 + k, R);
+  for (int k = threadIdx.x; k < rows * R; k += blockDim.x)
+    s_req[k] = p.request[(size_t)row0 * R + k];
+  for (int k = threadIdx.x; k < 4 * span; k += blockDim.x) {
+    const int c = 4 * blockIdx.x * span + k;
+    const long long a_cpu = c < C ? __ldg(alloc + (size_t)c * R + kCpu) : 0;
+    const long long a_mem = c < C ? __ldg(alloc + (size_t)c * R + kMem) : 0;
+    tc.uc[k] = c < C ? __ldg(used + (size_t)c * R + kCpu) : 0;
+    tc.um[k] = c < C ? __ldg(used + (size_t)c * R + kMem) : 0;
+    const int s_cpu = range_shift(a_cpu), s_mem = range_shift(a_mem);
+    const long long tt = wmul(a_cpu >> s_cpu, a_mem >> s_mem);
+    tc.ac[k] = a_cpu;
+    tc.am[k] = a_mem;
+    tc.tot[k] = tt < 1 ? 1 : tt;
+    tc.rc[k] = div_rcp(a_cpu < 1 ? 1 : a_cpu);
+    tc.rm[k] = div_rcp(a_mem < 1 ? 1 : a_mem);
+    tc.rt[k] = div_rcp(tt < 1 ? 1 : tt);
+    tc.sh[k] = s_cpu | s_mem << 8;
+  }
+  const uint32_t valid4 = n > 0 ? ld_mask4(p.cluster_valid, c0, n, kVec) : 0;
+  __syncthreads();
+
+  // The thread's rows are lane, lane + lanes, ...; its ring slots.
+  const int my_rows = lane < rows ? (rows - 1 - lane) / lanes + 1 : 0;
+  auto fetch = [&](int k) {
+    const int i = lane + k * lanes, stage = k % kStages;
+    if (k < my_rows && n > 0)
+      ring_fetch<kVec>(p, s_flags[i], (size_t)(row0 + i) * C + c0, n,
+                       ring_w + stage * kRingWords * T + threadIdx.x,
+                       ring_q + stage * kRingQuads * T + threadIdx.x, T);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) fetch(k);
+  // The maxima's start is maxima_init_kernel's output.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  for (int k = 0; k < my_rows; ++k) {
+    const int i = lane + k * lanes;
+    fetch(k + kStages - 1);
+    cp_async_wait<kStages - 1>();  // row k's copies have landed
+    const uint32_t* w = ring_w + (k % kStages) * kRingWords * T + threadIdx.x;
+    const int4* rq4 = ring_q + (k % kStages) * kRingQuads * T + threadIdx.x;
+    const uint32_t rf = s_flags[i];
+    const int64_t* rq = s_req + (size_t)i * R;
+    const size_t row = row0 + i;
+    const size_t base = row * C + c0;
+    uint32_t feas4 = 0;
+    if (n > 0) {
+      long long ac[4] = {}, am[4] = {}, uc[4] = {}, um[4] = {};
+      if (rf & (kRowFit | kRowResources)) {
+        lds_i64x4(tc.ac + 4 * t, ac);
+        lds_i64x4(tc.am + 4 * t, am);
+        lds_i64x4(tc.uc + 4 * t, uc);
+        lds_i64x4(tc.um + 4 * t, um);
+      }
+      uint32_t fit_fail = 0;
+      if (rf & kRowFit) {
+        fit_fail = fit_fail4(ac, uc, rq[kCpu]) | fit_fail4(am, um, rq[kMem]);
+        // A third resource on, where the row requests it: L1 hits after
+        // the thread's first row.
+        for (int r = kFixedResources; r < R; ++r) {
+          if (rq[r] <= 0) continue;
+          long long a[4], u[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            a[j] = j < n ? __ldg(alloc + (size_t)(c0 + j) * R + r) : 0;
+            u[j] = j < n ? __ldg(used + (size_t)(c0 + j) * R + r) : 0;
+          }
+          fit_fail |= fit_fail4(a, u, rq[r]);
+        }
+      }
+      uint32_t r4 = reason_bits(w[kWok * T], valid4, w[kWApi * T], w[kWPlc * T], w[kWSel * T],
+                                fit_fail);
+      if (rf & kRowTaintFilter) {
+        const uint32_t cur = w[kWCur * T];
+        const uint32_t t_cur = cur != 0 ? ld_mask4(p.taint_ok_cur, base, n, kVec) : 0;
+        r4 |= taint_reason(cur, t_cur, w[kWTaintNew * T]);
+      }
+      feas4 = feasible_bits(r4);
+      st_u8x4(p.feasible, base, n, kVec, feas4);
+      st_reasons4(p.reasons, base, n, kVec, r4);
+      long long part[4] = {0, 0, 0, 0};
+      if (feas4 != 0) {
+        if (rf & kRowResources) {
+          long long tot[4] = {1, 1, 1, 1};
+          float rc[4] = {}, rm[4] = {}, rt[4] = {};
+          int32_t sh[4] = {};
+          if (rf & (kRowLeast | kRowMost)) {
+            lds_32x4(tc.rc + 4 * t, rc);
+            lds_32x4(tc.rm + 4 * t, rm);
+          }
+          if (rf & kRowBalanced) {
+            lds_i64x4(tc.tot + 4 * t, tot);
+            lds_32x4(tc.rt + 4 * t, rt);
+            lds_32x4(tc.sh + 4 * t, sh);
+          }
+          bool bad = false;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            part[j] = resource_score<false>(quad_column(ac, am, uc, um, rc, rm, tot, rt, sh, j),
+                                            rq[kCpu], rq[kMem], rf & kRowBalanced,
+                                            rf & kRowLeast, rf & kRowMost, cell(feas4, j), bad);
+          if (bad) {  // rare: a kept quotient past the short division's range
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (cell(feas4, j))
+                part[j] = resource_score_exact(quad_column(ac, am, uc, um, rc, rm, tot, rt, sh, j),
+                                               rq[kCpu], rq[kMem], rf & kRowBalanced,
+                                               rf & kRowLeast, rf & kRowMost);
+          }
+        }
+        const int4 wh = rq4[kQWebhook * T];
+        const int32_t whj[4] = {wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (cell(feas4, j)) part[j] = wadd(part[j], whj[j]);
+      }
+      st_i64x4(p.totals, base, n, kVec, part);
+    }
+    if (rf & kRowNorm) {  // warp-uniform
+      int32_t mt = INT32_MIN, ma = INT32_MIN;  // identity where the thread has no quad
+      int32_t vt[4] = {0, 0, 0, 0}, va[4] = {0, 0, 0, 0};
+      if (n > 0 && (rf & kRowTaint)) {
+        const int4 v = rq4[kQTaint * T];
+        vt[0] = v.x, vt[1] = v.y, vt[2] = v.z, vt[3] = v.w;
+      }
+      if (n > 0 && (rf & kRowAffinity)) {
+        const int4 v = rq4[kQAffinity * T];
+        va[0] = v.x, va[1] = v.y, va[2] = v.z, va[3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= n) break;
+        const bool f = cell(feas4, j);
+        const int32_t vj = f ? vt[j] : 0, aj = f ? va[j] : 0;
+        mt = vj > mt ? vj : mt;
+        ma = aj > ma ? aj : ma;
+      }
+      const bool first = threadIdx.x % 32 == 0;
+      if (rf & kRowTaint) {
+        mt = warp_max(mt);
+        if (first) atomicMax(p.maxima + 2 * row, mt);
+      }
+      if (rf & kRowAffinity) {
+        ma = warp_max(ma);
+        if (first) atomicMax(p.maxima + 2 * row + 1, ma);
+      }
+    }
+  }
+}
+
+// The totals' quads, read before this thread writes them in place (so
+// not through the read-only cache).
+__device__ __forceinline__ void ld_totals4(const int64_t* __restrict__ p, size_t i, int n,
+                                           bool vec, long long (&v)[4]) {
+  if (vec) {
+    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(p + i));
+    const longlong2 b = __ldcs(reinterpret_cast<const longlong2*>(p + i) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = j < n ? p[i + j] : 0;
+}
+
+// kt_phase1_finish's kernel: one thread a quad.  Block (x, y) takes
+// segment x of row y (rows y, y + gridDim.y, ... past the grid's
+// height), so a warp's accesses are contiguous runs and the row's flags,
+// maxima, divisors and reciprocals are the thread's without a division
+// by C; the flags, maxima and feasibility word are loaded together.  A
+// row that normalises nothing reads nothing more; a quad with no feasible
+// cell reads no score plane and no total.  On a feasible cell the
+// normalised terms are added to the partial total in place.
+template <bool kVec>
+__global__ void __launch_bounds__(kSplitThreads)
+    finish_kernel(const uint8_t* __restrict__ feasible, const uint8_t* __restrict__ score_enabled,
+                  const int32_t* __restrict__ taint_counts,
+                  const int32_t* __restrict__ affinity_scores,
+                  const int32_t* __restrict__ maxima, int64_t* __restrict__ totals, int B, int C) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int quads = (C + 3) / 4;
+  const int n = C - 4 * q < 4 ? C - 4 * q : 4;
+  for (int row = blockIdx.y; row < B; row += gridDim.y) {
+    const bool taint = score_enabled[(size_t)row * kPlugins + kTaint];
+    const bool affinity = score_enabled[(size_t)row * kPlugins + kAffinity];
+    const int32_t t_max = maxima[2 * (size_t)row], a_max = maxima[2 * (size_t)row + 1];
+    const size_t base = (size_t)row * C + 4 * q;
+    const uint32_t f4 = q < quads ? ld_mask4(feasible, base, n, kVec) : 0;
+    if (!(taint || affinity) || f4 == 0) continue;
+    int32_t vt[4] = {0, 0, 0, 0}, va[4] = {0, 0, 0, 0};
+    long long tot[4];
+    if (taint) ld_i32x4(taint_counts, base, n, kVec, vt);
+    if (affinity) ld_i32x4(affinity_scores, base, n, kVec, va);
+    ld_totals4(totals, base, n, kVec, tot);
+    const long long t_den = t_max < 1 ? 1 : t_max, a_den = a_max < 1 ? 1 : a_max;
+    const float t_rcp = div_rcp(t_den), a_rcp = div_rcp(a_den);
+    long long out[4];
+    bool bad = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bool b = false;
+      long long v = tot[j];
+      if (taint) v = wadd(v, normalize<false>(vt[j], t_max, t_den, t_rcp, true, b));
+      if (affinity) v = wadd(v, normalize<false>(va[j], a_max, a_den, a_rcp, false, b));
+      out[j] = cell(f4, j) ? v : tot[j];
+      bad |= b && cell(f4, j);
+    }
+    if (bad) {  // rare: a quotient past the short division's range
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!cell(f4, j)) continue;
+        bool b = false;
+        long long v = tot[j];
+        if (taint) v = wadd(v, normalize<true>(vt[j], t_max, t_den, t_rcp, true, b));
+        if (affinity) v = wadd(v, normalize<true>(va[j], a_max, a_den, a_rcp, false, b));
+        out[j] = v;
+      }
+    }
+    st_i64x4(totals, base, n, kVec, out);
+  }
+}
+
+// Per device, read once: its SM count and how many partial blocks fit on
+// one of its SMs, for the partial's grid.
+struct SplitGeometry {
+  int sms = 0;
+  int partial[2] = {0, 0};  // [kVec]
+};
+
+cudaError_t split_geometry(SplitGeometry& out) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex lock;
+  static SplitGeometry cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  SplitGeometry& g = cache[dev];
+  if (g.sms == 0) {
+    SplitGeometry n;
+    if ((err = cudaDeviceGetAttribute(&n.sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (err = cudaFuncSetAttribute(partial_kernel<false>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kPartialSmem)) ||
+        (err = cudaFuncSetAttribute(partial_kernel<true>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kPartialSmem)) ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n.partial[0], partial_kernel<false>,
+                                                              kSplitThreads, kPartialSmem)) ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n.partial[1], partial_kernel<true>,
+                                                              kSplitThreads, kPartialSmem)))
+      return err;
+    g = n;
+  }
+  out = g;
+  return cudaSuccess;
+}
+
+// partial_kernel's grid: column tiles of at most kPartialSpan quads, an
+// even share each; then one wave of resident blocks over the rows, each
+// block on an even share of them (at most kPartialRows, and what
+// kPartialRowBytes holds).
+// Launched as maxima_init_kernel's programmatic dependent.
+template <bool kVec>
+cudaError_t launch_partial(const Planes& p, const int64_t* alloc, const int64_t* used, int B,
+                           int C, int R, const SplitGeometry& g, cudaStream_t stream) {
+  const int quads = (C + 3) / 4;
+  const int tiles = (quads + kPartialSpan - 1) / kPartialSpan;
+  const int span = ((quads + tiles - 1) / tiles + 31) / 32 * 32;
+  const int threads = kSplitThreads / span * span;
+  const int resident = g.sms * (g.partial[kVec] * kSplitThreads / threads);
+  const size_t fixed = 4 * (size_t)span * kTileColumnBytes + kStages * (size_t)threads * kRingBytes;
+  const size_t row_bytes = R * sizeof(int64_t) + sizeof(uint32_t);
+  const size_t room = kPartialRowBytes / row_bytes;
+  const int cap = room < (size_t)kPartialRows ? (room > 0 ? (int)room : 1) : kPartialRows;
+  const int want = resident / tiles > 1 ? resident / tiles : 1;
+  int block_rows = (B + want - 1) / want;
+  block_rows = block_rows < cap ? block_rows : cap;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(tiles, (B + block_rows - 1) / block_rows);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = fixed + block_rows * row_bytes;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, partial_kernel<kVec>, p, alloc, used, B, C, R, span, block_rows);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (bound with ctypes from ops/phase1.py).  Each entry
+// launches on `stream` without synchronising and returns the first launch
+// error (0 = launched).  The three per-cell score planes are int32, as
+// every featurizer emits them.
+
+// The phase-1 triple over whole rows: columns_kernel, then phase1_kernel;
+// `cols` is the caller's int64 scratch of [2R + 3, C] for the column
+// planes.
+extern "C" int kt_phase1(
+    const void* filter_enabled, const void* score_enabled, const void* request,
+    const void* placement_has, const void* api_ok, const void* taint_ok_new,
+    const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
+    const void* current_mask, const void* webhook_ok, const void* webhook_scores,
+    const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
+    const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols, int B,
+    int C, int R, void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (R < kFixedResources) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -944,7 +1418,7 @@ int launch_phase1(const void* filter_enabled, const void* score_enabled, const v
       (const uint8_t*)current_mask,   (const uint8_t*)webhook_ok,    (const int32_t*)webhook_scores,
       (const int32_t*)taint_counts,   (const int32_t*)affinity_scores, (int64_t*)cols,
       (const uint8_t*)cluster_valid,  (uint8_t*)feasible,            (int32_t*)reasons,
-      (int64_t*)totals,               (int32_t*)maxima};
+      (int64_t*)totals,               nullptr};
   const void* planes[] = {api_ok, taint_ok_new, taint_ok_cur, selector_ok, placement_ok,
                           current_mask, webhook_ok, webhook_scores, taint_counts,
                           affinity_scores, cluster_valid, cols, feasible, reasons, totals};
@@ -964,14 +1438,10 @@ int launch_phase1(const void* filter_enabled, const void* score_enabled, const v
   auto state = [&](int rows) {
     return requests(rows) + (size_t)rows * quads * (4 * (8 + 4 + 4) + 4);
   };
-  if (kSplit)
-    // One row a block, its partial totals stored in pass 1: no pass 2.
-    err = vec ? launch<1, false, true, true>(p, B, C, R, requests(1), threads, s)
-              : launch<1, false, false, true>(p, B, C, R, requests(1), threads, s);
   // Two rows a block while two such blocks fit on an SM; past that, one
   // row: two one-row blocks on an SM, each loading while the other
   // computes or reduces, beat one two-row block (PERF.md, PR 4).
-  else if (state(2) <= half_smem)
+  if (state(2) <= half_smem)
     err = vec ? launch<2, true, true>(p, B, C, R, state(2), threads, s)
               : launch<2, true, false>(p, B, C, R, state(2), threads, s);
   else if (state(1) <= max_smem)
@@ -983,36 +1453,15 @@ int launch_phase1(const void* filter_enabled, const void* score_enabled, const v
   return (int)err;
 }
 
-}  // namespace
-
-// Plain C interface (bound with ctypes from ops/phase1.py).  Each entry
-// launches on `stream` without synchronising and returns the first launch
-// error (0 = launched).  The three per-cell score planes are int32, as
-// every featurizer emits them; `cols` is the caller's int64 scratch of
-// [2R + 3, C] for the column planes.
-
-// The phase-1 triple over whole rows: columns_kernel, then phase1_kernel.
-extern "C" int kt_phase1(
-    const void* filter_enabled, const void* score_enabled, const void* request,
-    const void* placement_has, const void* api_ok, const void* taint_ok_new,
-    const void* taint_ok_cur, const void* selector_ok, const void* placement_ok,
-    const void* current_mask, const void* webhook_ok, const void* webhook_scores,
-    const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
-    const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols, int B,
-    int C, int R, void* stream) {
-  return launch_phase1<false>(filter_enabled, score_enabled, request, placement_has, api_ok,
-                              taint_ok_new, taint_ok_cur, selector_ok, placement_ok, current_mask,
-                              webhook_ok, webhook_scores, taint_counts, affinity_scores, alloc,
-                              used, cluster_valid, feasible, reasons, totals, cols, nullptr, B, C,
-                              R, stream);
-}
-
 // Pass 1 on a column block of C columns (the mesh's clusters axis; the
 // planes, `alloc`, `used` and `cluster_valid` are the block's own, so no
 // global column index enters): feasible and reasons in full, the totals
 // without the normalised taint and affinity terms, and `maxima` i32[B, 2],
 // each row's masked taint and affinity maxima over the block (0 where the
 // row does not score that plugin; INT32_MIN on a block of no column).
+// maxima_init_kernel, then partial_kernel.  `cols` is not read (the
+// partial derives its column values itself); it keeps kt_phase1's
+// argument list.
 extern "C" int kt_phase1_partial(
     const void* filter_enabled, const void* score_enabled, const void* request,
     const void* placement_has, const void* api_ok, const void* taint_ok_new,
@@ -1021,35 +1470,56 @@ extern "C" int kt_phase1_partial(
     const void* taint_counts, const void* affinity_scores, const void* alloc, const void* used,
     const void* cluster_valid, void* feasible, void* reasons, void* totals, void* cols,
     void* maxima, int B, int C, int R, void* stream) {
-  if (B > 0 && C <= 0) {  // an empty block: the maxima over no column, INT32_MIN
-    fill_kernel<<<(2 * B + 255) / 256, 256, 0, (cudaStream_t)stream>>>((int32_t*)maxima, 2 * B,
-                                                                       INT32_MIN);
+  (void)cols;
+  if (B <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C <= 0) {  // an empty block: the maxima over no column, INT32_MIN
+    fill_kernel<<<(2 * B + 255) / 256, 256, 0, s>>>((int32_t*)maxima, 2 * B, INT32_MIN);
     return (int)cudaGetLastError();
   }
-  return launch_phase1<true>(filter_enabled, score_enabled, request, placement_has, api_ok,
-                             taint_ok_new, taint_ok_cur, selector_ok, placement_ok, current_mask,
-                             webhook_ok, webhook_scores, taint_counts, affinity_scores, alloc,
-                             used, cluster_valid, feasible, reasons, totals, cols, maxima, B, C,
-                             R, stream);
+  if (R < kFixedResources) return (int)cudaErrorInvalidValue;
+  SplitGeometry g;
+  cudaError_t err = split_geometry(g);
+  if (err != cudaSuccess) return (int)err;
+  maxima_init_kernel<<<(2 * B + 255) / 256, 256, 0, s>>>((const uint8_t*)score_enabled,
+                                                          (int32_t*)maxima, B);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const Planes p{
+      (const uint8_t*)filter_enabled, (const uint8_t*)score_enabled, (const int64_t*)request,
+      (const uint8_t*)placement_has,  (const uint8_t*)api_ok,        (const uint8_t*)taint_ok_new,
+      (const uint8_t*)taint_ok_cur,   (const uint8_t*)selector_ok,   (const uint8_t*)placement_ok,
+      (const uint8_t*)current_mask,   (const uint8_t*)webhook_ok,    (const int32_t*)webhook_scores,
+      (const int32_t*)taint_counts,   (const int32_t*)affinity_scores, nullptr,
+      (const uint8_t*)cluster_valid,  (uint8_t*)feasible,            (int32_t*)reasons,
+      (int64_t*)totals,               (int32_t*)maxima};
+  const void* planes[] = {api_ok, taint_ok_new, taint_ok_cur, selector_ok, placement_ok,
+                          current_mask, webhook_ok, webhook_scores, taint_counts,
+                          affinity_scores, cluster_valid, feasible, reasons, totals};
+  int vec = C % 4 == 0;
+  for (const void* x : planes) vec &= aligned16(x);
+  const int64_t *a = (const int64_t*)alloc, *u = (const int64_t*)used;
+  return (int)(vec ? launch_partial<true>(p, a, u, B, C, R, g, s)
+                   : launch_partial<false>(p, a, u, B, C, R, g, s));
 }
 
 // The rest of a split block: given `maxima` i32[B, 2], each row's maxima
 // over every block of the cluster axis, adds the normalised taint and
 // affinity terms to kt_phase1_partial's totals in place (reading the
-// feasibility and the two score planes again).
+// feasibility and, where a quad has a feasible cell, the score planes
+// and totals again).  finish_kernel: each row's quads in even segments
+// of at most kSplitThreads, a block each.
 extern "C" int kt_phase1_finish(const void* feasible, const void* score_enabled,
                                 const void* taint_counts, const void* affinity_scores,
                                 const void* maxima, void* totals, int B, int C, void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  const size_t cells = (size_t)B * C;
-  const int threads = 256;
-  const size_t want = (cells + threads - 1) / threads;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t cap = (size_t)(sms > 0 ? sms : 1) * 16;  // 16 blocks an SM at most
-  const int blocks = (int)(want < cap ? want : cap);
-  finish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int quads = (C + 3) / 4;
+  const int segs = (quads + kSplitThreads - 1) / kSplitThreads;
+  const int threads = ((quads + segs - 1) / segs + 31) / 32 * 32;
+  const bool vec = C % 4 == 0 && aligned16(feasible) && aligned16(taint_counts) &&
+                   aligned16(affinity_scores) && aligned16(totals);
+  const dim3 grid((quads + threads - 1) / threads, B < 65535 ? B : 65535);
+  auto kernel = vec ? finish_kernel<true> : finish_kernel<false>;
+  kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)feasible, (const uint8_t*)score_enabled, (const int32_t*)taint_counts,
       (const int32_t*)affinity_scores, (const int32_t*)maxima, (int64_t*)totals, B, C);
   return (int)cudaGetLastError();

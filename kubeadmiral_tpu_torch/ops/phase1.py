@@ -214,8 +214,8 @@ _MASK, _I32, _I64 = (torch.bool,), (torch.int32,), (torch.int64,)
 
 
 def _launch_args(inp, device):
-    """(input tensors checked for the kernel, outputs, scratch, (B, C, R))
-    of one phase-1 launch over expanded TickInputs planes."""
+    """(input tensors checked for the kernel, outputs, (B, C, R)) of one
+    phase-1 launch over expanded TickInputs planes."""
     b, c = inp.api_ok.shape
     r = inp.request.shape[1]
     # The three per-cell score planes are int32, as every featurizer
@@ -243,9 +243,7 @@ def _launch_args(inp, device):
         torch.empty((b, c), dtype=torch.int32, device=device),
         torch.empty((b, c), dtype=torch.int64, device=device),
     )
-    # Scratch for the kernel's column planes (csrc/phase1.cu:columns_kernel).
-    cols = torch.empty((2 * r + 3, c), dtype=torch.int64, device=device)
-    return args, outs, cols, (b, c, r)
+    return args, outs, (b, c, r)
 
 
 def _device_of(t):
@@ -262,7 +260,9 @@ def phase1(inp):
     if device.type == "cpu":
         return phase1_plain(inp)
     lib = _library()
-    args, outs, cols, dims = _launch_args(inp, device)
+    args, outs, dims = _launch_args(inp, device)
+    # Scratch for the kernel's column planes (csrc/phase1.cu:columns_kernel).
+    cols = torch.empty((2 * dims[2] + 3, dims[1]), dtype=torch.int64, device=device)
     ptrs = [x.data_ptr() for x in (*args, *outs, cols)]
     # The launch goes to the tensors' card, whichever card is current.
     with torch.cuda.device(device):
@@ -286,9 +286,10 @@ def phase1_partial(inp):
     if device.type == "cpu":
         return phase1_partial_plain(inp)
     lib = _library()
-    args, outs, cols, dims = _launch_args(inp, device)
+    args, outs, dims = _launch_args(inp, device)
     maxima = torch.empty((dims[0], 2), dtype=torch.int32, device=device)
-    ptrs = [x.data_ptr() for x in (*args, *outs, cols, maxima)]
+    # The partial reads no column-plane scratch: None for kt_phase1's `cols`.
+    ptrs = [x.data_ptr() for x in (*args, *outs)] + [None, maxima.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.kt_phase1_partial(*ptrs, *dims, stream)

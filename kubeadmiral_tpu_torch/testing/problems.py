@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from kubeadmiral_tpu_torch.ops.pipeline import TickInputs
+from kubeadmiral_tpu_torch.ops.scores import S_AFFINITY, S_TAINT
 
 INF = 2**31 - 1
 
@@ -151,3 +152,30 @@ def edge_tick_inputs(b, c, r=3, invalid=0.05, seed=0):
         cluster_valid=valid,
         **planes,
     )
+
+
+def split_edge_inputs(b, c, r=3, seed=0):
+    """``edge_tick_inputs`` (no invalid column) with the split pair's
+    maxima edges drawn in: every third row passes every column and scores
+    affinity on values all below 0, so its affinity maximum is negative
+    (and taint on counts all 0, so its taint maximum is 0); the rows after
+    them score neither taint nor affinity, so their maxima are 0."""
+    inp = edge_tick_inputs(b, c, r, 0.0, seed)
+    rng = np.random.default_rng(seed * 7907 + b * 1000 + c + 2)
+    rows = np.arange(b)
+    every = rows % 3 == 0
+    filter_enabled = inp.filter_enabled.copy()
+    filter_enabled[every] = False
+    webhook_ok = inp.webhook_ok.copy()
+    webhook_ok[every] = True
+    score_enabled = inp.score_enabled.copy()
+    score_enabled[every, S_TAINT] = score_enabled[every, S_AFFINITY] = True
+    neither = rows % 3 == 1
+    score_enabled[neither, S_TAINT] = score_enabled[neither, S_AFFINITY] = False
+    affinity = inp.affinity_scores.copy()
+    affinity[every] = rng.integers(-(2**31), 0, (int(every.sum()), c), dtype=np.int64)
+    taint = inp.taint_counts.copy()
+    taint[every] = 0
+    return inp._replace(filter_enabled=filter_enabled, webhook_ok=webhook_ok,
+                        score_enabled=score_enabled, affinity_scores=affinity.astype(np.int32),
+                        taint_counts=taint)

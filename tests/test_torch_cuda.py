@@ -51,6 +51,7 @@ from kubeadmiral_tpu_torch.testing.problems import (
     EDGE_SHAPES,
     edge_tick_inputs,
     random_tick_inputs,
+    split_edge_inputs,
 )
 from kubeadmiral_tpu_torch.testing.sample_counts import recorded_dispatches
 from kubeadmiral_tpu_torch.testing.syncs import first_chunk_syncs
@@ -622,21 +623,32 @@ def test_meshed_window_dispatch_makes_no_host_sync(cuda, n):
     assert got["sites"] == []
 
 
-@pytest.mark.parametrize("b,c,r,invalid,seed", EDGE_SHAPES)
-@pytest.mark.parametrize("blocks", [2, 3, 4])
-def test_split_pair_matches_plain_and_whole_rows(cuda, b, c, r, invalid, seed, blocks):
-    """The split pair on every column block against its plain twins, and
-    the blocks joined against the kernel on the whole rows."""
+def _one_row_in(inp):
+    """Every [B, ...] plane of ``inp`` as a view one row into a copy with
+    a row before it: contiguous, and off 16-byte alignment wherever a
+    row's bytes are."""
+    b = inp.api_ok.shape[0]
+    return inp._replace(**{
+        name: torch.cat([v[:1], v])[1:] for name, v in inp._asdict().items()
+        if v.dim() and v.shape[0] == b
+    })
+
+
+def _check_split_pair(inp, blocks, view=False):
+    """The split pair on every column block of ``inp`` against its plain
+    twins, and the blocks joined against the kernel on the whole rows;
+    with ``view``, each block's planes views one row in."""
     from kubeadmiral_tpu_torch.ops import phase1 as P1
     from kubeadmiral_tpu_torch.parallel.mesh import _FIELD_SPECS, CLUSTERS, col_bounds
 
-    inp = to_device(edge_tick_inputs(b, c, r, invalid, seed), "cuda")
     parts, plains, pieces = [], [], []
-    for c0, c1 in col_bounds(c, blocks):
+    for c0, c1 in col_bounds(inp.api_ok.shape[1], blocks):
         blk = inp._replace(**{
             name: v.narrow(_FIELD_SPECS[name].index(CLUSTERS), c0, c1 - c0).contiguous()
             for name, v in inp._asdict().items() if CLUSTERS in _FIELD_SPECS[name]
         })
+        if view:
+            blk = _one_row_in(blk)
         pieces.append(blk)
         parts.append(P1.phase1_partial(blk))
         plains.append(P1.phase1_partial_plain(blk))
@@ -655,6 +667,39 @@ def test_split_pair_matches_plain_and_whole_rows(cuda, b, c, r, invalid, seed, b
     assert torch.equal(torch.cat([p[0] for p in parts], 1), whole[0])
     assert torch.equal(torch.cat([p[1] for p in parts], 1), whole[1])
     assert torch.equal(torch.cat(totals, 1), whole[2])
+
+
+@pytest.mark.parametrize("b,c,r,invalid,seed", EDGE_SHAPES)
+@pytest.mark.parametrize("blocks", [2, 3, 4])
+def test_split_pair_matches_plain_and_whole_rows(cuda, b, c, r, invalid, seed, blocks):
+    """The split pair on every column block against its plain twins, and
+    the blocks joined against the kernel on the whole rows."""
+    _check_split_pair(to_device(edge_tick_inputs(b, c, r, invalid, seed), "cuda"), blocks)
+
+
+# (b, c, column blocks, views one row in): the partial's tiles of rows x
+# quads and the finish's row segments at their edges — B off any row
+# tile, and B = 1; blocks wider than one column tile (5,124 and 5,125
+# columns); blocks narrower than a quad, and of one column; planes one
+# row into their storage (C % 4 == 0, the masks off 16-byte alignment).
+# split_edge_inputs draws rows whose every cell is feasible with affinity
+# values all below 0 (negative maxima) and rows that score neither
+# normalised plugin.
+SPLIT_TILING = [
+    (37, 520, 2, False),
+    (1, 600, 3, False),
+    (6, 10248, 2, False),
+    (5, 10250, 2, False),
+    (9, 6, 3, False),
+    (7, 3, 4, False),
+    (23, 520, 2, True),
+    (300, 1040, 4, True),
+]
+
+
+@pytest.mark.parametrize("b,c,blocks,view", SPLIT_TILING)
+def test_split_pair_on_tiling_edges(cuda, b, c, blocks, view):
+    _check_split_pair(to_device(split_edge_inputs(b, c, seed=b + c), "cuda"), blocks, view)
 
 
 @pytest.mark.parametrize("config", ["3", "5"])

@@ -10,8 +10,9 @@ partials (``ops/split.py``).  These tests hold:
   ``phase1_finish_plain``) over 2, 3 and 4 column blocks against
   ``phase1_plain``, the JAX package's ``_phase1`` and its Pallas kernel
   in interpret mode, on test_torch_phase1.py's cases and kernel edges,
-  a row whose feasible columns all lie in one block and a row whose
-  taint maximum is 0 in every block;
+  a row whose feasible columns all lie in one block, a row whose taint
+  maximum is 0 in every block, rows whose maxima are negative in every
+  block and rows that score neither normalised plugin;
 * the dynamic weights' split stages against ``dynamic_weights`` and
   the JAX package's;
 * each split program (the narrow tick, the packed wire, the diff, the
@@ -47,13 +48,18 @@ from kubeadmiral_tpu.ops import weights as jax_weights  # noqa: E402
 from kubeadmiral_tpu_torch.convert import to_device  # noqa: E402
 from kubeadmiral_tpu_torch.ops import phase1 as P  # noqa: E402
 from kubeadmiral_tpu_torch.ops import pipeline as TP  # noqa: E402
+from kubeadmiral_tpu_torch.ops import scores as S  # noqa: E402
 from kubeadmiral_tpu_torch.ops import split as SP  # noqa: E402
 from kubeadmiral_tpu_torch.ops import weights as W  # noqa: E402
 from kubeadmiral_tpu_torch.parallel import mesh as M  # noqa: E402
 from kubeadmiral_tpu_torch.runtime import census  # noqa: E402
 from kubeadmiral_tpu_torch.scheduler import engine as engine_mod  # noqa: E402
 from kubeadmiral_tpu_torch.scheduler.engine import SchedulerEngine  # noqa: E402
-from kubeadmiral_tpu_torch.testing.problems import EDGE_SHAPES, edge_tick_inputs  # noqa: E402
+from kubeadmiral_tpu_torch.testing.problems import (  # noqa: E402
+    EDGE_SHAPES,
+    edge_tick_inputs,
+    split_edge_inputs,
+)
 
 from __graft_entry__ import _example_batch  # noqa: E402
 from test_multidevice import _world  # noqa: E402
@@ -161,6 +167,25 @@ def test_split_pair_rows_across_blocks():
     _pair_against_references(inp)
     parts = P.phase1_partial_plain(_blocks(to_device(inp, "cpu"), 4)[1])
     assert int(parts[3][0, 0]) == 0 and int(parts[3][1, 0]) == 0
+
+
+@pytest.mark.parametrize("b,c,seed", [(21, 24, 0), (13, 33, 1), (1, 40, 2)])
+def test_split_pair_negative_maxima_and_unscored_rows(b, c, seed):
+    """Rows whose every cell is feasible, with affinity values all below
+    0 (their maxima are negative in every block, so a block's maxima must
+    start below any value, not at 0), and rows that score neither
+    normalised plugin (their maxima are 0)."""
+    inp = split_edge_inputs(b, c, 3, seed)
+    feas, _, _, maxima = P.phase1_partial_plain(to_device(inp, "cpu"))
+    negative = feas.all(1) & (maxima[:, 1] < 0)
+    assert negative.any()
+    se = torch.from_numpy(np.asarray(inp.score_enabled))
+    unscored = ~se[:, S.S_TAINT] & ~se[:, S.S_AFFINITY]
+    assert (maxima[unscored] == 0).all() and (unscored.any() or b == 1)
+    for part in _blocks(to_device(inp, "cpu"), 4):
+        if part.api_ok.shape[1]:
+            assert (P.phase1_partial_plain(part)[3][negative, 1] < 0).all()
+    _pair_against_references(inp)
 
 
 def test_split_weights_compose():
